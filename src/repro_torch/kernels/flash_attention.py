@@ -1,0 +1,98 @@
+"""K2: flash attention, forward — the prompt phase of ``sequential``
+serving (monolithic prefill through ``forward_hidden``).
+
+Replaces the Pallas TPU kernel
+``src/repro/kernels/flash_attention.py::flash_attention``; the CUDA
+source is ``csrc/flash_attention.cu``, whose header note says what
+bounds it and how.  Query and key positions are their indices, as in the
+Pallas kernel; ``kv_lens`` masks keys at or past each row's length.
+
+Layouts are the model's: q [B, T, H, d]; k/v [B, Tk, KV, d]; kv_lens [B]
+int32.  Returns o [B, T, H, d] in q's dtype.  The backward pass belongs
+to the training slice.
+
+Dispatch: CPU tensors take :func:`flash_attention_plain`; CUDA tensors
+launch the kernel or raise.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models import layers
+from repro_torch.models.layers import NO_WINDOW
+
+launches = 0
+
+_SYMBOLS = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p])
+
+
+def flash_attention_plain(q, k, v, kv_lens, *, scale, causal=True,
+                          window=None, softcap=None):
+    """The plain PyTorch version: ``models.layers.flash_attention`` with
+    index positions."""
+    B, T = q.shape[:2]
+    Tk = k.shape[1]
+    q_positions = torch.arange(T, device=q.device)[None].expand(B, T)
+    kv_positions = torch.arange(Tk, device=q.device)[None].expand(B, Tk)
+    return layers.flash_attention(
+        q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+        kv_valid_len=kv_lens.long(), scale=scale, causal=causal,
+        window=window, attn_softcap=softcap)
+
+
+def _check(q, k, v, kv_lens):
+    if q.ndim != 4:
+        raise ValueError(f"q must be [B, T, H, d], got shape {tuple(q.shape)}")
+    B, T, H, d = q.shape
+    if k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"k/v must share shape [B, Tk, KV, d], got "
+                         f"{tuple(k.shape)} vs {tuple(v.shape)}")
+    if k.shape[0] != B or k.shape[3] != d or H % k.shape[2]:
+        raise ValueError(f"k {tuple(k.shape)} disagrees with q {tuple(q.shape)}: "
+                         "need the same B and d and H a multiple of KV")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q/k/v dtypes must match, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if kv_lens.shape != (B,) or kv_lens.dtype.is_floating_point \
+            or kv_lens.dtype == torch.bool:
+        raise ValueError(f"kv_lens must be integer [B={B}], got "
+                         f"{tuple(kv_lens.shape)} {kv_lens.dtype}")
+    devs = {t.device for t in (q, k, v, kv_lens)}
+    if len(devs) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devs}")
+
+
+def flash_attention(q, k, v, kv_lens, *, scale: float, causal: bool = True,
+                    window=None, softcap=None):
+    """Flash attention, forward (see the module docstring for layouts)."""
+    _check(q, k, v, kv_lens)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_lens, scale=scale,
+                                     causal=causal, window=window,
+                                     softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, got {q.device}")
+    build.check_cuda_args(dict(q=q, k=k, v=v, kv_lens=kv_lens), ("kv_lens",),
+                          q.dtype, q.shape[-1])
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    B, T, H, d = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    fn = build.kernel_fn("flash_attention", _SYMBOLS[q.dtype], _ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
+            out.data_ptr(), B, T, Tk, H, KV, d, float(scale), int(causal),
+            NO_WINDOW if window is None else int(window),
+            0.0 if softcap is None else float(softcap),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    global launches
+    launches += 1
+    return out

@@ -1,0 +1,440 @@
+"""Decoder-only transformer, dense family, in PyTorch.
+
+The serving steps of the reference ``models/transformer.py``:
+  - prefill / forward_hidden   (batched prompt -> KV + last logits)
+  - decode                     (one token/seq over paged KV)
+  - mixed                      (Splitwiser: prefill chunks + decode tokens
+                                share every GEMM in one step)
+
+Parameters are a plain dict with the reference's names and layouts
+(``wq [L,D,H_p,hd]``, ``wo [L,H_p,hd,D]``, ``embed [Vp,D]``, pools
+``[L,N,ps,KV_p,hd]``), per-layer weights stacked on a leading ``L``
+axis.  The reference's ``lax.scan`` over layers is a Python loop over
+that axis.  Page pools are updated **in place** (the reference donated
+its buffers to the jitted step instead): ``decode``/``mixed`` write the
+step's K/V into the pools they are given and return the same tensors.
+
+Attention goes through ``repro_torch.kernels.ops``: the CUDA kernels on
+the card, their plain versions for CPU tensors.  Training, MoE, VLM and
+the gemma2 features (post-attention norms, embedding scale, final-logit
+softcap) are later slices; :func:`check_config` refuses them.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (NEG_INF, NO_WINDOW, dense_init,
+                                       head_rms_norm, mlp_apply, rms_norm,
+                                       rope)
+
+VOCAB_PAD = 256
+
+
+def pad_vocab(v: int) -> int:
+    return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def check_config(cfg):
+    """Raise for configurations outside the dense serving slice."""
+    unsupported = [name for name, on in (
+        (f"family {cfg.family!r}", cfg.family != "dense"),
+        ("post_attn_norm", cfg.post_attn_norm),
+        ("emb_scale_by_sqrt_dim", cfg.emb_scale_by_sqrt_dim),
+        ("final_logit_softcap", cfg.final_logit_softcap),
+        (f"mlp_act {cfg.mlp_act!r}", cfg.mlp_act not in ("silu", "gelu")),
+    ) if on]
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(unsupported)} not ported yet (the port "
+            "serves dense gated-MLP transformers; ROADMAP.md queue 1 item 9)")
+
+
+# ------------------------------------------------------------ GQA layout ---
+def gqa_layout(H: int, KV: int, tp: int = 1):
+    """Padded head layout for tensor parallelism (numpy; a copy of the
+    reference's).  Returns (H_p, KV_p, q_map, kv_map, head_mask)."""
+    if KV % tp == 0:
+        KV_p = KV
+    else:
+        if not KV < tp:
+            raise ValueError(
+                f"KV heads ({KV}) must divide or be smaller than tp={tp} "
+                f"to replicate into padded slots (H={H})")
+        KV_p = tp * math.ceil(KV / tp)
+        if KV_p % KV:
+            raise ValueError(
+                f"padded KV heads {KV_p} not a multiple of KV={KV} (tp={tp})")
+    R = KV_p // KV
+    if H % KV:
+        raise ValueError(f"query heads H={H} must be a multiple of KV={KV}")
+    G = H // KV
+    G_p = math.ceil(G / R)
+    H_p = KV_p * G_p
+    q_map = np.full(H_p, -1, np.int32)
+    for r in range(KV):
+        for i in range(R):
+            for t in range(G_p):
+                src = i * G_p + t
+                if src < G:
+                    q_map[(r * R + i) * G_p + t] = r * G + src
+    kv_map = (np.arange(KV_p) // R).astype(np.int32)
+    head_mask = (q_map >= 0).astype(np.float32)
+    return H_p, KV_p, q_map, kv_map, head_mask
+
+
+def layer_windows(cfg) -> np.ndarray:
+    """Per-layer attention window (NO_WINDOW = global)."""
+    L = cfg.n_layers
+    if cfg.local_global_pattern and cfg.sliding_window:
+        pat = cfg.local_global_pattern
+        return np.array(
+            [cfg.sliding_window if pat[i % len(pat)] == "local" else NO_WINDOW
+             for i in range(L)], np.int32)
+    return np.full(L, NO_WINDOW, np.int32)
+
+
+# ----------------------------------------------------------------- init ----
+def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
+                device=None):
+    """Random parameters with the reference's shapes and init scales
+    (``transformer.py::init_params``), drawn from ``generator`` (the
+    numbers differ from JAX's; tests hand both packages the same weights
+    through ``models.convert.params_from_jax``)."""
+    check_config(cfg)
+    device = resolve_device(device)
+    D, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    H_p, KV_p, q_map, _, _ = gqa_layout(cfg.n_heads, cfg.n_kv_heads)
+    Vp = pad_vocab(cfg.vocab_size)
+    out_scale = 1.0 / math.sqrt(2 * L)
+
+    def dense(shape, fan_in, scale=1.0):
+        return dense_init(generator, shape, fan_in, dtype, device, scale)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    wq = dense((L, D, H_p, hd), D)
+    wq *= torch.as_tensor(q_map >= 0, dtype=dtype, device=device)[None, None, :, None]
+    blocks = {
+        "ln1": zeros(L, D),
+        "ln2": zeros(L, D),
+        "wq": wq,
+        "wk": dense((L, D, cfg.n_kv_heads, hd), D),
+        "wv": dense((L, D, cfg.n_kv_heads, hd), D),
+        "wo": dense((L, H_p, hd, D), H_p * hd, out_scale),
+        "mlp": {
+            "w_gate": dense((L, D, cfg.d_ff), D),
+            "w_up": dense((L, D, cfg.d_ff), D),
+            "w_down": dense((L, cfg.d_ff, D), cfg.d_ff, out_scale),
+        },
+    }
+    if cfg.use_qk_norm:
+        blocks["q_norm"] = zeros(L, hd)
+        blocks["k_norm"] = zeros(L, hd)
+    params = {"embed": dense((Vp, D), 1, 0.02), "ln_f": zeros(D),
+              "blocks": blocks}
+    if not cfg.tie_embeddings:
+        params["head"] = dense((Vp, D), 1, 0.02)
+    return params
+
+
+def layer_params(blocks, l: int):
+    """Views of layer ``l``'s weights out of the stacked ``blocks``."""
+    return {k: (layer_params(v, l) if isinstance(v, dict) else v[l])
+            for k, v in blocks.items()}
+
+
+# ------------------------------------------------------------- embedding ---
+def embed(params, cfg, tokens):
+    return params["embed"][tokens]
+
+
+def unembed(params, cfg, x):
+    """x [..., D] -> f32 logits [..., Vp], padded vocab columns NEG_INF.
+
+    The reference asks XLA for f32 output from the product
+    (``preferred_element_type``).  Here f32 weights multiply in f32; on
+    the card bf16 weights go through ``torch.mm(..., out_dtype=float32)``
+    (bf16 inputs, f32 accumulation and output); on the CPU they are
+    upcast first."""
+    table = params["head"] if "head" in params else params["embed"]
+    x2 = x.reshape(-1, x.shape[-1])
+    if table.dtype == torch.float32:
+        logits = x2.float() @ table.t()
+    elif x2.device.type == "cuda":
+        logits = torch.mm(x2, table.t(), out_dtype=torch.float32)
+    else:
+        logits = x2.float() @ table.float().t()
+    Vp = table.shape[0]
+    if Vp != cfg.vocab_size:
+        logits[:, cfg.vocab_size:] = NEG_INF
+    return logits.reshape(*x.shape[:-1], Vp)
+
+
+# ----------------------------------------------------------- block pieces --
+def _qkv(cfg, lp, x):
+    """x [..., D] -> q [..., H_p, hd], k/v [..., KV, hd]."""
+    D, hd = x.shape[-1], cfg.head_dim
+    lead = x.shape[:-1]
+    q = (x @ lp["wq"].reshape(D, -1)).reshape(*lead, -1, hd)
+    k = (x @ lp["wk"].reshape(D, -1)).reshape(*lead, -1, hd)
+    v = (x @ lp["wv"].reshape(D, -1)).reshape(*lead, -1, hd)
+    if cfg.use_qk_norm:
+        q = head_rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _attn_scale(cfg):
+    return cfg.attn_scale_override or (1.0 / math.sqrt(cfg.head_dim))
+
+
+def _head_mask(cfg, device, dtype):
+    """[H_p] 0/1 mask of padded q heads, or None when no head is padded
+    (always, at tp=1)."""
+    mask = gqa_layout(cfg.n_heads, cfg.n_kv_heads)[4]
+    return None if mask.all() else torch.as_tensor(mask, dtype=dtype, device=device)
+
+
+def _o_proj(cfg, lp, o, head_mask):
+    if head_mask is not None:
+        o = o * head_mask[:, None]
+    return o.flatten(-2) @ lp["wo"].reshape(-1, cfg.d_model)
+
+
+def _ffn_residual(cfg, lp, x):
+    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                         cfg.mlp_act)
+
+
+# ------------------------------------------------------- full-seq forward --
+def forward_hidden(params, cfg, x, positions, *, collect_kv=False):
+    """Run the layer stack on full sequences. x [B, T, D]; positions
+    [B, T] must be a per-row offset plus ``arange(T)`` (attention masks
+    causally by sequence index, which is then the same as by position).
+
+    Returns (hidden [B, T, D], (k, v) each [L, B, T, KV_p, hd] or None).
+    """
+    B, T, _ = x.shape
+    windows = layer_windows(cfg)
+    head_mask = _head_mask(cfg, x.device, x.dtype)
+    kv_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["blocks"], l)
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        o = ops.flash_attention(q, k, v, kv_lens, scale=_attn_scale(cfg),
+                                causal=True, window=int(windows[l]),
+                                softcap=cfg.attn_logit_softcap)
+        x = _ffn_residual(cfg, lp, x + _o_proj(cfg, lp, o, head_mask))
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), kv
+
+
+def prefill(params, cfg, tokens):
+    """Full-prompt prefill. tokens [B, S].
+
+    Returns (last_logits [B, Vp], (k, v) each [L, B, S, KV_p, hd]).
+    """
+    x = embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    hidden, kv = forward_hidden(params, cfg, x, positions, collect_kv=True)
+    return unembed(params, cfg, hidden[:, -1]), kv
+
+
+# ------------------------------------------------------------ page writes --
+def token_dest(block_table, seq_lens, active, page_size, trash):
+    """(page, offset) int64 [B] where each sequence's next token lands;
+    inactive rows go to the trash page (the pool's last page)."""
+    slot = torch.clamp(seq_lens.long() // page_size, max=block_table.shape[1] - 1)
+    pidx = block_table.gather(1, slot[:, None])[:, 0].long()
+    if active is not None:
+        pidx = torch.where(active, pidx, trash)
+    return pidx, seq_lens.long() % page_size
+
+
+def chunk_dest(block_table, start, lens, C, page_size, trash):
+    """(page, offset) int64 [P*C] for a chunk of C tokens per row from
+    ``start``; rows past ``lens`` go to the trash page.  Page lookups
+    past the table's width are clamped to its last column first (JAX
+    clamps gather indices; torch would raise), then discarded."""
+    j = torch.arange(C, device=start.device)[None]                 # [1, C]
+    gpos = start.long()[:, None] + j                               # [P, C]
+    slot = torch.clamp(gpos // page_size, max=block_table.shape[1] - 1)
+    pidx = block_table.gather(1, slot).long()
+    pidx = torch.where(j < lens.long()[:, None], pidx, trash)
+    return pidx.reshape(-1), (gpos % page_size).reshape(-1)
+
+
+def _scatter(kpg, vpg, k, v, dest):
+    """In-place write of k/v [M, KV_p, hd] to (page, offset) ``dest``.
+    Duplicate trash-page slots are harmless: that page is never read."""
+    kpg[dest] = k
+    vpg[dest] = v
+
+
+def write_kv_token(kpg, vpg, k, v, block_table, seq_lens, active=None):
+    """Scatter one new token per sequence into the page pool, in place.
+
+    kpg/vpg [N, ps, KV_p, hd]; k/v [B, KV_p, hd]. Returns (kpg, vpg).
+    """
+    dest = token_dest(block_table, seq_lens, active, kpg.shape[1],
+                      kpg.shape[0] - 1)
+    _scatter(kpg, vpg, k, v, dest)
+    return kpg, vpg
+
+
+def write_kv_chunk(kpg, vpg, k, v, block_table, start, lens):
+    """Scatter a prefill chunk into pages, in place.
+
+    kpg [N, ps, KV_p, hd]; k/v [P, C, KV_p, hd]; block_table [P, W];
+    start [P] first position of chunk; lens [P] valid tokens (rest->trash).
+    """
+    P, C = k.shape[:2]
+    dest = chunk_dest(block_table, start, lens, C, kpg.shape[1],
+                       kpg.shape[0] - 1)
+    _scatter(kpg, vpg, k.reshape(P * C, *k.shape[2:]),
+             v.reshape(P * C, *v.shape[2:]), dest)
+    return kpg, vpg
+
+
+# ------------------------------------------------------------------ decode -
+def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
+           active=None, attn_fn=None):
+    """One decode step. tokens [B]; pages [L, N, ps, KV_p, hd] (written
+    in place).
+
+    attn_fn: a paged attention with ``ops.paged_attention``'s signature
+    (the default).  Returns (logits [B, Vp], (k_pages, v_pages)).
+    """
+    attn_fn = attn_fn or ops.paged_attention
+    windows = layer_windows(cfg)
+    x = embed(params, cfg, tokens)                   # [B, D]
+    head_mask = _head_mask(cfg, x.device, x.dtype)
+    # per-step index work, shared by every layer
+    bt = block_table.to(torch.int32)
+    pos = seq_lens.to(torch.int32)                   # next position == current len
+    kv_lens = pos + 1
+    dest = token_dest(bt, pos, active, k_pages.shape[2], k_pages.shape[1] - 1)
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["blocks"], l)
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
+        q = rope(q[:, None], pos[:, None], cfg.rope_theta)       # [B,1,H_p,hd]
+        k = rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        _scatter(k_pages[l], v_pages[l], k, v, dest)
+        o = attn_fn(q, k_pages[l], v_pages[l], bt, kv_lens, pos,
+                    scale=_attn_scale(cfg), window=int(windows[l]),
+                    softcap=cfg.attn_logit_softcap)
+        x = _ffn_residual(cfg, lp, x + _o_proj(cfg, lp, o[:, 0], head_mask))
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return unembed(params, cfg, x), (k_pages, v_pages)
+
+
+# ------------------------------------------------------------------- mixed -
+def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
+    """Splitwiser fused step: prefill chunks + decode tokens in ONE step.
+
+    mb keys (tensors on the pools' device):
+      p_tokens [P, C]      prefill chunk tokens (pad id 0 beyond p_lens)
+      p_table  [P, W]      page table rows for chunk sequences
+      p_start  [P]         chunk start position (= history length)
+      p_lens   [P]         valid tokens in chunk
+      d_tokens [B]         decode tokens
+      d_table  [B, Pmax]
+      d_lens   [B]         current kv lens (before this step)
+      d_active [B] bool
+
+    Every GEMM (QKV/O/FFN/unembed) runs on the union of prefill and
+    decode tokens; attention splits by phase.  ``attn_fn`` is an optional
+    ``{"decode": fn, "chunk": fn}`` of paged attentions with
+    ``ops.paged_attention``'s signature.  Pages are written in place.
+
+    Returns (p_logits [P, Vp] at each chunk's last valid token,
+             d_logits [B, Vp], (k_pages, v_pages)).
+    """
+    attn_fn = attn_fn or {}
+    decode_attn = attn_fn.get("decode") or ops.paged_attention
+    chunk_attn = attn_fn.get("chunk") or ops.paged_attention
+    windows = layer_windows(cfg)
+    P, C = mb["p_tokens"].shape
+    B = mb["d_tokens"].shape[0]
+    D = cfg.d_model
+    ps, trash = k_pages.shape[2], k_pages.shape[1] - 1
+
+    x = torch.cat([embed(params, cfg, mb["p_tokens"]).reshape(P * C, D),
+                   embed(params, cfg, mb["d_tokens"])], dim=0)   # [P*C+B, D]
+    head_mask = _head_mask(cfg, x.device, x.dtype)
+    # per-step index work, shared by every layer
+    i32 = torch.int32
+    p_table, d_table = mb["p_table"].to(i32), mb["d_table"].to(i32)
+    p_start, p_lens = mb["p_start"].to(i32), mb["p_lens"].to(i32)
+    d_lens = mb["d_lens"].to(i32)
+    p_pos = p_start[:, None] + torch.arange(C, device=x.device, dtype=i32)[None]
+    p_kv_lens, d_kv_lens = p_start + p_lens, d_lens + 1
+    p_dest = chunk_dest(p_table, p_start, p_lens, C, ps, trash)
+    d_dest = token_dest(d_table, d_lens, mb["d_active"], ps, trash)
+
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["blocks"], l)
+        kpg, vpg = k_pages[l], v_pages[l]
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))  # shared GEMM
+        H_p, KV = q.shape[1], k.shape[1]
+        qp, qd = q[: P * C].reshape(P, C, H_p, -1), q[P * C:][:, None]
+        kp, kd = k[: P * C].reshape(P, C, KV, -1), k[P * C:]
+        vp, vd = v[: P * C], v[P * C:]
+        kw = dict(scale=_attn_scale(cfg), window=int(windows[l]),
+                  softcap=cfg.attn_logit_softcap)
+
+        # --- prefill-phase attention (write chunk KV + attend history) ---
+        qp = rope(qp, p_pos, cfg.rope_theta)
+        kp = rope(kp, p_pos, cfg.rope_theta).reshape(P * C, KV, -1)
+        _scatter(kpg, vpg, kp, vp, p_dest)
+        o_p = chunk_attn(qp, kpg, vpg, p_table, p_kv_lens, p_start, **kw)
+
+        # --- decode-phase attention ---
+        qd = rope(qd, d_lens[:, None], cfg.rope_theta)
+        kd = rope(kd[:, None], d_lens[:, None], cfg.rope_theta)[:, 0]
+        _scatter(kpg, vpg, kd, vd, d_dest)
+        o_d = decode_attn(qd, kpg, vpg, d_table, d_kv_lens, d_lens, **kw)
+
+        o = torch.cat([o_p.reshape(P * C, H_p, -1), o_d[:, 0]], dim=0)
+        x = _ffn_residual(cfg, lp, x + _o_proj(cfg, lp, o, head_mask))  # shared GEMMs
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+    last = torch.clamp(p_lens.long() - 1, 0, C - 1)
+    xp_last = x[: P * C].reshape(P, C, D)[torch.arange(P, device=x.device), last]
+    p_logits = unembed(params, cfg, xp_last)
+    d_logits = unembed(params, cfg, x[P * C:])
+    return p_logits, d_logits, (k_pages, v_pages)
+
+
+# -------------------------------------------------------------- page utils -
+def init_pages(cfg, n_pages, page_size, dtype=torch.float32, device=None,
+               n_layers=None):
+    _, KV_p, _, _, _ = gqa_layout(cfg.n_heads, cfg.n_kv_heads)
+    L = n_layers if n_layers is not None else cfg.n_layers
+    shape = (L, n_pages, page_size, KV_p, cfg.head_dim)
+    device = resolve_device(device)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def kv_to_pages(kv, page_size):
+    """Prefill output [L, B, S, KV_p, hd] -> pages [L, B*S/ps, ps, KV_p, hd]."""
+    L, B, S, KVp, hd = kv.shape
+    if S % page_size:
+        raise ValueError(
+            f"prefill length S={S} must be page-aligned (page_size="
+            f"{page_size}); callers pad the token batch to whole pages")
+    return kv.reshape(L, B * (S // page_size), page_size, KVp, hd)

@@ -1,0 +1,40 @@
+"""Shared set-up for the port's parity tests (tests/test_torch_*.py).
+
+Both packages get the same model configuration, the same weights (the
+reference's JAX init, converted with ``params_from_jax``) and the same
+requests; JAX stays on the CPU and the port runs with ``device="cpu"``.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+
+from repro.configs import get_config as jax_get_config
+from repro.models.registry import CACHE_KIND, FAMILY_MODULE, Model
+from repro_torch.configs.base import ModelConfig as PortModelConfig
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.registry import get_model as port_get_model
+
+ARCH = "qwen3-0.6b"
+
+
+def jax_model(cfg):
+    return Model(ARCH, cfg, FAMILY_MODULE[cfg.family], CACHE_KIND[cfg.family])
+
+
+def port_model(cfg):
+    """The port's Model for the reference config ``cfg`` (same fields)."""
+    return port_get_model(ARCH, PortModelConfig(**dataclasses.asdict(cfg)))
+
+
+def reduced_cfg(**overrides):
+    return dataclasses.replace(jax_get_config(ARCH).reduced(), **overrides)
+
+
+def both_models(cfg, seed=0):
+    """(jax_model, jax_params, port_model, port_params) on shared weights."""
+    jm = jax_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    pm = port_model(cfg)
+    pp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return jm, jp, pm, pp
