@@ -131,11 +131,6 @@ class ModelConfig:
 # "sequential" replicas (benchmarks/splitwiser_vllm.py).
 SERVE_MODES = ("sequential", "splitwiser", "splitwiser_mps", "chunked")
 
-# Runtime-sanitizer tiers, kept in step with the reference package's
-# analysis layer (the port's engine accepts only "off" until that layer
-# is ported).
-SANITIZE_LEVELS = ("off", "finish", "step", "call")
-
 
 @dataclass(frozen=True)
 class TenantTier:
@@ -364,6 +359,7 @@ class ServeConfig:
             raise ValueError(
                 f"slo_page_cost must be a number >= 0, got "
                 f"{self.slo_page_cost!r}")
+        from repro_torch.analysis.invariants import SANITIZE_LEVELS
         if self.sanitize_level not in SANITIZE_LEVELS:
             raise ValueError(
                 f"unknown sanitize_level {self.sanitize_level!r}; "

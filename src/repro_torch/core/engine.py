@@ -40,9 +40,17 @@ through the hand-written CUDA kernels on the card (``repro_torch.kernels``)
 and their plain versions on the CPU.
 
 Device: ``Engine(..., device=None)`` runs on ``cuda`` and raises when no
-card is present; pass ``device="cpu"`` to run on the CPU.  Not ported yet
-(refused with ``NotImplementedError``): int8 KV pages, the runtime
-sanitizer (``sanitize_level``) and the dispatch sentinel.
+card is present; pass ``device="cpu"`` to run on the CPU.
+
+``ServeConfig.kv_dtype="int8"`` stores KV pages as int8 codes plus an
+f32 scale per (token, head) (``kernels/kv_int8.py``) in a pool of the
+same bytes, so it holds about twice the pages: commits quantize, decode
+and mixed steps attend through the int8 kernel (K3), and the monolithic
+prefill fake-quantizes K/V so every mode attends to the same values.
+``ServeConfig.sanitize_level`` arms the runtime sanitizer
+(``analysis/invariants.py``) at ``finish``, ``step`` or ``call``.  Not
+ported yet (refused with ``NotImplementedError``): the dispatch
+sentinel.
 
 Request/response surface (vLLM-shaped):
 
@@ -91,8 +99,10 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.invariants import KVSanitizer
 from repro_torch.configs.base import ServeConfig
-from repro_torch.core.kv_cache import PageAllocator, pool_pages_from_bytes
+from repro_torch.core.kv_cache import (KVQuantSidecar, PageAllocator,
+                                       pool_pages_from_bytes)
 from repro_torch.core.metrics import EngineMetrics, EventRing
 from repro_torch.core.outputs import RequestOutput, TokenEvent
 from repro_torch.core.planner import ChunkPlan, ChunkPlanner
@@ -103,7 +113,8 @@ from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.slo import (EffectiveSLO, SLOParams, resolve_slo,
                                   slo_outcome)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.kv_int8 import kv_page_bytes
+from repro_torch.kernels.kv_int8 import (fake_quant_kv, init_pages_int8,
+                                         kv_page_bytes, quant_kv)
 from repro_torch.models import transformer as T
 
 
@@ -180,17 +191,10 @@ class Engine:
         if model.cache_kind != "paged":
             raise TypeError(
                 f"Engine supports paged-cache archs; got {model.cache_kind}")
-        for knob, refused, later in (
-                ("kv_dtype", serve.kv_dtype != "fp",
-                 "the int8 KV slice (ROADMAP.md queue 1 item 6)"),
-                ("sanitize_level", serve.sanitize_level != "off",
-                 "the analysis-layer slice (ROADMAP.md queue 1 item 8)"),
-                ("dispatch_sentinel", serve.dispatch_sentinel,
-                 "the analysis-layer slice (ROADMAP.md queue 1 item 8)")):
-            if refused:
-                raise NotImplementedError(
-                    f"{knob}={getattr(serve, knob)!r} is not ported yet; it "
-                    f"comes with {later}")
+        if serve.dispatch_sentinel:
+            raise NotImplementedError(
+                "dispatch_sentinel=True is not ported yet; it comes with the "
+                "port's own dispatch sentinel (ROADMAP.md queue 1 item 8)")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -214,6 +218,10 @@ class Engine:
         budget = (serve.kv_pool_bytes if serve.kv_pool_bytes is not None
                   else serve.n_pages * fp_page_bytes)
         n_pages = pool_pages_from_bytes(budget, page_bytes)
+        # int8 sidecar mirror: page id -> scale-entry count (host-side
+        # shadow of which pool pages hold quantized contents)
+        self.kv_quant = (KVQuantSidecar()
+                         if serve.kv_dtype == "int8" else None)
         self.alloc = PageAllocator(n_pages, serve.page_size,
                                    cache=self.prefix_cache,
                                    event_cb=self._alloc_event,
@@ -237,9 +245,13 @@ class Engine:
                                      np.int32)
         self.stream_tables = np.zeros((serve.n_streams, serve.max_pages_per_seq),
                                       np.int32)
-        self.k_pages, self.v_pages = T.init_pages(
-            self.cfg, n_pages, serve.page_size, dtype=dtype,
-            device=self.device)
+        if serve.kv_dtype == "int8":
+            self.k_pages, self.v_pages = init_pages_int8(
+                self.cfg, n_pages, serve.page_size, device=self.device)
+        else:
+            self.k_pages, self.v_pages = T.init_pages(
+                self.cfg, n_pages, serve.page_size, dtype=dtype,
+                device=self.device)
         self._step_parity = 0
         self._events: List[TokenEvent] = []
         self._outputs: List[RequestOutput] = []
@@ -250,10 +262,11 @@ class Engine:
         if self.planner is not None:
             self.metrics.chunk_budget = serve.chunk_tokens
         self.sched = Scheduler(self)
-        # the Scheduler reads these; both stay None until the analysis
-        # layer is ported (the settings that arm them are refused above)
-        self.sanitizer = None
-        self.dispatch = None
+        # read-only runtime invariant checker (analysis/invariants.py);
+        # None at the default "off" level so hot paths pay one None test
+        self.sanitizer = (KVSanitizer(self)
+                          if serve.sanitize_level != "off" else None)
+        self.dispatch = None    # the dispatch sentinel is refused above
 
     @property
     def waiting(self) -> "deque[Request]":
@@ -267,20 +280,33 @@ class Engine:
     @torch.inference_mode()
     def _prefill(self, tokens, lens):
         """Full prefill returning per-row last-token logits and the
-        contiguous KV ([L, B, S, KV_p, hd] each)."""
+        contiguous KV ([L, B, S, KV_p, hd] each).  With int8 pages the
+        attention reads fake-quantized K/V, so the one-shot path attends
+        to the values the chunked paths re-read from quantized pages."""
         cfg = self.cfg
         x = T.embed(self.params, cfg, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        hidden, kv = T.forward_hidden(self.params, cfg, x, positions,
-                                      collect_kv=True)
+        hidden, kv = T.forward_hidden(
+            self.params, cfg, x, positions, collect_kv=True,
+            kv_fake_quant=fake_quant_kv if self.kv_quant is not None else None)
         last = torch.clamp(lens.long() - 1, 0, S - 1)
         hl = hidden[torch.arange(B, device=x.device), last]
         return T.unembed(self.params, cfg, hl), kv
 
     @torch.inference_mode()
     def _commit(self, k_new, v_new, dest):
-        # k_new [L, M, ps, KV_p, hd]; dest [M] page ids (trash for pads)
+        # k_new [L, M, ps, KV_p, hd]; dest [M] page ids (trash for pads);
+        # int8 pools store the quantized codes and scales side by side,
+        # one layer at a time (all layers at once would hold f32 copies of
+        # the whole batch's K/V)
+        if self.kv_quant is not None:
+            for l in range(k_new.shape[0]):
+                kq, vq = quant_kv(k_new[l], v_new[l])
+                for name in ("q", "s"):
+                    self.k_pages[name][l, dest] = kq[name]
+                    self.v_pages[name][l, dest] = vq[name]
+            return
         self.k_pages[:, dest] = k_new
         self.v_pages[:, dest] = v_new
 
@@ -367,8 +393,11 @@ class Engine:
     # ------------------------------------------------------ prefix cache ---
     def _alloc_event(self, event: str, **detail):
         """Allocator trace hook (reclaim / cow) into the scheduler trace."""
+        if self.kv_quant is not None and event in ("reclaim", "page_free"):
+            # the page's quantized contents are dead: retire its scale entry
+            self.kv_quant.drop(detail["page"])
         if event == "page_free":
-            return      # int8-sidecar bookkeeping, not a scheduler decision
+            return      # sidecar-only bookkeeping, not a scheduler decision
         if event == "reclaim" and self.prefix_cache is not None and \
                 self.prefix_cache.policy == "cost":
             self.metrics.bump("cost_evictions")
@@ -526,6 +555,8 @@ class Engine:
         if n:
             self.metrics.req(req.rid).n_cached_tokens += n
             self.metrics.n_cached_tokens += n
+        if self.sanitizer is not None:   # settle any preempt/resume promise
+            self.sanitizer.note_resume(req, pages)
         return n
 
     def cache_insert(self, req: Request, n_committed: int,
@@ -562,11 +593,21 @@ class Engine:
             return
         src = self._tensor(np.asarray([s for s, _ in pairs], np.int64))
         dst = self._tensor(np.asarray([d for _, d in pairs], np.int64))
+        # int8 pools are {"q": codes, "s": scales} dicts: a COW copy must
+        # move the scale sidecar WITH the codes
+        pools = [self.k_pages, self.v_pages]
+        if self.kv_quant is not None:
+            pools = [pool[name] for pool in pools for name in ("q", "s")]
         with torch.inference_mode():
-            self.k_pages[:, dst] = self.k_pages[:, src]
-            self.v_pages[:, dst] = self.v_pages[:, src]
+            for pool in pools:
+                pool[:, dst] = pool[:, src]
+        if self.kv_quant is not None:
+            for s, d in pairs:
+                self.kv_quant.note_copy(s, d)
 
     def _refresh_cache_stats(self) -> None:
+        if self.kv_quant is not None:
+            self.metrics.n_quant_pages = self.kv_quant.n_quant_pages
         self._pages_shared_peak = max(self._pages_shared_peak,
                                       self.alloc.n_pages_shared)
         self.metrics.prefix_cache_stats = dict(
@@ -610,6 +651,9 @@ class Engine:
         self.metrics.step_kinds.append(kind)
         self.metrics.kv_usage_trace.append(self.alloc.usage())
         self._refresh_cache_stats()
+        if self.sanitizer is not None:
+            self.sanitizer.after_step(
+                any(e.finish_reason is not None for e in self._events))
         return self._events
 
     # --- sequential: full-prompt prefill OR decode per step -----------------
@@ -665,6 +709,9 @@ class Engine:
             dest[i * n_per : i * n_per + len(pages)] = pages
         self._commit(T.kv_to_pages(k, ps), T.kv_to_pages(v, ps),
                      self._tensor(dest.astype(np.int64)))
+        if self.kv_quant is not None:
+            for r in reqs:       # before _emit_first_token may free them
+                self.kv_quant.note_write(self.alloc.owned(r.rid))
         toks = self._sample_rows(logits, reqs)
         t1 = self.now()
         for i, r in enumerate(reqs):
@@ -705,6 +752,9 @@ class Engine:
         mb = self._mixed_batch(p_tokens, p_table, p_start, p_lens,
                                *self._no_decode(W))
         p_logits, _ = self._mixed(mb)
+        if self.kv_quant is not None:
+            for r, _ in hits:    # hit pages were written by their donor;
+                self.kv_quant.note_write(self.alloc.owned(r.rid))  # idempotent
         toks_out = self._sample_rows(p_logits, [r for r, _ in hits])
         t1 = self.now()
         for i, (r, n) in enumerate(hits):
@@ -716,6 +766,8 @@ class Engine:
         """First token after a (re-)prefill; a resumed request keeps its
         original TTFT."""
         self.unregister_inflight(req.rid)   # prefill committed: twins now hit
+        if self.sanitizer is not None:      # close the admission budget loop
+            self.sanitizer.note_first_token(req.rid)
         m = self.metrics.req(req.rid)
         if m.t_first_token is None:
             m.t_first_token = t
@@ -841,9 +893,12 @@ class Engine:
 
         With a ``plan`` (chunked mode) each stream contributes exactly
         its planned token count — the static row width is the plan's cap
-        (``chunk_tokens``) instead of ``prefill_chunk``.  A skipped
-        stream's planned tokens are *not* redistributed this round
-        (conservative; the next plan re-carves).
+        (``chunk_tokens``) instead of ``prefill_chunk`` — and every
+        composed chunk pre-commits its page consumption to the sanitizer
+        (``note_chunk``): admission charged only the first chunk, so the
+        budget-honesty check grows with the plan, not the prompt.  A
+        skipped stream's planned tokens are *not* redistributed this
+        round (conservative; the next plan re-carves).
         """
         P = self.serve.n_streams
         C = self.serve.prefill_chunk if plan is None else plan.cap
@@ -868,6 +923,9 @@ class Engine:
                 continue
             if st.pos + n >= len(st.tokens):
                 free_slots -= 1
+            if plan is not None and self.sanitizer is not None:
+                self.sanitizer.note_chunk(st.req.rid,
+                                          self._chunk_charge(st, n))
             self.alloc.extend_to(st.req.rid, st.pos + n + 1)
             self._apply_cow(self.alloc.prepare_write(st.req.rid, st.pos, n))
             bt = self.alloc.owned(st.req.rid)
@@ -880,6 +938,25 @@ class Engine:
             chunks.append((i, st, n))
         return p_tokens, p_start, p_lens, chunks
 
+    def _chunk_charge(self, st: _Stream, n: int) -> int:
+        """Upper bound on the free-pool pages ``st``'s next ``n``-token
+        chunk may consume: fresh tail pages, plus a COW copy for every
+        owned page in the chunk's write range that ``prepare_write``
+        could copy (shared with another reader, or registered in the
+        trie).  Computed BEFORE the chunk allocates, so the sanitizer's
+        chunked-mode budget stays a real pre-commitment rather than a
+        tautology."""
+        owned = self.alloc.owned(st.req.rid)
+        fresh = max(self.alloc.pages_needed(st.pos + n + 1) - len(owned), 0)
+        ps = self.serve.page_size
+        lo = st.pos // ps
+        hi = min((st.pos + n - 1) // ps, len(owned) - 1)
+        cow = sum(1 for p in owned[lo:hi + 1]
+                  if self.alloc.ref_count(p) > 1
+                  or (self.prefix_cache is not None
+                      and self.prefix_cache.is_cached(p)))
+        return fresh + cow
+
     def _advance_streams(self, chunks, p_logits, t):
         completing = [None] * len(self.streams)
         for i, st, n in chunks:
@@ -890,6 +967,11 @@ class Engine:
         for i, st, n in chunks:
             st.pos += n
             self.metrics.n_prefill_tokens += n
+            if self.kv_quant is not None:
+                # only pages the chunk actually covered — extend_to reserved
+                # one token past the chunk, which may be an unwritten page
+                self.kv_quant.note_write(self.alloc.owned(st.req.rid)
+                                         [: self.alloc.pages_needed(st.pos)])
             self.cache_insert(st.req, st.pos)   # register landed full pages
             if st.pos >= len(st.tokens):
                 self._emit_first_token(st.req, int(toks[i]), len(st.tokens), t)
@@ -1001,6 +1083,8 @@ class Engine:
                      for st in self.streams]
         plan = self.planner.plan(remaining, n_decode,
                                  self._stream_priorities())
+        if self.sanitizer is not None:
+            self.sanitizer.note_plan(plan, remaining, n_decode)
         composed = self._compose_prefill(plan)
         if not self._dispatch_mixed(composed, with_decode=True):
             return "idle"
@@ -1046,6 +1130,11 @@ class Engine:
             tok = int(toks[i])
             s.req.out_tokens.append(tok)
             s.seq_len += 1
+            if self.kv_quant is not None:
+                # the decode token's KV landed on the tail page (position
+                # seq_len-1); register before a finish can free the pages
+                tail = (s.seq_len - 1) // self.serve.page_size
+                self.kv_quant.note_write([self.alloc.owned(s.req.rid)[tail]])
             m = self.metrics.req(s.req.rid)
             m.token_times.append(t)
             m.n_generated = len(s.req.out_tokens)

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 
 CSRC = Path(__file__).parent / "csrc"
-KERNELS = ("paged_attention", "flash_attention")
+KERNELS = ("paged_attention", "flash_attention", "paged_attention_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -105,13 +105,14 @@ def kernel_fn(name: str, symbol: str, argtypes: Sequence):
 
 
 def check_cuda_args(tensors: Dict[str, torch.Tensor], int32: Sequence[str],
-                    dtype: torch.dtype, d: int) -> None:
+                    dtype: torch.dtype, d: int, kv_itemsize: int = 0) -> None:
     """Raise unless ``tensors`` fit the kernels' C interface: f32 or bf16
     data, int32 indices (the ``int32`` names), contiguous and 16-byte
-    aligned, a head dim ``d <= 256`` of whole 16-byte vectors."""
+    aligned, a head dim ``d <= 256`` of whole 16-byte vectors of K/V
+    elements (``kv_itemsize`` bytes each; default: ``dtype``'s)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {dtype}")
-    vec = 16 // dtype.itemsize
+    vec = 16 // (kv_itemsize or dtype.itemsize)
     if d > 256 or d % vec:
         raise ValueError(f"the CUDA kernels take d <= 256 with d % {vec} == 0, "
                          f"got d={d}")

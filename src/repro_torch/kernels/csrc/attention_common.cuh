@@ -1,16 +1,23 @@
-// Shared body of the two attention kernels (paged_attention.cu,
-// flash_attention.cu): one thread block walks the keys of one
-// (sequence, kv head) in tiles of TILE_K, for a tile of WARPS query rows.
+// Shared body of the three attention kernels (paged_attention.cu,
+// flash_attention.cu, paged_attention_int8.cu): one thread block walks
+// the keys of one (sequence, kv head) in tiles of TILE_K, for a tile of
+// WARPS query rows.
 //
 // Query rows fold the G query heads of a kv head, as the Pallas kernels
 // do: flattened row r = c * G + g is query position c, head kvh * G + g.
 // Layouts are the model's, so no transpose is needed around a launch:
 //   q, out [B, C, H, d]   (H = KV * G)
 //
+// Keys and values come from a source (FpSrc over fp rows, Q8Src over int8
+// codes with a per-(token, head) f32 scale) that loads 16 bytes of one
+// K row and one V row into the f32 shared tiles; the tile loop and the
+// online softmax below are the same for every source.
+//
 // Per tile:
 //   1. all threads stage TILE_K keys and values in shared memory (16-byte
-//      loads, converted to f32; key rows padded to d + 1 floats so the
-//      score pass is free of bank conflicts);
+//      loads, converted — and for int8 codes dequantized, code * scale —
+//      to f32; key rows padded to d + 1 floats so the score pass is free
+//      of bank conflicts);
 //   2. each warp owns one query row: lane j scores key j (a d-long dot
 //      product against the row's scaled query, kept in shared memory),
 //      the warp reduces the tile's max and sum with shuffles (online
@@ -57,6 +64,70 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
   for (int i = 0; i < V; ++i) dst[i] = to_f(e[i]);
 }
 
+// 16 int8 codes from global memory, times their row's scale, into f32
+// shared memory: the dequant of the plain version (code.f32 * scale).
+__device__ __forceinline__ void load16_q8(const int8_t* src, float s, float* dst) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = float(e[i]) * s;
+}
+
+// (token, kv head) row index of key position t in one sequence's pages.
+// Only the pages below ceil(kv_len / ps) are looked up; page ids are
+// clamped into the pool, as JAX clamps gather indices.
+struct PageRows {
+  const int* table;   // this sequence's block-table row
+  int ps, KV, kvh, N;
+  __device__ __forceinline__ size_t row(int t) const {
+    int page = table[t / ps];
+    page = min(max(page, 0), N - 1);
+    return (size_t(page) * ps + t % ps) * KV + kvh;
+  }
+};
+
+// The same over dense K/V [B, Tk, KV, d]: base = b * Tk * KV + kvh.
+struct DenseRows {
+  size_t base;
+  int KV;
+  __device__ __forceinline__ size_t row(int t) const {
+    return base + size_t(t) * KV;
+  }
+};
+
+// K/V rows of fp type T: 16 / sizeof(T) elements per load.
+template <typename T, typename Rows>
+struct FpSrc {
+  static constexpr int VEC = 16 / sizeof(T);
+  const T* k;
+  const T* v;
+  Rows rows;
+  int d;
+  __device__ __forceinline__ void load(int t, int i, float* kd, float* vd) const {
+    const size_t off = rows.row(t) * d + i;
+    load16(k + off, kd);
+    load16(v + off, vd);
+  }
+};
+
+// K/V rows of int8 codes with one f32 scale per row: 16 codes per load.
+template <typename Rows>
+struct Q8Src {
+  static constexpr int VEC = 16;
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  Rows rows;
+  int d;
+  __device__ __forceinline__ void load(int t, int i, float* kd, float* vd) const {
+    const size_t r = rows.row(t);
+    const size_t off = r * d + i;
+    load16_q8(k + off, __ldg(ks + r), kd);
+    load16_q8(v + off, __ldg(vs + r), vd);
+  }
+};
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
@@ -76,8 +147,8 @@ inline size_t smem_bytes(int d) {
 }
 
 // Attend the block's query rows [row0, row0 + WARPS) of sequence b, kv
-// head kvh over keys [0, kv_len).  Src maps a key position to the element
-// offset of its K/V row (shared by k and v).
+// head kvh over keys [0, kv_len).  Src loads 16 bytes of key position t's
+// K and V rows (FpSrc or Q8Src).
 template <typename T, typename Src>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             const Src& src, int b, int kvh, int C, int H,
@@ -106,7 +177,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   const int t_end = causal ? min(kv_len, q_pos0 + c_hi + 1) : kv_len;
   const int t_begin = max(0, q_pos0 + c_lo - window + 1);
 
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = Src::VEC;             // K/V elements per 16-byte load
   const int vecs = d / V;
   float m = NEG_INF, l = 0.f;
   float acc[DPL];
@@ -117,11 +188,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     __syncthreads();                       // q_s written / last tile consumed
     for (int e = tid; e < TILE_K * vecs; e += THREADS) {
       const int j = e / vecs, i = (e - j * vecs) * V;
-      if (t0 + j < t_end) {
-        const size_t off = src.offset(t0 + j) + i;
-        load16(src.k + off, &k_s[j * (d + 1) + i]);
-        load16(src.v + off, &v_s[j * d + i]);
-      }
+      if (t0 + j < t_end) src.load(t0 + j, i, &k_s[j * (d + 1) + i], &v_s[j * d + i]);
     }
     __syncthreads();
     if (!has_row) continue;

@@ -24,17 +24,6 @@
 namespace {
 
 template <typename T>
-struct DenseSrc {
-  const T* k;
-  const T* v;
-  size_t base;        // element offset of (b, 0, kvh, 0)
-  int KV, d;
-  __device__ __forceinline__ size_t offset(int t) const {
-    return base + size_t(t) * KV * d;
-  }
-};
-
-template <typename T>
 __global__ void __launch_bounds__(attn::THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ kv_lens,
@@ -43,7 +32,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float softcap) {
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int kv_len = min(kv_lens[b], Tk);
-  const DenseSrc<T> src{k, v, (size_t(b) * Tk * KV + kvh) * size_t(d), KV, d};
+  const attn::FpSrc<T, attn::DenseRows> src{
+      k, v, {size_t(b) * Tk * KV + kvh, KV}, d};
   attn::attend_rows<T>(q, out, src, b, kvh, T_q, H, KV, d,
                        blockIdx.x * attn::WARPS, /*q_pos0=*/0, kv_len, scale,
                        causal, window, softcap);

@@ -25,19 +25,6 @@
 namespace {
 
 template <typename T>
-struct PagedSrc {
-  const T* k;
-  const T* v;
-  const int* table;   // this sequence's block-table row
-  int ps, KV, d, kvh, N;
-  __device__ __forceinline__ size_t offset(int t) const {
-    int page = table[t / ps];
-    page = min(max(page, 0), N - 1);   // JAX clamps gather indices too
-    return ((size_t(page) * ps + t % ps) * KV + kvh) * size_t(d);
-  }
-};
-
-template <typename T>
 __global__ void __launch_bounds__(attn::THREADS)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const T* __restrict__ v_pages,
@@ -50,8 +37,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   // keys past the table's last page do not exist (the reference gathers
   // exactly Pmax pages)
   const int kv_len = min(kv_lens[b], Pmax * ps);
-  const PagedSrc<T> src{k_pages, v_pages, block_table + size_t(b) * Pmax,
-                        ps, KV, d, kvh, N};
+  const attn::FpSrc<T, attn::PageRows> src{
+      k_pages, v_pages, {block_table + size_t(b) * Pmax, ps, KV, kvh, N}, d};
   attn::attend_rows<T>(q, out, src, b, kvh, C, H, KV, d,
                        blockIdx.x * attn::WARPS, q_pos[b], kv_len, scale,
                        /*causal=*/1, window, softcap);

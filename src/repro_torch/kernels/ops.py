@@ -1,7 +1,8 @@
 """Model-layout entry points to the attention kernels.
 
 Counterparts of the reference's ``src/repro/kernels/ops.py``
-``paged_attention`` and ``flash_attention``, with the same arguments
+``paged_attention``, ``paged_attention_int8`` and ``flash_attention``,
+with the same arguments
 minus ``interpret`` (there is no interpret mode: CPU tensors take the
 plain versions) and the Pallas block sizes.  They normalise what the
 model hands over — any integer index dtype, ``NO_WINDOW`` for a global
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import paged_attention as _paged_mod
+from repro_torch.kernels import paged_attention_int8 as _paged_i8_mod
 from repro_torch.models.layers import NO_WINDOW
 
 
@@ -29,6 +31,19 @@ def paged_attention(q, k_pages, v_pages, block_table, kv_lens, q_pos, *,
         q.contiguous(), k_pages, v_pages, block_table.to(i32).contiguous(),
         kv_lens.to(i32).contiguous(), q_pos.to(i32).contiguous(),
         scale=scale, window=_window(window), softcap=softcap)
+
+
+def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales,
+                         block_table, kv_lens, q_pos, *, scale, window=None,
+                         softcap=None):
+    """q [B, Tq, H_p, d] fp; code pages [N, ps, KV_p, d] int8; scale
+    sidecars [N, ps, KV_p, 1] f32.  Returns [B, Tq, H_p, d]."""
+    i32 = torch.int32
+    return _paged_i8_mod.paged_attention_int8(
+        q.contiguous(), k_pages, k_scales, v_pages, v_scales,
+        block_table.to(i32).contiguous(), kv_lens.to(i32).contiguous(),
+        q_pos.to(i32).contiguous(), scale=scale, window=_window(window),
+        softcap=softcap)
 
 
 def flash_attention(q, k, v, kv_lens, *, scale, causal=True, window=None,

@@ -64,13 +64,17 @@ def flash_attention(
     window=None,            # None | int
     attn_softcap: Optional[float] = None,
     block_kv: int = 512,
+    k_scale=None,           # [B, Tk, KV, 1] f32 dequant scales (int8 KV pages)
+    v_scale=None,
 ):
     """Online-softmax attention over KV blocks, forward only.
 
     GQA folds query heads into groups of the KV heads: H must be a
     multiple of KV.  Rows with no visible key return zeros
-    (``acc / max(l, 1e-30)``).  The reference's int8 dequant inputs and
-    log-normalizer output belong to later slices (int8 pages, training).
+    (``acc / max(l, 1e-30)``).  With ``k_scale``/``v_scale``, ``k``/``v``
+    are int8 codes, dequantized inside the block loop (``code.f32 *
+    scale``) as the reference does.  The reference's log-normalizer
+    output belongs to the training slice.
     """
     B, Tq, H, d = q.shape
     Tk, KV = k.shape[1], k.shape[2]
@@ -82,6 +86,9 @@ def flash_attention(
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kv_positions = F.pad(kv_positions, (0, pad), value=POS_SENTINEL)
+        if k_scale is not None:
+            k_scale = F.pad(k_scale, (0, 0, 0, 0, 0, pad))
+            v_scale = F.pad(v_scale, (0, 0, 0, 0, 0, pad))
         Tk += pad
     nblk = Tk // block_kv
 
@@ -93,6 +100,8 @@ def flash_attention(
     for i in range(nblk):
         sl = slice(i * block_kv, (i + 1) * block_kv)
         kb, vb = k[:, sl].float(), v[:, sl].float()            # [B, blk, KV, d]
+        if k_scale is not None:                                # dequant in the loop
+            kb, vb = kb * k_scale[:, sl], vb * v_scale[:, sl]
         logits = torch.einsum("bqKgd,bkKd->bKgqk", qg, kb)
         if attn_softcap is not None:
             logits = softcap(logits, attn_softcap)

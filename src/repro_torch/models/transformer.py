@@ -15,9 +15,13 @@ its buffers to the jitted step instead): ``decode``/``mixed`` write the
 step's K/V into the pools they are given and return the same tensors.
 
 Attention goes through ``repro_torch.kernels.ops``: the CUDA kernels on
-the card, their plain versions for CPU tensors.  Training, MoE, VLM and
-the gemma2 features (post-attention norms, embedding scale, final-logit
-softcap) are later slices; :func:`check_config` refuses them.
+the card, their plain versions for CPU tensors.  Page pools are fp
+tensors or, for int8 KV pages, dicts ``{"q": int8 codes, "s": f32
+scales}`` (``kernels/kv_int8.py``): ``decode``/``mixed`` quantize the
+step's new K/V into them and attend with the int8 kernel (K3).
+Training, MoE, VLM and the gemma2 features (post-attention norms,
+embedding scale, final-logit softcap) are later slices;
+:func:`check_config` refuses them.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.kv_int8 import q8_kv
 from repro_torch.models.layers import (NEG_INF, NO_WINDOW, dense_init,
                                        head_rms_norm, mlp_apply, rms_norm,
                                        rope)
@@ -213,10 +218,17 @@ def _ffn_residual(cfg, lp, x):
 
 
 # ------------------------------------------------------- full-seq forward --
-def forward_hidden(params, cfg, x, positions, *, collect_kv=False):
+def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
+                   kv_fake_quant=None):
     """Run the layer stack on full sequences. x [B, T, D]; positions
     [B, T] must be a per-row offset plus ``arange(T)`` (attention masks
     causally by sequence index, which is then the same as by position).
+
+    kv_fake_quant: optional quantize-dequantize applied to K/V at the
+    attention input only; the collected K/V stay fp (the int8 commit
+    quantizes them to the same codes).  The int8 serving path uses it
+    so the monolithic prefill attends to the values the chunked paths
+    re-read from quantized pages.
 
     Returns (hidden [B, T, D], (k, v) each [L, B, T, KV_p, hd] or None).
     """
@@ -230,7 +242,9 @@ def forward_hidden(params, cfg, x, positions, *, collect_kv=False):
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        o = ops.flash_attention(q, k, v, kv_lens, scale=_attn_scale(cfg),
+        ka, va = ((k, v) if kv_fake_quant is None
+                  else (kv_fake_quant(k), kv_fake_quant(v)))
+        o = ops.flash_attention(q, ka, va, kv_lens, scale=_attn_scale(cfg),
                                 causal=True, window=int(windows[l]),
                                 softcap=cfg.attn_logit_softcap)
         x = _ffn_residual(cfg, lp, x + _o_proj(cfg, lp, o, head_mask))
@@ -241,7 +255,7 @@ def forward_hidden(params, cfg, x, positions, *, collect_kv=False):
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kv
 
 
-def prefill(params, cfg, tokens):
+def prefill(params, cfg, tokens, *, kv_fake_quant=None):
     """Full-prompt prefill. tokens [B, S].
 
     Returns (last_logits [B, Vp], (k, v) each [L, B, S, KV_p, hd]).
@@ -249,7 +263,8 @@ def prefill(params, cfg, tokens):
     x = embed(params, cfg, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    hidden, kv = forward_hidden(params, cfg, x, positions, collect_kv=True)
+    hidden, kv = forward_hidden(params, cfg, x, positions, collect_kv=True,
+                                kv_fake_quant=kv_fake_quant)
     return unembed(params, cfg, hidden[:, -1]), kv
 
 
@@ -284,6 +299,41 @@ def _scatter(kpg, vpg, k, v, dest):
     vpg[dest] = v
 
 
+def _layer_pages(pages, l: int):
+    """Layer ``l`` of a pool: a view of an fp pool, a dict of views of an
+    int8 ``{"q", "s"}`` pool."""
+    return ({n: t[l] for n, t in pages.items()} if isinstance(pages, dict)
+            else pages[l])
+
+
+def _pool_geometry(pages):
+    """(page_size, trash page) of an fp or int8 pool [L, N, ps, ...]."""
+    codes = pages["q"] if isinstance(pages, dict) else pages
+    return codes.shape[2], codes.shape[1] - 1
+
+
+def _write(kpg, vpg, k, v, dest):
+    """In-place write of one layer's new fp K/V [M, KV_p, hd] to
+    ``dest``; an int8 pool stores their ``q8_kv`` codes and scales."""
+    if isinstance(kpg, dict):
+        codes, scales = q8_kv(torch.stack([k, v]))
+        _scatter(kpg["q"], vpg["q"], codes[0], codes[1], dest)
+        _scatter(kpg["s"], vpg["s"], scales[0], scales[1], dest)
+    else:
+        _scatter(kpg, vpg, k, v, dest)
+
+
+def _int8_paged_attention(q, kpg, vpg, block_table, kv_lens, q_pos, **kw):
+    """``ops.paged_attention``'s signature over one layer of an int8 pool."""
+    return ops.paged_attention_int8(q, kpg["q"], kpg["s"], vpg["q"], vpg["s"],
+                                    block_table, kv_lens, q_pos, **kw)
+
+
+def _paged_attention_for(pages):
+    return (_int8_paged_attention if isinstance(pages, dict)
+            else ops.paged_attention)
+
+
 def write_kv_token(kpg, vpg, k, v, block_table, seq_lens, active=None):
     """Scatter one new token per sequence into the page pool, in place.
 
@@ -312,13 +362,14 @@ def write_kv_chunk(kpg, vpg, k, v, block_table, start, lens):
 # ------------------------------------------------------------------ decode -
 def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
            active=None, attn_fn=None):
-    """One decode step. tokens [B]; pages [L, N, ps, KV_p, hd] (written
-    in place).
+    """One decode step. tokens [B]; pages [L, N, ps, KV_p, hd] fp or an
+    int8 ``{"q", "s"}`` pool (written in place).
 
     attn_fn: a paged attention with ``ops.paged_attention``'s signature
-    (the default).  Returns (logits [B, Vp], (k_pages, v_pages)).
+    over one layer's pages (default: K1 for fp pools, K3 for int8 pools).
+    Returns (logits [B, Vp], (k_pages, v_pages)).
     """
-    attn_fn = attn_fn or ops.paged_attention
+    attn_fn = attn_fn or _paged_attention_for(k_pages)
     windows = layer_windows(cfg)
     x = embed(params, cfg, tokens)                   # [B, D]
     head_mask = _head_mask(cfg, x.device, x.dtype)
@@ -326,14 +377,15 @@ def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
     bt = block_table.to(torch.int32)
     pos = seq_lens.to(torch.int32)                   # next position == current len
     kv_lens = pos + 1
-    dest = token_dest(bt, pos, active, k_pages.shape[2], k_pages.shape[1] - 1)
+    dest = token_dest(bt, pos, active, *_pool_geometry(k_pages))
     for l in range(cfg.n_layers):
         lp = layer_params(params["blocks"], l)
+        kpg, vpg = _layer_pages(k_pages, l), _layer_pages(v_pages, l)
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
         q = rope(q[:, None], pos[:, None], cfg.rope_theta)       # [B,1,H_p,hd]
         k = rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        _scatter(k_pages[l], v_pages[l], k, v, dest)
-        o = attn_fn(q, k_pages[l], v_pages[l], bt, kv_lens, pos,
+        _write(kpg, vpg, k, v, dest)
+        o = attn_fn(q, kpg, vpg, bt, kv_lens, pos,
                     scale=_attn_scale(cfg), window=int(windows[l]),
                     softcap=cfg.attn_logit_softcap)
         x = _ffn_residual(cfg, lp, x + _o_proj(cfg, lp, o[:, 0], head_mask))
@@ -358,19 +410,20 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
     Every GEMM (QKV/O/FFN/unembed) runs on the union of prefill and
     decode tokens; attention splits by phase.  ``attn_fn`` is an optional
     ``{"decode": fn, "chunk": fn}`` of paged attentions with
-    ``ops.paged_attention``'s signature.  Pages are written in place.
+    ``ops.paged_attention``'s signature (default: K1 for fp pools, K3 for
+    int8 ``{"q", "s"}`` pools).  Pages are written in place.
 
     Returns (p_logits [P, Vp] at each chunk's last valid token,
              d_logits [B, Vp], (k_pages, v_pages)).
     """
     attn_fn = attn_fn or {}
-    decode_attn = attn_fn.get("decode") or ops.paged_attention
-    chunk_attn = attn_fn.get("chunk") or ops.paged_attention
+    decode_attn = attn_fn.get("decode") or _paged_attention_for(k_pages)
+    chunk_attn = attn_fn.get("chunk") or _paged_attention_for(k_pages)
     windows = layer_windows(cfg)
     P, C = mb["p_tokens"].shape
     B = mb["d_tokens"].shape[0]
     D = cfg.d_model
-    ps, trash = k_pages.shape[2], k_pages.shape[1] - 1
+    ps, trash = _pool_geometry(k_pages)
 
     x = torch.cat([embed(params, cfg, mb["p_tokens"]).reshape(P * C, D),
                    embed(params, cfg, mb["d_tokens"])], dim=0)   # [P*C+B, D]
@@ -387,7 +440,7 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
 
     for l in range(cfg.n_layers):
         lp = layer_params(params["blocks"], l)
-        kpg, vpg = k_pages[l], v_pages[l]
+        kpg, vpg = _layer_pages(k_pages, l), _layer_pages(v_pages, l)
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))  # shared GEMM
         H_p, KV = q.shape[1], k.shape[1]
         qp, qd = q[: P * C].reshape(P, C, H_p, -1), q[P * C:][:, None]
@@ -399,13 +452,13 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
         # --- prefill-phase attention (write chunk KV + attend history) ---
         qp = rope(qp, p_pos, cfg.rope_theta)
         kp = rope(kp, p_pos, cfg.rope_theta).reshape(P * C, KV, -1)
-        _scatter(kpg, vpg, kp, vp, p_dest)
+        _write(kpg, vpg, kp, vp, p_dest)
         o_p = chunk_attn(qp, kpg, vpg, p_table, p_kv_lens, p_start, **kw)
 
         # --- decode-phase attention ---
         qd = rope(qd, d_lens[:, None], cfg.rope_theta)
         kd = rope(kd[:, None], d_lens[:, None], cfg.rope_theta)[:, 0]
-        _scatter(kpg, vpg, kd, vd, d_dest)
+        _write(kpg, vpg, kd, vd, d_dest)
         o_d = decode_attn(qd, kpg, vpg, d_table, d_kv_lens, d_lens, **kw)
 
         o = torch.cat([o_p.reshape(P * C, H_p, -1), o_d[:, 0]], dim=0)

@@ -16,6 +16,8 @@ from repro_torch.core.engine import Engine, Request
 from repro_torch.core.sampler import SamplingParams
 from repro_torch.kernels import flash_attention as K2
 from repro_torch.kernels import paged_attention as K1
+from repro_torch.kernels import paged_attention_int8 as K3
+from repro_torch.kernels.kv_int8 import SCALE_FLOOR, q8_kv
 from repro_torch.models.registry import get_model
 
 pytestmark = pytest.mark.gpu
@@ -90,6 +92,50 @@ def test_paged_kernel_empty_rows_and_stale_table(cuda):
     assert K1.paged_attention(*empty, scale=0.3).shape == (0, 4, 4, 16)
 
 
+def _paged_int8(seed, B, C, H, KV, d, ps, N, Pmax, dtype):
+    """K3's inputs: K1's, with the pages as int8 codes and f32 scales."""
+    q, kpg, vpg, bt, lens, q_pos = _paged(seed, B, C, H, KV, d, ps, N, Pmax, torch.float32)
+    (kq, ks), (vq, vs) = q8_kv(kpg), q8_kv(vpg)
+    return [q.to(dtype), kq, ks, vq, vs, bt, lens, q_pos]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_int8_kernel_matches_plain(cuda, case, dtype):
+    args = _paged_int8(0, *case, getattr(torch, dtype))
+    n = K3.launches
+    out = K3.paged_attention_int8(*args, scale=0.2)
+    torch.cuda.synchronize()
+    assert K3.launches == n + 1                 # a CUDA tensor launches, never plain
+    assert _err(out, K3.paged_attention_int8_plain(*args, scale=0.2)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("softcap,window", [(20.0, None), (None, 7), (30.0, 5)])
+def test_paged_int8_kernel_softcap_window(cuda, softcap, window):
+    args = _paged_int8(3, 2, 4, 4, 2, 64, 8, 16, 4, torch.float32)
+    kw = dict(scale=0.2, softcap=softcap, window=window)
+    assert _err(K3.paged_attention_int8(*args, **kw),
+                K3.paged_attention_int8_plain(*args, **kw)) <= TOL["float32"]
+
+
+def test_paged_int8_kernel_empty_rows_zero_pages_and_stale_table(cuda):
+    """kv_len = 0 gives zeros; all-zero pages with floored scales
+    dequantize to 0; table entries past ceil(kv_len/ps) are never read."""
+    args = _paged_int8(5, 3, 4, 4, 2, 16, 4, 12, 3, torch.float32)
+    args[6] = torch.tensor([0, 5, 9], dtype=torch.int32, device="cuda")
+    args[7] = torch.tensor([0, 1, 5], dtype=torch.int32, device="cuda")
+    zero = args[5][2, 0].long()
+    for codes, scales in ((args[1], args[2]), (args[3], args[4])):
+        codes[zero], scales[zero] = 0, SCALE_FLOOR
+    want = K3.paged_attention_int8_plain(*args, scale=0.3)
+    args[5][1, 2] = 10**6                       # slot 2 lies past ceil(5/4) = 2
+    out = K3.paged_attention_int8(*args, scale=0.3)
+    assert torch.isfinite(out).all() and bool((out[0] == 0).all())
+    assert _err(out, want) <= TOL["float32"]
+    empty = [args[0][:0]] + args[1:5] + [a[:0] for a in args[5:]]
+    assert K3.paged_attention_int8(*empty, scale=0.3).shape == (0, 4, 4, 16)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, case, dtype):
@@ -106,15 +152,19 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         assert _err(out, K2.flash_attention_plain(q, k, v, lens, scale=0.2, **kw)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
 @pytest.mark.parametrize("mode", ["sequential", "splitwiser", "splitwiser_mps", "chunked"])
-def test_engine_on_card_matches_cpu(cuda, mode):
+def test_engine_on_card_matches_cpu(cuda, mode, kv_dtype):
     """Greedy streams on the card (kernels) equal those on the CPU (plain
-    versions), f32, reduced qwen3-0.6b."""
+    versions), f32, reduced qwen3-0.6b, with fp and with int8 pages (the
+    latter under the step sanitizer)."""
     model = get_model("qwen3-0.6b", get_config("qwen3-0.6b").reduced())
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     serve = ServeConfig(mode=mode, max_batch=4, page_size=4, n_pages=128,
                         max_pages_per_seq=16, prefill_chunk=4, n_streams=2,
-                        sanitize_level="off", dispatch_sentinel=False)
+                        kv_dtype=kv_dtype,
+                        sanitize_level="step" if kv_dtype == "int8" else "off",
+                        dispatch_sentinel=False)
     rng = np.random.RandomState(0)
     prompts = [[int(t) for t in rng.randint(2, 256, size=rng.randint(5, 20))]
                for _ in range(6)]
