@@ -8,26 +8,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: device name and count, ``nvidia-smi`` name and power limit;
   2. build: every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
      (one ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` summary;
-  3. kernels against their plain PyTorch versions at the main path's shapes,
+  3. kernels against their plain PyTorch versions at the main paths' shapes,
      in f32 and bf16, with times of the kernel, the plain version and a
      library yardstick (``scaled_dot_product_attention`` on gathered K/V —
      for the int8 kernel after one dequantize call — never called by the
-     port), and the card's bound for the same work; plus K1/K3 on empty
-     rows and stale page tables (K3 also on all-zero pages);
-  4. cross-device engine check: qwen3-0.6b at full width and 2 layers, f32,
-     one seeded set of weights, served on ``cuda`` (kernels) and on the CPU
-     (plain versions), with fp pages and with int8 pages under the runtime
-     sanitizer (``sanitize_level="step"``); greedy streams must be equal;
-  5. the main paths: all 28 layers, bf16, 16 requests of 128-1024 prompt
-     tokens through all four serving modes, first with fp KV pages, then
-     with int8 KV pages in a pool of the same bytes.  Kernel launch
-     counters are zeroed just before each path and read just after; every
-     request must finish by length with finite logits, and every kernel of
-     the path must have launched (the int8 kernel in every mode);
+     port; none for the SSD scan, which no single PyTorch call computes),
+     and the card's bound for the same work; plus K1/K3 on empty rows and
+     stale page tables (K3 also on all-zero pages), K1/K2 at the hybrid's
+     head geometry, and the scan with a ragged T and a nonzero h0;
+  4. cross-device checks, f32, one seeded set of weights each, greedy
+     streams equal between ``cuda`` (kernels) and the CPU (plain versions):
+     the engine on qwen3-0.6b at full width and 2 layers with fp pages and
+     with int8 pages under the runtime sanitizer (``sanitize_level="step"``);
+     the zamba2 hybrid at full width and 7 layer-units (2 prompts of 64
+     tokens, 8 decode steps), whose first decode logits on ``cuda`` must
+     match the full-sequence forward;
+  5. the main paths, in bf16 at full depth: qwen3-0.6b, 16 requests of
+     128-1024 prompt tokens through all four serving modes, first with fp
+     KV pages, then with int8 KV pages in a pool of the same bytes; then
+     zamba2-7b (81 layer-units), 8 prompts of 1024 tokens prefilled as one
+     batch and 32 greedy decode steps.  Kernel launch counters are zeroed
+     just before each path and read just after; every request must finish
+     by length (every logit finite), and every kernel of the path must
+     have launched (the int8 kernel in every mode; the scan once per Mamba2
+     block of the prefill);
   6. where the time goes: per mode and page type, one window of engine
-     steps timed on the host clock and, on a fresh engine, under
-     ``torch.profiler``: device time by kernel class and the device's busy
-     share.
+     steps, and for the hybrid its prefill and 8 decode steps, timed on the
+     host clock and, run again from fresh state, under ``torch.profiler``:
+     device time by kernel class and the device's busy share.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 line, the card's ``nvidia-smi`` name and power limit, and
@@ -96,10 +104,10 @@ def bound(nbytes: float, flops: float, dtype: str):
 
 
 # ------------------------------------------------------------ phase 3 ---
-def paged_case(torch, B, C, KV, G, d, ps, max_kv, dtype, seed):
-    """Inputs of one K1 call as the main path gives them: ragged kv lens
-    up to ``max_kv``, chunks ending at each sequence's length, pages
-    scattered over the pool."""
+def paged_case(torch, B, C, KV, G, d, ps, max_kv, dtype, seed, min_kv=None):
+    """Inputs of one K1 call as the main path gives them: kv lens from
+    ``min_kv`` (default: max_kv / 8, ragged) up to ``max_kv``, chunks
+    ending at each sequence's length, pages scattered over the pool."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     Pmax = -(-max_kv // ps)
     N = B * Pmax + 1
@@ -108,7 +116,7 @@ def paged_case(torch, B, C, KV, G, d, ps, max_kv, dtype, seed):
     vp = torch.randn(N, ps, KV, d, generator=g, device="cuda").to(dtype)
     table = torch.randperm(N - 1, generator=g, device="cuda")[: B * Pmax]
     table = table.reshape(B, Pmax).to(torch.int32)
-    lo = max(C, max_kv // 8)
+    lo = max(C, max_kv // 8 if min_kv is None else min_kv)
     kv_lens = torch.linspace(lo, max_kv, B, device="cuda").round().to(torch.int32)
     q_pos = (kv_lens - C).to(torch.int32)
     return q, kp, vp, table, kv_lens, q_pos
@@ -187,16 +195,23 @@ def sdpa_paged_int8(torch, q, kq, ks, vq, vs, table, kv_lens, q_pos, scale):
     return call
 
 
+def max_err(a, b):
+    """Max abs difference of two outputs, or of two tuples of outputs."""
+    if isinstance(a, tuple):
+        return max(max_err(x, y) for x, y in zip(a, b))
+    return (a.float() - b.float()).abs().max().item()
+
+
 def measure(torch, kernel, label, dname, run, plain, lib, work, iters):
     """One case: the kernel against its plain version on the same inputs
     (max abs error), then CUDA-event times of kernel, plain version and
-    library yardstick, and the bound for the work."""
+    library yardstick (None: there is none), and the bound for the work."""
     out = run()
     torch.cuda.synchronize()
-    err = (out.float() - plain().float()).abs().max().item()
+    err = max_err(out, plain())
     ms = cuda_time_ms(run, iters)
     plain_ms = cuda_time_ms(plain, max(iters // 4, 1))
-    lib_ms = cuda_time_ms(lib, iters)
+    lib_ms = cuda_time_ms(lib, iters) if lib else None
     b_ms, b_by = bound(*work, dname)
     return dict(kernel=kernel, case=label, dtype=dname, max_abs_err=err, tol=TOL[dname],
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
@@ -244,15 +259,76 @@ def stale_checks(torch):
     return out
 
 
+def ssd_case(torch, B, T, H, P, N, dtype, h0, seed):
+    """Inputs of one K4 call at the hybrid prefill's shapes: seeded
+    normals at scale 0.25 (|y| stays below 4, where one bf16 step is
+    inside the 2e-2 tolerance), log-decay -|normal| * 0.1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda") * 0.25
+    x, Bc, Cc = r(B, T, H, P).to(dtype), r(B, T, N).to(dtype), r(B, T, N).to(dtype)
+    la = -torch.randn(B, T, H, generator=g, device="cuda").abs() * 0.1
+    return x, la, Bc, Cc, (r(B, H, P, N) if h0 else None)
+
+
+def ssd_work(x, Bc, h0, chunk):
+    """(bytes, flops) of one scan: x, la, B, C, y and h_final (and h0 when
+    given) each moved once; the four products' multiply-adds over real
+    steps only — the causal triangle of C.B^T and of its product with x,
+    C.h (not on the first chunk when h0 = 0) and the state update."""
+    B, T, H, P = x.shape
+    N = Bc.shape[-1]
+    isz = x.element_size()
+    nbytes = (2 * x.numel() + 2 * Bc.numel()) * isz + B * T * H * 4 \
+        + B * H * P * N * 4 * (1 if h0 is None else 2)
+    macs = 0
+    for t0 in range(0, T, chunk):
+        q = min(chunk, T - t0)
+        macs += q * (q + 1) // 2 * (N + P) + q * P * N * (1 if t0 == 0 and h0 is None else 2)
+    return nbytes, 2.0 * B * H * macs
+
+
 def phase_kernels(torch, iters):
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_attention as K1
     from repro_torch.kernels import paged_attention_int8 as K3
+    from repro_torch.kernels import ssd_scan as K4
     F = torch.nn.functional
     scale = 1.0 / math.sqrt(128)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
+        # K4 at zamba2's prefill (B=8 prompts of 1024, 112 heads of 64,
+        # state 64, chunk 64), then a ragged T with a nonzero h0
+        for label, T, h0 in (("prefill B=8 T=1024 H=112", 1024, False),
+                             ("ragged T=1000 h0!=0", 1000, True)):
+            x, la, Bc, Cc, h = ssd_case(torch, 8, T, 112, 64, 64, dtype, h0, seed=3)
+            cases.append(measure(
+                torch, "ssd_scan", label, dname,
+                lambda: K4.ssd_chunk_scan(x, la, Bc, Cc, h, chunk=64),
+                lambda: K4.ssd_chunk_scan_plain(x, la, Bc, Cc, h, chunk=64),
+                None, ssd_work(x, Bc, h, 64), iters))
+        # K1/K2 at the hybrid's shared attention: d=112, 32 q and 32 kv
+        # heads (G=1); decode rows all at one length, as in its decode
+        hy_scale = 1.0 / math.sqrt(112)
+        args = paged_case(torch, 8, 1, 32, 1, 112, 16, 1040, dtype, seed=6, min_kv=1040)
+        cases.append(measure(
+            torch, "paged_attention", "hybrid decode B=8 C=1 d=112 G=1", dname,
+            lambda: K1.paged_attention(*args, scale=hy_scale),
+            lambda: K1.paged_attention_plain(*args, scale=hy_scale),
+            sdpa_paged(torch, *args, hy_scale),
+            paged_work(args[0], args[1], args[3], args[4], args[5]), iters))
+        g = torch.Generator(device="cuda").manual_seed(7)
+        qkv = [torch.randn(8, 1024, 32, 112, generator=g, device="cuda").to(dtype)
+               for _ in range(3)]
+        lens = torch.full((8,), 1024, dtype=torch.int32, device="cuda")
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in qkv)
+        cases.append(measure(
+            torch, "flash_attention", "hybrid prefill B=8 T=1024 d=112 G=1", dname,
+            lambda: K2.flash_attention(*qkv, lens, scale=hy_scale),
+            lambda: K2.flash_attention_plain(*qkv, lens, scale=hy_scale),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=hy_scale),
+            flash_work(qkv[0], qkv[1], lens), iters))
+        del qkv, qt, kt, vt
         for label, B, C in (("decode", 16, 1), ("chunk", 2, 128)):
             args = paged_case(torch, B, C, 8, 2, 128, 16, 1024, dtype, seed=1)
             cases.append(measure(
@@ -328,7 +404,9 @@ def launch_counts():
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_attention as K1
     from repro_torch.kernels import paged_attention_int8 as K3
-    return {"paged_attention": K1, "flash_attention": K2, "paged_attention_int8": K3}
+    from repro_torch.kernels import ssd_scan as K4
+    return {"paged_attention": K1, "flash_attention": K2, "paged_attention_int8": K3,
+            "ssd_scan": K4}
 
 
 def zero_launches():
@@ -382,6 +460,102 @@ def phase_cross_device(torch):
             log(f"cross-device {pages} {mode}: {len(streams['cuda'])} greedy streams equal "
                 f"(cuda vs cpu); launches {json.dumps(counts)}; sanitizer checks "
                 f"cuda={checks['cuda']} cpu={checks['cpu']} (clean)")
+
+
+def to_device(tree, device):
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def prompts(n, S, vocab, seed):
+    import numpy as np
+    return np.random.RandomState(seed).randint(2, vocab, size=(n, S))
+
+
+def hybrid_serve(torch, params, cfg, toks, steps, ps):
+    """Serve the hybrid at model level, as its users do: prefill the
+    prompts ``toks`` [B, S] as one batch, lay the prompts' K/V out as
+    pages of ``ps`` tokens with room for ``steps`` more, then ``steps``
+    greedy decode steps with every row active.  Fails on a non-finite
+    logit.  Returns the greedy tokens [B, steps + 1] (the first from the
+    prefill), the first decode step's logits, the prefill's wall time and
+    launch counts, and each decode step's wall time (host clock, each
+    ending in a synchronize on the card)."""
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import transformer as T
+    dev = params["embed"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    B, S = toks.shape
+    toks = torch.as_tensor(toks, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    last, (k, v), (conv, ssm) = HY.prefill(params, cfg, toks)
+    nxt = last.argmax(-1)
+    sync()
+    ttft = time.perf_counter() - t0
+    prefill_launches = read_launches()
+    if not bool(torch.isfinite(last[:, :cfg.vocab_size]).all()):
+        fail("hybrid: non-finite prefill logits")
+    per, new = S // ps, -(-steps // ps)
+    kp, vp = T.init_pages(cfg, B * (per + new) + 1, ps, k.dtype, dev, n_layers=k.shape[0])
+    kp[:, :B * per] = T.kv_to_pages(k, ps)
+    vp[:, :B * per] = T.kv_to_pages(v, ps)
+    del k, v
+    rows = torch.arange(B, device=dev, dtype=torch.int32)[:, None]
+    cols = torch.arange(per + new, device=dev, dtype=torch.int32)[None]
+    bt = torch.where(cols < per, rows * per + cols, B * per + rows * new + cols - per)
+    out, gaps, first = [nxt], [], None
+    for i in range(steps):
+        t1 = time.perf_counter()
+        logits, _, _ = HY.decode(params, cfg, nxt, conv, ssm, kp, vp, bt,
+                                 torch.full((B,), S + i, device=dev))
+        nxt = logits.argmax(-1)
+        sync()
+        gaps.append(time.perf_counter() - t1)
+        if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+            fail(f"hybrid: non-finite logits at decode step {i}")
+        first = logits if first is None else first
+        out.append(nxt)
+    return dict(tokens=torch.stack(out, 1).cpu(), first_logits=first, ttft_s=ttft,
+                prefill_launches=prefill_launches, tbt_s=gaps)
+
+
+def phase_hybrid_cross_device(torch):
+    """The hybrid at full width and 7 layer-units (one group of 5 Mamba2
+    blocks and the shared block, 1 trailing Mamba2), f32: 2 prompts of 64
+    tokens and 8 decode steps on cuda and on the CPU; the greedy streams
+    must be equal, and on cuda the first decode step's logits must match
+    the full-sequence forward within 2e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models.registry import get_model
+    cfg = replace(get_config("zamba2-7b"), n_layers=7)
+    model = get_model("zamba2-7b", cfg)
+    params = model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
+    toks = prompts(2, 64, cfg.vocab_size, seed=4)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = to_device(params, dev)
+        zero_launches()
+        runs[dev] = hybrid_serve(torch, p, cfg, toks, steps=8, ps=16)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_launches()
+            first = runs[dev]["tokens"][:, :1].cuda()
+            full, _ = HY.train_logits(p, cfg, {"tokens": torch.cat(
+                [torch.as_tensor(toks, device="cuda"), first], 1)})
+            gap = (runs[dev]["first_logits"] - full[:, -1]).abs().max().item()
+            del p, full
+    if not torch.equal(runs["cuda"]["tokens"], runs["cpu"]["tokens"]):
+        fail(f"hybrid: greedy streams differ between cuda and cpu: "
+             f"{runs['cuda']['tokens'].tolist()} vs {runs['cpu']['tokens'].tolist()}")
+    if any(counts[k] == 0 for k in ("paged_attention", "flash_attention", "ssd_scan")):
+        fail(f"hybrid: kernels were not launched on cuda: {counts}")
+    if not gap < 2e-3:
+        fail(f"hybrid: first decode logits differ from the full forward by {gap}")
+    log(f"cross-device hybrid: 2 greedy streams of 9 tokens equal (cuda vs cpu); "
+        f"decode vs full forward max abs logit gap {gap:.3e} on cuda; launches "
+        + json.dumps(counts))
 
 
 def pct(vals, q):
@@ -477,6 +651,57 @@ def phase_main_path(torch):
     return paths, (model, params)
 
 
+HYBRID = dict(batch=8, prompt=1024, steps=32, page_size=16)
+
+
+def phase_hybrid_path(torch):
+    """The hybrid main path: zamba2-7b at full width and depth in bf16,
+    8 prompts of 1024 tokens prefilled as one batch, then 32 greedy decode
+    steps with every row active.  Counters are zeroed just before and
+    read just after; the prefill must launch K4 once per Mamba2 block and
+    K2 once per shared-attention invocation, each decode step K1 once per
+    invocation."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models.registry import get_model
+    cfg = get_config("zamba2-7b")
+    model = get_model("zamba2-7b", cfg)
+    n_attn, n_mamba = HY.group_structure(cfg)[:2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"hybrid path: zamba2-7b, {cfg.n_layers} layer-units ({n_mamba} Mamba2, "
+        f"{n_attn} shared attention), {n_params} params bf16")
+    toks = prompts(HYBRID["batch"], HYBRID["prompt"], cfg.vocab_size, seed=6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    r = hybrid_serve(torch, params, cfg, toks, HYBRID["steps"], HYBRID["page_size"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    pre = r["prefill_launches"]
+    steps = HYBRID["steps"]
+    want = {"ssd_scan": (n_mamba, 0), "flash_attention": (n_attn, 0),
+            "paged_attention": (0, n_attn * steps), "paged_attention_int8": (0, 0)}
+    got = {k: (pre[k], launches[k] - pre[k]) for k in want}
+    if got != want:
+        fail(f"hybrid path launches (prefill, decode) {got}, expected {want}")
+    B, S = toks.shape
+    tbt = sorted(r["tbt_s"])
+    out = dict(
+        n_params=n_params, prompt_tokens=B * S, decode_steps=steps,
+        prefill_tokens_per_s=B * S / r["ttft_s"], ttft_s=r["ttft_s"],
+        decode_tokens_per_s=B * steps / sum(tbt), tbt_p50_s=pct(tbt, 0.5),
+        tbt_p99_s=pct(tbt, 0.99), max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches_prefill={k: v[0] for k, v in got.items()},
+        launches_decode_per_step={k: v[1] / steps for k, v in got.items()})
+    log("hybrid path: " + json.dumps(out))
+    log(f"hybrid path launches {json.dumps(launches)} over {1 + steps} steps "
+        f"(1 prefill, {steps} decode)")
+    return dict(launches=launches, steps=1 + steps), (model, params)
+
+
 def log_agreement(paths):
     """Greedy agreement between modes per page type, and between page
     types per mode.  In bf16 cross-mode streams need not agree (batch
@@ -493,6 +718,7 @@ def log_agreement(paths):
 KERNEL_CLASSES = (("paged_attention_int8", ("paged_attention_int8_kernel",)),
                   ("paged_attention", ("paged_attention_kernel",)),
                   ("flash_attention", ("flash_attention_kernel",)),
+                  ("ssd_scan", ("ssd_scan_kernel",)),
                   ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
 
@@ -533,25 +759,61 @@ def phase_profile(torch, setup, warm_steps=8, window=16):
                 for _ in range(window):
                     eng.step()
                 torch.cuda.synchronize()
-            by_class, n_kernels = {}, 0
-            for e in prof.key_averages():
-                us = e.self_device_time_total
-                if not us or e.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                n_kernels += e.count
-                name = e.key.lower()
-                cls = next((c for c, keys in KERNEL_CLASSES
-                            if any(k in name for k in keys)), "other")
-                by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
-            busy_ms = sum(by_class.values())
             out[f"{label} {mode}"] = r = dict(
                 steps=f"{warm_steps}..{warm_steps + window - 1}",
                 step_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
-                wall_ms=wall_ms, device_ms=busy_ms if busy_ms else "not measured",
+                **window_summary(wall_ms, *device_ms_by_class(torch, prof)))
+            log(f"profile {label} {mode}: " + json.dumps(r))
+    return out
+
+
+def device_ms_by_class(torch, prof):
+    """(device ms by kernel class, kernel count) of one profiled run."""
+    by_class, n_kernels = {}, 0
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if not us or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += e.count
+        name = e.key.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+    return by_class, n_kernels
+
+
+def window_summary(wall_ms, by_class, n_kernels):
+    """Host wall, device time by class and busy share of one window (busy
+    share: profiled device time over the wall of the same window run
+    unprofiled)."""
+    busy_ms = sum(by_class.values())
+    return dict(wall_ms=wall_ms, device_ms=busy_ms if busy_ms else "not measured",
                 busy_share=busy_ms / wall_ms if busy_ms else "not measured",
                 device_kernels=n_kernels,
                 device_ms_by_class={k: round(v, 3) for k, v in sorted(by_class.items())})
-            log(f"profile {label} {mode}: " + json.dumps(r))
+
+
+def phase_hybrid_profile(torch, setup, steps=8):
+    """Where the hybrid's time goes: its prefill and ``steps`` decode
+    steps from fresh state, timed on the host clock; then, profiled, the
+    prefill alone and the prefill with the decode steps — the decode
+    steps' device time is the difference (both runs also lay the prompts'
+    K/V out as pages, which falls to the prefill)."""
+    from torch.profiler import ProfilerActivity, profile
+    model, params = setup
+    toks = prompts(HYBRID["batch"], HYBRID["prompt"], model.cfg.vocab_size, seed=6)
+    r = hybrid_serve(torch, params, model.cfg, toks, steps, HYBRID["page_size"])
+    runs = {}
+    for n in (0, steps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            hybrid_serve(torch, params, model.cfg, toks, n, HYBRID["page_size"])
+        runs[n] = device_ms_by_class(torch, prof)
+    (pre, n_pre), (both, n_both) = runs[0], runs[steps]
+    dec = {k: v - pre.get(k, 0.0) for k, v in both.items()}
+    pre_ms, dec_ms = r["ttft_s"] * 1e3, sum(r["tbt_s"]) * 1e3
+    out = {"prefill": window_summary(pre_ms, pre, n_pre),
+           f"decode x{steps}": window_summary(dec_ms, dec, n_both - n_pre),
+           "window": window_summary(pre_ms + dec_ms, both, n_both)}
+    log("profile hybrid: " + json.dumps(out))
     return out
 
 
@@ -578,6 +840,12 @@ KERNELS = {
         replaces_function="src/repro/kernels/paged_attention_int8.py::paged_attention_int8",
         headline=("decode B=16 C=1", "bfloat16"),
         library="two calls: torch.mul dequantize + scaled_dot_product_attention"),
+    "ssd_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:64",
+        replaces_function="src/repro/kernels/ssd_scan.py::ssd_chunk_scan",
+        headline=("prefill B=8 T=1024 H=112", "bfloat16"),
+        library="none (no single PyTorch call computes the scan)"),
 }
 
 
@@ -622,17 +890,20 @@ def main() -> int:
         log(f"quick check passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # 4. cross-device engine check
+    # 4. cross-device checks
     phase_cross_device(torch)
+    phase_hybrid_cross_device(torch)
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. the main paths
     paths, setup = phase_main_path(torch)
     log("modes " + json.dumps({k: v["per_mode"] for k, v in paths.items()}))
+    paths["hybrid"], hybrid_setup = phase_hybrid_path(torch)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. where the time goes
     phase_profile(torch, setup)
+    phase_hybrid_profile(torch, hybrid_setup)
 
     kernels = []
     for kname, meta in KERNELS.items():

@@ -1,4 +1,4 @@
-"""Model-layout entry points to the attention kernels.
+"""Model-layout entry points to the attention and scan kernels.
 
 Counterparts of the reference's ``src/repro/kernels/ops.py``
 ``paged_attention``, ``paged_attention_int8`` and ``flash_attention``,
@@ -8,6 +8,8 @@ plain versions) and the Pallas block sizes.  They normalise what the
 model hands over — any integer index dtype, ``NO_WINDOW`` for a global
 layer — and call the kernel wrappers.  The reference padded ``d`` to the
 128-lane TPU width; the CUDA kernels take ``d`` as it is.
+``ssd_chunk_scan`` has no counterpart there: the reference's Mamba2 block
+ran its jnp oracle, and the port's runs the scan kernel (K4) through it.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import paged_attention as _paged_mod
 from repro_torch.kernels import paged_attention_int8 as _paged_i8_mod
+from repro_torch.kernels import ssd_scan as _ssd_mod
 from repro_torch.models.layers import NO_WINDOW
 
 
@@ -53,3 +56,13 @@ def flash_attention(q, k, v, kv_lens, *, scale, causal=True, window=None,
         q.contiguous(), k.contiguous(), v.contiguous(),
         kv_lens.to(torch.int32).contiguous(), scale=scale, causal=causal,
         window=_window(window), softcap=softcap)
+
+
+def ssd_chunk_scan(x, la, Bc, Cc, h0=None, *, chunk=64):
+    """x [B, T, H, P]; la [B, T, H]; Bc/Cc [B, T, N]; h0 [B, H, P, N] or
+    None.  Returns (y [B, T, H, P] in x's dtype, h [B, H, P, N] f32)."""
+    f32 = torch.float32
+    return _ssd_mod.ssd_chunk_scan(
+        x.contiguous(), la.to(f32).contiguous(), Bc.contiguous(),
+        Cc.contiguous(), None if h0 is None else h0.to(f32).contiguous(),
+        chunk=chunk)

@@ -176,3 +176,21 @@ def dense_init(generator, shape, in_axis_size, dtype, device, scale=1.0):
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * std
     return w.to(device=device, dtype=dtype)
+
+
+def mlp_init(generator, d_model, d_ff, act, dtype, device, n_layers_scale=1.0,
+             stack=()):
+    """The weights ``mlp_apply`` takes for ``act``, drawn in the
+    reference's order: ``w_in``/``w_out`` for ``gelu_mlp``, else
+    ``w_gate``/``w_up``/``w_down``; ``stack`` prepends layer axes."""
+    s = tuple(stack)
+
+    def dense(shape, fan_in, scale=1.0):
+        return dense_init(generator, s + shape, fan_in, dtype, device, scale)
+
+    if act == "gelu_mlp":
+        return {"w_in": dense((d_model, d_ff), d_model),
+                "w_out": dense((d_ff, d_model), d_ff, n_layers_scale)}
+    return {"w_gate": dense((d_model, d_ff), d_model),
+            "w_up": dense((d_model, d_ff), d_model),
+            "w_down": dense((d_ff, d_model), d_ff, n_layers_scale)}

@@ -1,8 +1,11 @@
 """Model registry: maps an architecture to its module.
 
 The port serves the dense transformer family with paged KV
-(``cache_kind="paged"``); the other families of the reference registry
-come with later slices.
+(``cache_kind="paged"``) and the zamba2 hybrid (``"paged+state"``: paged
+KV for the shared attention plus conv/SSM states; served at model level
+through ``hybrid.prefill``/``decode``, as the reference's engine refuses
+it too).  The other families of the reference registry come with later
+slices.
 """
 from dataclasses import dataclass
 from typing import Any
@@ -10,10 +13,10 @@ from typing import Any
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 
-FAMILY_MODULE = {"dense": transformer}
-CACHE_KIND = {"dense": "paged"}
+FAMILY_MODULE = {"dense": transformer, "hybrid": hybrid}
+CACHE_KIND = {"dense": "paged", "hybrid": "paged+state"}
 
 
 @dataclass(frozen=True)

@@ -34,8 +34,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.kv_int8 import q8_kv
 from repro_torch.models.layers import (NEG_INF, NO_WINDOW, dense_init,
-                                       head_rms_norm, mlp_apply, rms_norm,
-                                       rope)
+                                       head_rms_norm, mlp_apply, mlp_init,
+                                       rms_norm, rope)
 
 VOCAB_PAD = 256
 
@@ -132,11 +132,8 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
         "wk": dense((L, D, cfg.n_kv_heads, hd), D),
         "wv": dense((L, D, cfg.n_kv_heads, hd), D),
         "wo": dense((L, H_p, hd, D), H_p * hd, out_scale),
-        "mlp": {
-            "w_gate": dense((L, D, cfg.d_ff), D),
-            "w_up": dense((L, D, cfg.d_ff), D),
-            "w_down": dense((L, cfg.d_ff, D), cfg.d_ff, out_scale),
-        },
+        "mlp": mlp_init(generator, D, cfg.d_ff, cfg.mlp_act, dtype, device,
+                        out_scale, stack=(L,)),
     }
     if cfg.use_qk_norm:
         blocks["q_norm"] = zeros(L, hd)

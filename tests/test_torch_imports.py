@@ -76,3 +76,33 @@ print("clean")
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_hybrid_on_cpu_loads_no_jax_or_reference_module():
+    """A reduced zamba2 prefill and decode step (the SSD scan's and the
+    attention kernels' plain versions), in a fresh interpreter."""
+    code = """
+import sys, torch
+from repro_torch.configs import get_config
+from repro_torch.models import hybrid, transformer
+from repro_torch.models.registry import get_model
+model = get_model("zamba2-7b", get_config("zamba2-7b").reduced())
+params = model.init(torch.Generator().manual_seed(0), device="cpu")
+toks = torch.randint(0, model.cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+last, (k, v), (conv, ssm) = hybrid.prefill(params, model.cfg, toks)
+free = torch.zeros((1, 3, 4) + tuple(k.shape[-2:]))
+kpg = torch.cat([transformer.kv_to_pages(k, 4), free], 1)     # pages 4, 5 free, 6 trash
+vpg = torch.cat([transformer.kv_to_pages(v, 4), free], 1)
+bt = torch.tensor([[0, 1, 4], [2, 3, 5]], dtype=torch.int32)
+logits, _, _ = hybrid.decode(params, model.cfg, last.argmax(-1), conv, ssm,
+                             kpg, vpg, bt, torch.full((2,), 8))
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
+assert not bad, bad
+assert logits.shape == (2, 256) and bool(torch.isfinite(logits).all())
+print("clean")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-engine on the card against the engine on the CPU.
+engine and the zamba2 hybrid on the card against the CPU.
 
 Every test here needs a CUDA device and skips itself without one.  This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -11,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from hybrid_serving import greedy_stream
+
 from repro_torch.configs import ServeConfig, get_config
 from repro_torch.core.engine import Engine, Request
 from repro_torch.core.sampler import SamplingParams
 from repro_torch.kernels import flash_attention as K2
 from repro_torch.kernels import paged_attention as K1
 from repro_torch.kernels import paged_attention_int8 as K3
+from repro_torch.kernels import ssd_scan as K4
 from repro_torch.kernels.kv_int8 import SCALE_FLOOR, q8_kv
 from repro_torch.models.registry import get_model
 
@@ -30,6 +33,11 @@ PAGED_CASES = [(3, 1, 4, 2, 64, 8, 16, 4), (2, 1, 8, 8, 128, 16, 32, 3),
 # B, T, Tk, H, KV, d
 FLASH_CASES = [(2, 32, 32, 4, 2, 64), (1, 64, 64, 8, 8, 128), (2, 16, 16, 6, 2, 32),
                (2, 37, 37, 16, 8, 128)]
+# B, H, T, P, N, chunk — tests/test_ssd_kernel.py's cases, then zamba2's
+# head geometry with a ragged last chunk, then sizes that are not
+# multiples of the kernel's 16-wide tiles (chunk above 32: both scan halves)
+SSD_CASES = [(2, 3, 32, 16, 8, 8), (1, 2, 64, 32, 16, 16), (2, 1, 24, 8, 8, 8),
+             (2, 112, 200, 64, 64, 64), (1, 5, 77, 24, 40, 40)]
 
 
 @pytest.fixture
@@ -150,6 +158,58 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         out = K2.flash_attention(q, k, v, lens, scale=0.2, **kw)
         assert K2.launches == n + 1
         assert _err(out, K2.flash_attention_plain(q, k, v, lens, scale=0.2, **kw)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("h0", ["zero", "random"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, case, dtype, h0):
+    """K4 against its plain version on the same inputs.  Inputs at scale
+    0.25 keep |y| < 4, where one bf16 step (0.0156) is inside 2e-2."""
+    B, H, T, P, N, chunk = case
+    rng = np.random.RandomState(0)
+    dt = getattr(torch, dtype)
+    x, Bc, Cc = (_rand(rng, *s).mul(0.5).to("cuda", dt)
+                 for s in ((B, T, H, P), (B, T, N), (B, T, N)))
+    la = torch.from_numpy(-np.abs(rng.standard_normal((B, T, H))).astype(np.float32) * 0.1)
+    la = la.to("cuda")
+    h = _rand(rng, B, H, P, N).mul(0.5).to("cuda") if h0 == "random" else None
+    n = K4.launches
+    y, hf = K4.ssd_chunk_scan(x, la, Bc, Cc, h, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K4.launches == n + 1                 # a CUDA tensor launches, never plain
+    py, ph = K4.ssd_chunk_scan_plain(x, la, Bc, Cc, h, chunk=chunk)
+    assert y.dtype == dt and hf.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and float(py.float().abs().max()) < 4
+    assert _err(y, py) <= TOL[dtype] and _err(hf, ph) <= TOL["float32"]
+
+
+def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(1, 8, 2, 128, device="cuda")       # P = 128 > 64
+    la = torch.zeros(1, 8, 2, device="cuda")
+    b = torch.zeros(1, 8, 16, device="cuda")
+    with pytest.raises(ValueError, match="<= 64"):
+        K4.ssd_chunk_scan(x, la, b, b, chunk=8)
+    with pytest.raises(TypeError, match="float32"):
+        K4.ssd_chunk_scan(x[..., :64], la.bfloat16(), b, b, chunk=8)
+
+
+def test_hybrid_on_card_matches_cpu(cuda):
+    """Greedy streams of the reduced zamba2 hybrid on the card (K1, K2,
+    K4) equal those on the CPU (plain versions), f32."""
+    model = get_model("zamba2-7b", get_config("zamba2-7b").reduced())
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.RandomState(0).randint(2, 256, size=(3, 12))
+    counts = lambda: (K1.launches, K2.launches, K4.launches)
+    before = counts()
+    card = greedy_stream(_to(params, "cuda"), model.cfg, toks, 8, ps=4)
+    assert all(a > b for a, b in zip(counts(), before))
+    np.testing.assert_array_equal(card, greedy_stream(params, model.cfg, toks, 8, ps=4))
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])

@@ -5,6 +5,7 @@ The reference's Pallas kernels run the way tests/test_kernels.py runs
 them: through ``repro.kernels.ops`` in interpret mode.  Inputs come from
 one numpy seed and are handed to both packages.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,6 +59,19 @@ def test_mlp_matches_reference(act):
     _close(PL.mlp_apply({k: torch.from_numpy(v) for k, v in p.items()},
                         torch.from_numpy(x), act),
            JL.mlp_apply({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), act))
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "gelu_mlp"])
+def test_mlp_init_matches_reference_layout(act):
+    """Names and shapes of the reference's mlp_init, init scale 1/sqrt(fan_in)
+    (the output matrix times n_layers_scale)."""
+    want = JL.mlp_init(jax.random.PRNGKey(0), 64, 256, act, jnp.float32, 0.5, stack=(3,))
+    got = PL.mlp_init(torch.Generator().manual_seed(0), 64, 256, act, torch.float32,
+                      "cpu", 0.5, stack=(3,))
+    assert {k: tuple(v.shape) for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+    for k, w in got.items():
+        fan_in, scale = (256, 0.5) if k in ("w_out", "w_down") else (64, 1.0)
+        assert abs(float(w.std()) * fan_in ** 0.5 / scale - 1.0) < 0.05
 
 
 @pytest.mark.parametrize("window,cap,block", [(None, None, 8), (5, None, 16),
