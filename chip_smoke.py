@@ -15,7 +15,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      port; none for the SSD scan, which no single PyTorch call computes),
      and the card's bound for the same work; plus K1/K3 on empty rows and
      stale page tables (K3 also on all-zero pages), K1/K2 at the hybrid's
-     head geometry, and the scan with a ragged T and a nonzero h0;
+     head geometry, and the scan with a ragged T and a nonzero h0.  First
+     it logs the ``ptxas -v`` registers and spills and the dynamic shared
+     memory of each instantiation of K2's bf16 tensor-core kernel, and
+     fails if the head-dim 64 or 128 one spills;
   4. cross-device checks, f32, one seeded set of weights each, greedy
      streams equal between ``cuda`` (kernels) and the CPU (plain versions):
      the engine on qwen3-0.6b at full width and 2 layers with fp pages and
@@ -285,6 +288,42 @@ def ssd_work(x, Bc, h0, chunk):
         q = min(chunk, T - t0)
         macs += q * (q + 1) // 2 * (N + P) + q * P * N * (1 if t0 == 0 and h0 is None else 2)
     return nbytes, 2.0 * B * H * macs
+
+
+def k2_tc_resources():
+    """Registers, stack and spills of each bf16 tensor-core K2
+    instantiation (padded head dim DP, without and with softcap) from the
+    ``ptxas -v`` output in ``build.build_log``, with the dynamic shared
+    memory a block of it takes.  Fails if a DP = 64 or 128 one spills (the
+    paths run d = 112 and 128; spills at 256 are allowed)."""
+    import ctypes
+    import re
+    from repro_torch.kernels import build
+    text = build.build_log["flash_attention"]["ptxas"]
+    if text == "(reused)":
+        return "not available: the library was built before this run"
+    smem = build.kernel_fn("flash_attention", "flash_attention_bf16_smem_bytes", [ctypes.c_int])
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"flash_attention_kernel_tcILi(\d+)ELb([01])E", line)
+            cur = out.setdefault(f"DP={m[1]}" + (" softcap" if m[2] == "1" else ""),
+                                 dict(dynamic_smem_bytes=smem(int(m[1])))) if m else None
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                       spill_load_bytes=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m[1])
+    want = [f"DP={dp}{cap}" for dp in (32, 64, 128, 256) for cap in ("", " softcap")]
+    if sorted(out) != sorted(want):
+        fail(f"ptxas log lacks K2's bf16 instantiations: {sorted(out)}")
+    for key in want[2:6]:                          # DP = 64 and 128
+        if out[key].get("spill_store_bytes", 1) or out[key].get("spill_load_bytes", 1):
+            fail(f"K2 bf16 {key} spills to local memory: {out[key]}")
+    return out
 
 
 def phase_kernels(torch, iters):
@@ -884,6 +923,7 @@ def main() -> int:
                 log(f"ptxas {kname}: {line.strip()}")
 
     # 3. kernels against their plain versions
+    log("K2 bf16 tensor-core instantiations (ptxas -v): " + json.dumps(k2_tc_resources()))
     cases = phase_kernels(torch, iters=1 if args.quick else 20)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if args.quick:

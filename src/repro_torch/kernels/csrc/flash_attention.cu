@@ -1,21 +1,56 @@
 // K2: flash attention, forward, for Hopper (sm_90a) — the monolithic
-// prompt prefill of `sequential` serving.
+// prompt prefill of `sequential` serving and of the zamba2 hybrid's
+// shared attention.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (`flash_attention`, body `_kernel`).  It computes the same function:
 // online softmax in f32 with the G query heads of a kv head folded into
-// rows, masks kv_pos < kv_lens[b], causal kv_pos <= q_pos, an optional
-// window and tanh softcap; query and key positions are their indices.
-// Tiles wholly above the diagonal or outside the window are skipped, as
-// the Pallas grid skips those blocks.
+// rows (row r = c * G + g is query position c of head kvh * G + g), masks
+// kv_pos < kv_lens[b], causal kv_pos <= q_pos, an optional window and tanh
+// softcap; query and key positions are their indices.  Tiles wholly above
+// the diagonal or outside the window are skipped, as the Pallas grid skips
+// those blocks.  A row with no visible key writes zeros, never NaN.
 //
-// What bounds it on an H100: a causal prompt of T tokens does ~2 T^2 d H
-// flops over ~4 T d KV bytes of q/k/v/o, hundreds of flops per byte, so
-// it is bound by operations (989 TFLOP/s on bf16 tensor cores).  This
-// first kernel does its products on the CUDA cores in f32 (one warp per
-// query row, keys staged in shared memory and shared by the block's
-// warps), so it is far from that bound; wgmma tiles fed by TMA are the
-// later step that closes the gap.
+// What bounds it on an H100: a causal prompt does ~2 T^2 d H flops over
+// ~2 (T H + Tk KV) d elements of q/k/v/o.  At qwen3's prefill (B=4,
+// T=1024, H=16, KV=8, d=128, bf16) that is operations: 17.2 GFLOP at
+// 989 TFLOP/s, 0.0174 ms.  At the hybrid's (B=8, T=1024, 32 heads of 112,
+// G=1) it is bytes: 235 MB at 3.35 TB/s, 0.0701 ms.
+//
+// bf16 (flash_attention_kernel_tc): the products run on the tensor cores.
+//   - One block of 4 warps per (tile of 64 folded query rows, kv head,
+//     batch row); each warp owns 16 rows.  The grid is one-dimensional
+//     and launches the last tiles (most keys under the causal mask) of
+//     every (batch row, kv head) first, so the short tiles fill the end
+//     of the grid.  A 64-row tile reads each key tile once for 64 rows,
+//     16 times fewer K/V bytes than 4-row blocks.
+//   - Q·K^T and P·V are mma.sync.m16n8k16 products, bf16 in, f32
+//     accumulators, fragments loaded from shared memory by ldmatrix
+//     (.trans for V).  The Q tile stays in registers for the whole key
+//     loop.  S is scaled in f32 (log2 e folded in, exp2 by ex2.approx),
+//     soft-capped (a separate instantiation, so calls without a softcap
+//     pay no tanh) and masked per element only on tiles some row does not
+//     see whole.  P is rounded to bf16 for its product, as SDPA does, while
+//     the row sums l stay in f32.
+//   - With 16 rows a warp, every mma.sync needs 256 bytes of ldmatrix
+//     traffic, so shared-memory bandwidth and the mma.sync rate bound the
+//     product phases together; wgmma (64 rows a warpgroup, B read once
+//     from shared memory) is the step past that.
+//   - K/V tiles of 64 keys move to shared memory by 16-byte cp.async,
+//     double-buffered: tile i + 1 is in flight while tile i is multiplied.
+//     Rows are padded by 16 bytes, so the 8 rows one ldmatrix reads fall
+//     in 8 different bank groups.  Key rows past the block's key range are
+//     zero-filled by the copy (source size 0) and masked, so stale shared
+//     memory never meets P = 0.
+//   - The head dim is padded to DP in {32, 64, 128, 256} (112 runs at 128),
+//     the products walk only ceil(d / 16) 16-wide steps of it, and a
+//     half-step past d is zero-filled once.  Dynamic shared memory is
+//     (64 + 4 * 64) rows of DP + 8: 85 KB at DP = 128, two blocks an SM.
+//   - The output is normalized by max(l, 1e-30) in f32, rounded once,
+//     staged in the warp's own rows of the Q tile and stored in 16-byte
+//     vectors.
+// f32 keeps the CUDA-core tile loop of attention_common.cuh (one warp per
+// query row), so the card-vs-CPU parity runs stay in full f32, off TF32.
 //
 // Layouts (the model's): q, out [B, T, H, d]; k, v [B, Tk, KV, d];
 // kv_lens [B] int32.
@@ -52,6 +87,359 @@ int run(const void* q, const void* k, const void* v, const void* kv_lens,
                       T_q, Tk, H, KV, d, scale, causal, window, softcap);
 }
 
+// ------------------------------------------------ bf16, tensor cores ---
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int BLOCK_M = 16 * WARPS;  // folded query rows per block
+constexpr int BLOCK_N = 64;          // keys per tile
+constexpr float NEG_INF = -1e30f;    // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Q, then two stages of K and V, each row DP + 8 elements.
+template <int DP>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * size_t(BLOCK_M + 4 * BLOCK_N) * (DP + 8);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !pred.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col): bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2**x in one MUFU op (relative error ~2**-22, far below P's bf16 step).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// First key query position c sees under the window, in 64 bits so that
+// neither window = NO_WINDOW (2**30) nor a negative window overflows.
+__device__ __forceinline__ int first_key(int c, int window) {
+  return int(min(max(0LL, (long long)c - window + 1), 0x7fffffffLL));
+}
+
+// One key tile's softmax step for this thread's rows g and g + 8: S into
+// log2 units (scale, then the softcap when CAPPED), masked per element
+// when MASKED (keys outside [row_lo, row_hi)); then the online update of
+// m, l and the O accumulators.  Leaves P (f32) in s.  Both flags are
+// compile-time, so a tile every row sees whole pays for no mask and a
+// call without softcap for no tanh.
+template <bool CAPPED, bool MASKED, int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&o)[NO][4],
+                                             float (&m)[2], float (&l)[2], float s_mul,
+                                             float cap_mul, int t0, int t2,
+                                             const int (&row_lo)[2], const int (&row_hi)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * s_mul;
+      if constexpr (CAPPED) x = tanhf(x) * cap_mul;
+      if constexpr (MASKED) {
+        const int t = t0 + 8 * j + t2 + (e & 1), h = e >> 1;
+        if (t < row_lo[h] || t >= row_hi[h]) x = NEG_INF;
+      }
+      s[j][e] = x;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float corr = ex2(m[h] - mx);
+    m[h] = mx;
+    // nothing visible yet: masked exponents stay -1e30, so p = 0
+    const float base = mx == NEG_INF ? 0.f : mx;
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][2 * h + e] = ex2(s[j][2 * h + e] - base);
+        sum[e] += s[j][2 * h + e];
+      }
+    }
+    l[h] = l[h] * corr + (sum[0] + sum[1]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][2 * h] *= corr;
+      o[n][2 * h + 1] *= corr;
+    }
+  }
+}
+
+}  // namespace tc
+
+template <int DP, bool CAPPED>
+__global__ void __launch_bounds__(tc::THREADS, DP <= 128 ? 2 : 1)
+flash_attention_kernel_tc(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
+                          const tc::bf16* __restrict__ v, const int* __restrict__ kv_lens,
+                          tc::bf16* __restrict__ out, int T_q, int Tk, int H, int KV,
+                          int d, float scale, int causal, int window, float softcap) {
+  using namespace tc;
+  constexpr int S = DP + 8;            // shared row stride, elements
+  constexpr int KSTEPS = DP / 16;
+  constexpr int CPR = DP / 8;          // 16-byte chunks a padded row
+  constexpr int RPP = THREADS / CPR;   // rows a pass of the block's copies
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [BLOCK_M][S]
+  bf16* kv_s = q_s + BLOCK_M * S;                   // [2 stages][K, V][BLOCK_N][S]
+
+  const int G = H / KV;
+  const int n_rows = T_q * G;
+  // Block x = (n_qtiles - 1 - tile) * KV * B + b * KV + kvh: the tiles with
+  // the most keys, of every (batch row, kv head), are launched first.
+  const int n_qtiles = (n_rows + BLOCK_M - 1) / BLOCK_M;
+  const int pairs = gridDim.x / n_qtiles, pair = blockIdx.x % pairs;
+  const int b = pair / KV, kvh = pair - b * KV;
+  const int r0 = (n_qtiles - 1 - blockIdx.x / pairs) * BLOCK_M;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int vecs = d / 8;                         // 16-byte vectors a row
+  const int ksteps = (d + 15) / 16;               // 16-wide steps of d
+  const int kv_len = max(0, min(kv_lens[b], Tk));
+  auto q_off = [&](int r) {
+    const int c = r / G;
+    return ((size_t(b) * T_q + c) * H + kvh * G + (r - c * G)) * size_t(d);
+  };
+
+  // keys any row of the block sees, and keys every row sees
+  const int c_lo = r0 / G, c_hi = (min(r0 + BLOCK_M, n_rows) - 1) / G;
+  const int t_begin = first_key(c_lo, window);
+  const int t_end = causal ? min(kv_len, c_hi + 1) : kv_len;
+  const int all_lo = first_key(c_hi, window);
+  const int all_hi = causal ? min(kv_len, c_lo + 1) : kv_len;
+
+  // This thread's copies: chunk lc of rows lr, lr + RPP, ...
+  const int lc = tid % CPR, lr = tid / CPR;
+  const bool copies = lc < vecs;
+
+  if (t_begin >= t_end) {                        // no row sees a key
+    if (copies)
+      for (int j = lr; j < BLOCK_M; j += RPP)
+        if (r0 + j < n_rows)
+          *reinterpret_cast<uint4*>(out + q_off(r0 + j) + lc * 8) = make_uint4(0, 0, 0, 0);
+    return;
+  }
+
+  // Zero the half-step between d and 16 * ksteps in every tile once.
+  if (vecs & 1) {
+    for (int j = tid; j < BLOCK_M + 4 * BLOCK_N; j += THREADS)
+      *reinterpret_cast<uint4*>(q_s + j * S + vecs * 8) = make_uint4(0, 0, 0, 0);
+  }
+  if (copies) {
+#pragma unroll
+    for (int j = lr; j < BLOCK_M; j += RPP) {
+      const bool ok = r0 + j < n_rows;
+      cp_async16(q_s + j * S + lc * 8, ok ? q + q_off(r0 + j) + lc * 8 : q, ok);
+    }
+  }
+  cp_async_commit();
+  const size_t kv_row = size_t(KV) * d;           // elements between keys
+  const size_t kv_base = (size_t(b) * Tk * KV + kvh) * d + lc * 8;
+  auto load_kv = [&](int t0, int stage) {
+    bf16* ks = kv_s + 2 * stage * BLOCK_N * S + lc * 8;
+    bf16* vs = ks + BLOCK_N * S;
+    if (!copies) return;
+#pragma unroll
+    for (int j = lr; j < BLOCK_N; j += RPP) {
+      const int t = t0 + j;
+      const bool ok = t < t_end;
+      const size_t off = kv_base + size_t(ok ? t : 0) * kv_row;
+      cp_async16(ks + j * S, k + off, ok);
+      cp_async16(vs + j * S, v + off, ok);
+    }
+  };
+  load_kv(t_begin, 0);
+  cp_async_commit();
+
+  // This thread's two rows of the warp's 16: g and g + 8.
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  int row_lo[2], row_hi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = (r0 + warp * 16 + g + 8 * h) / G;
+    row_lo[h] = first_key(c, window);
+    row_hi[h] = causal ? min(kv_len, c + 1) : kv_len;
+  }
+  const float s_mul = CAPPED ? scale / softcap : scale * LOG2E;
+  const float cap_mul = softcap * LOG2E;
+
+  // The warp's Q rows into registers once, while K/V tile 0 is in flight.
+  uint32_t qf[KSTEPS][4];
+  cp_async_wait<1>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+    if (kk < ksteps)
+      ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8);
+
+  float o[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  const int n_tiles = (t_end - t_begin + BLOCK_N - 1) / BLOCK_N;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_begin + it * BLOCK_N;
+    if (it + 1 < n_tiles) {
+      load_kv(t0 + BLOCK_N, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                              // tile it landed
+    const bf16* ks = kv_s + 2 * (it & 1) * BLOCK_N * S;
+    const bf16* vs = ks + BLOCK_N * S;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, 8 fragments of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      if (kk >= ksteps) continue;
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * S + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma(s[2 * jp], qf[kk], kb[0], kb[1]);
+        mma(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    if (t0 >= all_lo && t0 + BLOCK_N <= all_hi)
+      softmax_tile<CAPPED, false>(s, o, m, l, s_mul, cap_mul, t0, t2, row_lo, row_hi);
+    else
+      softmax_tile<CAPPED, true>(s, o, m, l, s_mul, cap_mul, t0, t2, row_lo, row_hi);
+
+    // O += P V: P (bf16) as the A operand straight from S's fragments
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pf[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int np = 0; np < KSTEPS; ++np) {
+      if (np >= ksteps) continue;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * S + np * 16 +
+                              (lane >> 4) * 8);
+        mma(o[2 * np], pf[kk], vb[0], vb[1]);
+        mma(o[2 * np + 1], pf[kk], vb[2], vb[3]);
+      }
+    }
+    __syncthreads();                              // stage it & 1 free again
+  }
+
+  // Normalize, round once, stage in this warp's own Q rows, store 16 bytes
+  // at a time.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float denom = fmaxf(sum, 1e-30f);
+    bf16* row = q_s + (warp * 16 + g + 8 * h) * S + t2;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      if (n < vecs)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+            __floats2bfloat162_rn(o[n][2 * h] / denom, o[n][2 * h + 1] / denom);
+  }
+  __syncwarp();
+  constexpr int WPP = 32 / CPR;                  // rows a pass of the warp's stores
+  const int sc = lane % CPR;
+  if (sc < vecs) {
+    for (int j = lane / CPR; j < 16; j += WPP) {
+      const int r = r0 + warp * 16 + j;
+      if (r < n_rows)
+        *reinterpret_cast<uint4*>(out + q_off(r) + sc * 8) =
+            *reinterpret_cast<const uint4*>(q_s + (warp * 16 + j) * S + sc * 8);
+    }
+  }
+}
+
+template <int DP>
+int run_tc(const void* q, const void* k, const void* v, const void* kv_lens, void* out,
+           int B, int T_q, int Tk, int H, int KV, int d, float scale, int causal,
+           int window, float softcap, void* stream) {
+  constexpr size_t smem = tc::smem_bytes<DP>();
+  const auto kernel = softcap > 0.f ? flash_attention_kernel_tc<DP, true>
+                                    : flash_attention_kernel_tc<DP, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  const int rows = T_q * (H / KV);
+  const unsigned grid = unsigned((rows + tc::BLOCK_M - 1) / tc::BLOCK_M) * KV * B;
+  kernel<<<grid, tc::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const int*>(kv_lens),
+      static_cast<tc::bf16*>(out), T_q, Tk, H, KV, d, scale, causal, window, softcap);
+  return int(cudaGetLastError());
+}
+
+// The padded head dim a bf16 call at head dim d runs at.
+int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
 }  // namespace
 
 extern "C" int flash_attention_f32(
@@ -66,6 +454,23 @@ extern "C" int flash_attention_bf16(
     const void* q, const void* k, const void* v, const void* kv_lens,
     void* out, int B, int T_q, int Tk, int H, int KV, int d, float scale,
     int causal, int window, float softcap, void* stream) {
-  return run<__nv_bfloat16>(q, k, v, kv_lens, out, B, T_q, Tk, H, KV, d,
-                            scale, causal, window, softcap, stream);
+  auto* fn = &run_tc<256>;
+  switch (padded_dim(d)) {
+    case 32: fn = &run_tc<32>; break;
+    case 64: fn = &run_tc<64>; break;
+    case 128: fn = &run_tc<128>; break;
+  }
+  return fn(q, k, v, kv_lens, out, B, T_q, Tk, H, KV, d, scale, causal, window,
+             softcap, stream);
+}
+
+// Dynamic shared memory, in bytes, of one block of a bf16 call at head
+// dim d (ptxas -v reports only static shared memory).
+extern "C" int flash_attention_bf16_smem_bytes(int d) {
+  switch (padded_dim(d)) {
+    case 32: return int(tc::smem_bytes<32>());
+    case 64: return int(tc::smem_bytes<64>());
+    case 128: return int(tc::smem_bytes<128>());
+  }
+  return int(tc::smem_bytes<256>());
 }

@@ -4,8 +4,12 @@ serving (monolithic prefill through ``forward_hidden``).
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::flash_attention``; the CUDA
 source is ``csrc/flash_attention.cu``, whose header note says what
-bounds it and how.  Query and key positions are their indices, as in the
-Pallas kernel; ``kv_lens`` masks keys at or past each row's length.
+bounds it and how.  bf16 runs on the tensor cores: blocks of 64 folded
+query rows, ``mma.sync`` products with P rounded to bf16, K/V tiles of
+64 keys double-buffered by ``cp.async``.  f32 keeps the CUDA-core tile
+loop shared with K1/K3, in full f32.  Query and key positions are their
+indices, as in the Pallas kernel; ``kv_lens`` masks keys at or past each
+row's length.
 
 Layouts are the model's: q [B, T, H, d]; k/v [B, Tk, KV, d]; kv_lens [B]
 int32.  Returns o [B, T, H, d] in q's dtype.  The backward pass belongs

@@ -30,9 +30,20 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # f32: FMA order; bf16: output round
 PAGED_CASES = [(3, 1, 4, 2, 64, 8, 16, 4), (2, 1, 8, 8, 128, 16, 32, 3),
                (2, 8, 4, 4, 64, 8, 16, 4), (1, 16, 6, 2, 32, 4, 32, 8),
                (2, 4, 4, 4, 112, 8, 16, 4)]
-# B, T, Tk, H, KV, d
-FLASH_CASES = [(2, 32, 32, 4, 2, 64), (1, 64, 64, 8, 8, 128), (2, 16, 16, 6, 2, 32),
-               (2, 37, 37, 16, 8, 128)]
+# B, T, Tk, H, KV, d, first row's kv_len (None: Tk; the others Tk - 5),
+# q/k scale factor.  After the first four, the edges of the bf16 kernel's
+# 64-row x 64-key tensor-core tiles: T not a multiple of 64, T = 1024
+# (many key tiles, online rescaling), d = 112 and d = 16 (padded head
+# dims), G = 3 (folded rows that do not divide 64), Tk > T, a row with
+# kv_len = 0, and q/k at 4x scale (scores 16x larger, so the running max
+# jumps between key tiles).  v keeps its scale: at |o| >= 4 one bf16 step
+# (0.031) would exceed the tolerance whatever the kernel computes.
+FLASH_CASES = [(2, 32, 32, 4, 2, 64, None, 1), (1, 64, 64, 8, 8, 128, None, 1),
+               (2, 16, 16, 6, 2, 32, None, 1), (2, 37, 37, 16, 8, 128, None, 1),
+               (2, 100, 100, 4, 2, 64, None, 1), (1, 1024, 1024, 4, 2, 128, None, 1),
+               (2, 70, 70, 4, 4, 112, None, 1), (2, 50, 50, 4, 2, 16, None, 1),
+               (2, 45, 45, 12, 4, 64, None, 1), (2, 40, 96, 4, 2, 64, None, 1),
+               (3, 80, 80, 4, 2, 64, 0, 1), (2, 300, 300, 8, 2, 112, None, 4)]
 # B, H, T, P, N, chunk — tests/test_ssd_kernel.py's cases, then zamba2's
 # head geometry with a ragged last chunk, then sizes that are not
 # multiples of the kernel's 16-wide tiles (chunk above 32: both scan halves)
@@ -144,20 +155,29 @@ def test_paged_int8_kernel_empty_rows_zero_pages_and_stale_table(cuda):
     assert K3.paged_attention_int8(*empty, scale=0.3).shape == (0, 4, 4, 16)
 
 
+def flash_inputs(case, seed=0):
+    """q, k, v, kv_lens of a FLASH_CASES entry, as f32 CPU tensors."""
+    B, T, Tk, H, KV, d, first_len, qk = case
+    rng = np.random.RandomState(seed)
+    q, k, v = _rand(rng, B, T, H, d) * qk, _rand(rng, B, Tk, KV, d) * qk, _rand(rng, B, Tk, KV, d)
+    lens = [Tk if first_len is None else first_len] + [Tk - 5] * (B - 1)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, case, dtype):
-    B, T, Tk, H, KV, d = case
-    rng = np.random.RandomState(0)
     dt = getattr(torch, dtype)
-    q, k, v = (x.to("cuda", dt) for x in (_rand(rng, B, T, H, d), _rand(rng, B, Tk, KV, d),
-                                          _rand(rng, B, Tk, KV, d)))
-    lens = torch.tensor([Tk] + [Tk - 5] * (B - 1), dtype=torch.int32, device="cuda")
+    q, k, v, lens = (x.to("cuda", dt if x.is_floating_point() else None)
+                     for x in flash_inputs(case))
     for kw in (dict(), dict(window=8, softcap=25.0), dict(causal=False)):
         n = K2.launches
         out = K2.flash_attention(q, k, v, lens, scale=0.2, **kw)
+        torch.cuda.synchronize()
         assert K2.launches == n + 1
         assert _err(out, K2.flash_attention_plain(q, k, v, lens, scale=0.2, **kw)) <= TOL[dtype]
+        if case[6] == 0:                        # an empty row writes exact zeros
+            assert bool((out[0] == 0).all())
 
 
 @pytest.mark.parametrize("h0", ["zero", "random"])
