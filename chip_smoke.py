@@ -13,12 +13,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      library yardstick (``scaled_dot_product_attention`` on gathered K/V —
      for the int8 kernel after one dequantize call — never called by the
      port; none for the SSD scan, which no single PyTorch call computes),
-     and the card's bound for the same work; plus K1/K3 on empty rows and
-     stale page tables (K3 also on all-zero pages), K1/K2 at the hybrid's
-     head geometry, and the scan with a ragged T and a nonzero h0.  First
-     it logs the ``ptxas -v`` registers and spills and the dynamic shared
-     memory of each instantiation of K2's bf16 tensor-core kernel, and
-     fails if the head-dim 64 or 128 one spills;
+     and the card's bound for the same work; K1/K3 at decode (C = 1) and
+     at chunks of C = 128 and 256 (bf16 chunks run their tensor-core tile
+     loop); plus K1/K3 on empty rows and stale page tables (K3 also on
+     all-zero pages), K1/K2 at the hybrid's head geometry, and the scan
+     with a ragged T and a nonzero h0.  First it logs the ``ptxas -v``
+     registers and spills and the dynamic shared memory of each
+     instantiation of the bf16 tensor-core kernels (K2's and the chunk
+     loops of K1 and K3), and fails if a head-dim 64 or 128 one spills;
   4. cross-device checks, f32, one seeded set of weights each, greedy
      streams equal between ``cuda`` (kernels) and the CPU (plain versions):
      the engine on qwen3-0.6b at full width and 2 layers with fp pages and
@@ -34,11 +36,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      just before each path and read just after; every request must finish
      by length (every logit finite), and every kernel of the path must
      have launched (the int8 kernel in every mode; the scan once per Mamba2
-     block of the prefill);
+     block of the prefill), and K1/K3's chunk loop (C > 1) in every mode
+     that chunks prompts (``splitwiser``, ``splitwiser_mps``, ``chunked``);
+     K1 and K3 count decode and chunk launches apart;
   6. where the time goes: per mode and page type, one window of engine
      steps, and for the hybrid its prefill and 8 decode steps, timed on the
      host clock and, run again from fresh state, under ``torch.profiler``:
-     device time by kernel class and the device's busy share.
+     device time by kernel class (K1/K3 split into decode and chunk) and
+     the device's busy share.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 line, the card's ``nvidia-smi`` name and power limit, and
@@ -290,23 +295,31 @@ def ssd_work(x, Bc, h0, chunk):
     return nbytes, 2.0 * B * H * macs
 
 
-def k2_tc_resources():
-    """Registers, stack and spills of each bf16 tensor-core K2
-    instantiation (padded head dim DP, without and with softcap) from the
-    ``ptxas -v`` output in ``build.build_log``, with the dynamic shared
-    memory a block of it takes.  Fails if a DP = 64 or 128 one spills (the
-    paths run d = 112 and 128; spills at 256 are allowed)."""
+TC_KERNELS = (  # library, kernel name, C helper of its dynamic shared memory
+    ("flash_attention", "flash_attention_kernel_tc", "flash_attention_bf16_smem_bytes"),
+    ("paged_attention", "paged_attention_kernel_tc", "paged_attention_bf16_smem_bytes"),
+    ("paged_attention_int8", "paged_attention_int8_kernel_tc",
+     "paged_attention_int8_bf16_smem_bytes"))
+
+
+def tc_resources(lib, kernel, smem_symbol):
+    """Registers, stack and spills of each bf16 tensor-core instantiation
+    of ``kernel`` in library ``lib`` (padded head dim DP, without and with
+    softcap) from the ``ptxas -v`` output in ``build.build_log``, with the
+    dynamic shared memory a block of it takes.  Fails if a DP = 64 or 128
+    one spills (the paths run d = 112 and 128; spills at 256 are
+    allowed)."""
     import ctypes
     import re
     from repro_torch.kernels import build
-    text = build.build_log["flash_attention"]["ptxas"]
+    text = build.build_log[lib]["ptxas"]
     if text == "(reused)":
         return "not available: the library was built before this run"
-    smem = build.kernel_fn("flash_attention", "flash_attention_bf16_smem_bytes", [ctypes.c_int])
+    smem = build.kernel_fn(lib, smem_symbol, [ctypes.c_int])
     out, cur = {}, None
     for line in text.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"flash_attention_kernel_tcILi(\d+)ELb([01])E", line)
+            m = re.search(kernel + r"ILi(\d+)ELb([01])E", line)
             cur = out.setdefault(f"DP={m[1]}" + (" softcap" if m[2] == "1" else ""),
                                  dict(dynamic_smem_bytes=smem(int(m[1])))) if m else None
         elif cur is None:
@@ -319,10 +332,10 @@ def k2_tc_resources():
             cur["registers"] = int(m[1])
     want = [f"DP={dp}{cap}" for dp in (32, 64, 128, 256) for cap in ("", " softcap")]
     if sorted(out) != sorted(want):
-        fail(f"ptxas log lacks K2's bf16 instantiations: {sorted(out)}")
+        fail(f"ptxas log lacks the bf16 instantiations of {kernel}: {sorted(out)}")
     for key in want[2:6]:                          # DP = 64 and 128
         if out[key].get("spill_store_bytes", 1) or out[key].get("spill_load_bytes", 1):
-            fail(f"K2 bf16 {key} spills to local memory: {out[key]}")
+            fail(f"{kernel} {key} spills to local memory: {out[key]}")
     return out
 
 
@@ -368,7 +381,7 @@ def phase_kernels(torch, iters):
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=hy_scale),
             flash_work(qkv[0], qkv[1], lens), iters))
         del qkv, qt, kt, vt
-        for label, B, C in (("decode", 16, 1), ("chunk", 2, 128)):
+        for label, B, C in (("decode", 16, 1), ("chunk", 2, 128), ("chunk", 2, 256)):
             args = paged_case(torch, B, C, 8, 2, 128, 16, 1024, dtype, seed=1)
             cases.append(measure(
                 torch, "paged_attention", f"{label} B={B} C={C}", dname,
@@ -439,22 +452,29 @@ def requests(n, vocab, lo, hi, new_lo, new_hi, seed):
 
 
 def launch_counts():
-    """The launch counters of every kernel wrapper, by kernel name."""
+    """Every launch counter of the kernel wrappers: name -> (module,
+    attribute).  K1 and K3 also count decode (C = 1) and chunk (C > 1)
+    launches apart, as ``<name>_decode`` and ``<name>_chunk``."""
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_attention as K1
     from repro_torch.kernels import paged_attention_int8 as K3
     from repro_torch.kernels import ssd_scan as K4
-    return {"paged_attention": K1, "flash_attention": K2, "paged_attention_int8": K3,
+    mods = {"paged_attention": K1, "flash_attention": K2, "paged_attention_int8": K3,
             "ssd_scan": K4}
+    counters = {name: (mod, "launches") for name, mod in mods.items()}
+    for name in ("paged_attention", "paged_attention_int8"):
+        for part in ("decode", "chunk"):
+            counters[f"{name}_{part}"] = (mods[name], f"launches_{part}")
+    return counters
 
 
 def zero_launches():
-    for mod in launch_counts().values():
-        mod.launches = 0
+    for mod, attr in launch_counts().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches():
-    return {name: mod.launches for name, mod in launch_counts().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in launch_counts().items()}
 
 
 def phase_cross_device(torch):
@@ -684,6 +704,11 @@ def phase_main_path(torch):
                 fail(f"kernel {name} was not launched on the {label} path")
             if every and any(r["launches"][name] == 0 for r in per_mode.values()):
                 fail(f"kernel {name} was not launched in every mode of the {label} path")
+        # the chunk path (C > 1) runs in every mode that chunks prompts
+        chunk = ("paged_attention" if label == "fp" else "paged_attention_int8") + "_chunk"
+        for mode in ("splitwiser", "splitwiser_mps", "chunked"):
+            if per_mode[mode]["launches"][chunk] == 0:
+                fail(f"{chunk} was not launched in {label} {mode}")
         paths[label] = dict(per_mode=per_mode, streams=streams, launches=launches,
                             steps=steps)
     log_agreement(paths)
@@ -722,7 +747,8 @@ def phase_hybrid_path(torch):
     pre = r["prefill_launches"]
     steps = HYBRID["steps"]
     want = {"ssd_scan": (n_mamba, 0), "flash_attention": (n_attn, 0),
-            "paged_attention": (0, n_attn * steps), "paged_attention_int8": (0, 0)}
+            "paged_attention": (0, n_attn * steps), "paged_attention_int8": (0, 0),
+            "paged_attention_decode": (0, n_attn * steps), "paged_attention_chunk": (0, 0)}
     got = {k: (pre[k], launches[k] - pre[k]) for k in want}
     if got != want:
         fail(f"hybrid path launches (prefill, decode) {got}, expected {want}")
@@ -754,8 +780,12 @@ def log_agreement(paths):
         {m: agreement(streams["int8"][m], streams["fp"][m]) for m in streams["int8"]}))
 
 
-KERNEL_CLASSES = (("paged_attention_int8", ("paged_attention_int8_kernel",)),
-                  ("paged_attention", ("paged_attention_kernel",)),
+# bf16 (the main paths): the paged kernels' tensor-core loop runs only
+# chunks (C > 1), their CUDA-core loop only decode (C = 1)
+KERNEL_CLASSES = (("paged_attention_int8 chunk", ("paged_attention_int8_kernel_tc",)),
+                  ("paged_attention_int8 decode", ("paged_attention_int8_kernel",)),
+                  ("paged_attention chunk", ("paged_attention_kernel_tc",)),
+                  ("paged_attention decode", ("paged_attention_kernel",)),
                   ("flash_attention", ("flash_attention_kernel",)),
                   ("ssd_scan", ("ssd_scan_kernel",)),
                   ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
@@ -865,6 +895,7 @@ def _leaves(tree):
 KERNELS = {
     "paged_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        chunk_source="src/repro_torch/kernels/csrc/paged_tiles.cuh",
         replaces="src/repro/kernels/paged_attention.py:109",
         replaces_function="src/repro/kernels/paged_attention.py::paged_attention",
         headline=("decode B=16 C=1", "bfloat16"), library="scaled_dot_product_attention"),
@@ -875,6 +906,7 @@ KERNELS = {
         headline=("prefill B=4 T=1024", "bfloat16"), library="scaled_dot_product_attention"),
     "paged_attention_int8": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention_int8.cu",
+        chunk_source="src/repro_torch/kernels/csrc/paged_tiles.cuh",
         replaces="src/repro/kernels/paged_attention_int8.py:111",
         replaces_function="src/repro/kernels/paged_attention_int8.py::paged_attention_int8",
         headline=("decode B=16 C=1", "bfloat16"),
@@ -923,7 +955,9 @@ def main() -> int:
                 log(f"ptxas {kname}: {line.strip()}")
 
     # 3. kernels against their plain versions
-    log("K2 bf16 tensor-core instantiations (ptxas -v): " + json.dumps(k2_tc_resources()))
+    for lib, kernel, smem_symbol in TC_KERNELS:
+        log(f"{kernel} bf16 tensor-core instantiations (ptxas -v): "
+            + json.dumps(tc_resources(lib, kernel, smem_symbol)))
     cases = phase_kernels(torch, iters=1 if args.quick else 20)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if args.quick:
@@ -953,10 +987,20 @@ def main() -> int:
         by_path = {p: v["launches"][kname] for p, v in paths.items()}
         n = sum(by_path.values())
         steps = sum(v["steps"] for p, v in paths.items() if by_path[p])
+        # K1 and K3: decode (C = 1) and chunk (C > 1) launches apart
+        parts = {}
+        for part in ("decode", "chunk") if "chunk_source" in meta else ():
+            part_by_path = {p: v["launches"][f"{kname}_{part}"] for p, v in paths.items()}
+            part_n = sum(part_by_path.values())
+            part_steps = sum(v["steps"] for p, v in paths.items() if part_by_path[p])
+            parts.update({f"launches_{part}": part_n,
+                          f"launches_{part}_by_path": part_by_path,
+                          f"launches_{part}_per_step": part_n / part_steps})
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
+            **({"chunk_source": meta["chunk_source"]} if "chunk_source" in meta else {}),
             replaces=meta["replaces"], replaces_function=meta["replaces_function"],
-            launches=n, launches_by_path=by_path, launches_per_step=n / steps,
+            launches=n, launches_by_path=by_path, launches_per_step=n / steps, **parts,
             case=f"{label} {dtype}", max_abs_err=c["max_abs_err"], tol=c["tol"],
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], library=meta["library"],

@@ -1,5 +1,5 @@
 // K1: ragged paged attention for Hopper (sm_90a), decode (C = 1) and
-// chunked prefill (C > 1) in one kernel.
+// chunked prefill (C > 1).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_attention.py
 // (`paged_attention`, body `_kernel`).  It computes the same function:
@@ -8,19 +8,28 @@
 // folded into C * G rows, masks kv_pos < kv_len and causal
 // kv_pos <= q_pos + row / G, an optional window and tanh softcap.
 //
-// What bounds it on an H100: decode reads every K/V byte of the batch
-// once and does 4 flops per element read, far below the card's ~295
-// flops per byte, so it is bound by bytes (3.35 TB/s).  The design keeps
-// each K/V element to one read from device memory per block: a tile of
-// 32 keys is staged in shared memory with 16-byte loads by all four
-// warps and shared by the block's query rows.  Only the pages below
-// ceil(kv_len / ps) are read; table entries past them may hold zeros or
-// stale ids and are never touched.  Split-KV for small batches, TMA and
-// wgmma for chunks are later work.
+// Two loops behind one C entry a type:
+//   - Decode (C = 1) and every f32 call: the CUDA-core loop of
+//     attention_common.cuh (paged_attention_kernel).  Decode reads every
+//     K/V byte of the batch once and does 4 flops per element read, far
+//     below the card's ~295 flops per byte, so it is bound by bytes
+//     (3.35 TB/s): a tile of 32 keys is staged in shared memory with
+//     16-byte loads by all four warps and shared by the block's 4 query
+//     rows.  f32 stays there so the card-vs-CPU parity runs stay in full
+//     f32, off TF32.
+//   - bf16 chunks (C > 1): the paged tensor-core tile loop of
+//     paged_tiles.cuh (paged_attention_kernel_tc), 64 folded rows a block,
+//     mma.sync products, K/V rows copied through the page table by
+//     cp.async into double-buffered 64-key tiles.  A chunk of C rows reads
+//     each K/V byte once per 64 rows instead of once per 4.
+// Only the pages below ceil(kv_len / ps) are read; table entries past
+// them may hold zeros or stale ids and are never touched.  Split-KV for
+// small decode batches is later work.
 //
 // Layouts (the model's): q, out [B, C, H, d]; pages [N, ps, KV, d];
 // block_table [B, Pmax], kv_lens [B], q_pos [B] int32.
 #include "attention_common.cuh"
+#include "paged_tiles.cuh"
 
 namespace {
 
@@ -60,6 +69,50 @@ int run(const void* q, const void* k_pages, const void* v_pages,
                       C, H, KV, d, N, ps, Pmax, scale, window, softcap);
 }
 
+// bf16 chunks on the tensor cores (paged_tiles.cuh).
+template <int DP, bool CAPPED>
+__global__ void __launch_bounds__(tc::THREADS, DP <= 128 ? 2 : 1)
+paged_attention_kernel_tc(const tc::bf16* __restrict__ q,
+                          const tc::bf16* __restrict__ k_pages,
+                          const tc::bf16* __restrict__ v_pages,
+                          const int* __restrict__ block_table,
+                          const int* __restrict__ kv_lens,
+                          const int* __restrict__ q_pos, tc::bf16* __restrict__ out,
+                          int C, int H, int KV, int d, int N, int ps, int Pmax,
+                          float scale, int window, float softcap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::bf16* q_s = reinterpret_cast<tc::bf16*>(smem_raw);
+  const paged_tc::BlockTile at = paged_tc::block_tile(C * (H / KV), KV);
+  const paged_tc::FpTiles<DP> tiles{
+      k_pages, v_pages, {block_table + size_t(at.b) * Pmax, ps, KV, at.kvh, N}, d,
+      reinterpret_cast<tc::bf16*>(smem_raw + paged_tc::q_bytes<DP>())};
+  const int kv_len = max(0, min(kv_lens[at.b], Pmax * ps));
+  paged_tc::attend<DP, CAPPED>(tiles, at, q_s, q, out, kv_len, q_pos[at.b], C, H, KV, d,
+                               scale, window, softcap);
+}
+
+template <int DP>
+constexpr size_t smem_tc() {
+  return paged_tc::q_bytes<DP>() + paged_tc::FpTiles<DP>::bytes;
+}
+
+template <int DP>
+int run_tc(const void* q, const void* k_pages, const void* v_pages,
+           const void* block_table, const void* kv_lens, const void* q_pos,
+           void* out, int B, int C, int H, int KV, int d, int N, int ps, int Pmax,
+           float scale, int window, float softcap, void* stream) {
+  const auto kernel = softcap > 0.f ? paged_attention_kernel_tc<DP, true>
+                                    : paged_attention_kernel_tc<DP, false>;
+  return paged_tc::launch(kernel, smem_tc<DP>(), B, C, H, KV, stream,
+                          static_cast<const tc::bf16*>(q),
+                          static_cast<const tc::bf16*>(k_pages),
+                          static_cast<const tc::bf16*>(v_pages),
+                          static_cast<const int*>(block_table),
+                          static_cast<const int*>(kv_lens),
+                          static_cast<const int*>(q_pos), static_cast<tc::bf16*>(out),
+                          C, H, KV, d, N, ps, Pmax, scale, window, softcap);
+}
+
 }  // namespace
 
 extern "C" int paged_attention_f32(
@@ -71,12 +124,33 @@ extern "C" int paged_attention_f32(
                     C, H, KV, d, N, ps, Pmax, scale, window, softcap, stream);
 }
 
+// Decode (C = 1) on the CUDA-core loop, chunks on the tensor cores.
 extern "C" int paged_attention_bf16(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_table, const void* kv_lens, const void* q_pos, void* out,
     int B, int C, int H, int KV, int d, int N, int ps, int Pmax, float scale,
     int window, float softcap, void* stream) {
-  return run<__nv_bfloat16>(q, k_pages, v_pages, block_table, kv_lens, q_pos,
-                            out, B, C, H, KV, d, N, ps, Pmax, scale, window,
-                            softcap, stream);
+  if (C == 1)
+    return run<__nv_bfloat16>(q, k_pages, v_pages, block_table, kv_lens, q_pos,
+                              out, B, C, H, KV, d, N, ps, Pmax, scale, window,
+                              softcap, stream);
+  auto* fn = &run_tc<256>;
+  switch (tc::padded_dim(d)) {
+    case 32: fn = &run_tc<32>; break;
+    case 64: fn = &run_tc<64>; break;
+    case 128: fn = &run_tc<128>; break;
+  }
+  return fn(q, k_pages, v_pages, block_table, kv_lens, q_pos, out, B, C, H, KV, d,
+            N, ps, Pmax, scale, window, softcap, stream);
+}
+
+// Dynamic shared memory, in bytes, of one block of a bf16 chunk call at
+// head dim d (ptxas -v reports only static shared memory).
+extern "C" int paged_attention_bf16_smem_bytes(int d) {
+  switch (tc::padded_dim(d)) {
+    case 32: return int(smem_tc<32>());
+    case 64: return int(smem_tc<64>());
+    case 128: return int(smem_tc<128>());
+  }
+  return int(smem_tc<256>());
 }

@@ -1,28 +1,35 @@
 // K3: ragged paged attention over int8 KV pages for Hopper (sm_90a),
-// decode (C = 1) and chunked prefill (C > 1) in one kernel.
+// decode (C = 1) and chunked prefill (C > 1).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_attention_int8.py
 // (`paged_attention_int8`, body `_kernel`).  It computes K1's function
 // over int8 code pages plus an f32 scale per (token, kv head), both
 // following one page table: every key and value row is dequantized
-// (code * scale, in f32) as its tile is staged, before both products.
-// Masks, the online softmax, the GQA row folding and the empty-row rule
-// are K1's (attention_common.cuh).
+// (code * scale, in f32) before both products.  Masks, the online
+// softmax, the GQA row folding and the empty-row rule are K1's.
 //
-// What bounds it on an H100: like K1's decode it does ~4 flops per K/V
-// element and is bound by bytes (3.35 TB/s) — but an element is one byte
-// here plus 4 bytes of scale per 128-element row, 132 bytes per
-// (token, head) instead of K1's 256 in bf16.  The design is K1's: each
-// code is read once from device memory per block, 16 codes per 16-byte
-// load, dequantized straight into the f32 shared tiles that the block's
-// query rows share; the row's scale is one extra 4-byte load per 16
-// codes.  Only the pages below ceil(kv_len / ps) are read; table entries
-// past them may hold zeros or stale ids and are never touched.
+// Two loops behind one C entry a type, as in K1:
+//   - Decode (C = 1) and every f32 call: the CUDA-core loop of
+//     attention_common.cuh (paged_attention_int8_kernel).  Like K1's
+//     decode it does ~4 flops per K/V element and is bound by bytes
+//     (3.35 TB/s), but an element is one byte here plus 4 bytes of scale
+//     per 128-element row, 132 bytes per (token, head) instead of K1's 256
+//     in bf16.  Each code is read once from device memory per block, 16
+//     codes per 16-byte load, dequantized straight into the f32 shared
+//     tiles that the block's query rows share.
+//   - bf16 chunks (C > 1): K1's paged tensor-core tile loop
+//     (paged_tiles.cuh, paged_attention_int8_kernel_tc) with the Q8Tiles
+//     loader: raw codes and scales are double-buffered by cp.async, and a
+//     conversion pass writes code * scale (f32, rounded to bf16) into the
+//     bf16 tiles the mma.sync products read.
+// Only the pages below ceil(kv_len / ps) are read; table entries past
+// them may hold zeros or stale ids and are never touched.
 //
 // Layouts (the model's): q, out [B, C, H, d] f32 or bf16; code pages
 // [N, ps, KV, d] int8; scales [N, ps, KV, 1] f32; block_table [B, Pmax],
 // kv_lens [B], q_pos [B] int32.  d % 16 == 0, d <= 256.
 #include "attention_common.cuh"
+#include "paged_tiles.cuh"
 
 namespace {
 
@@ -70,6 +77,56 @@ int run(const void* q, const void* k_pages, const void* k_scales,
                       C, H, KV, d, N, ps, Pmax, scale, window, softcap);
 }
 
+// bf16 chunks on the tensor cores (paged_tiles.cuh).
+template <int DP, bool CAPPED>
+__global__ void __launch_bounds__(tc::THREADS, DP <= 128 ? 2 : 1)
+paged_attention_int8_kernel_tc(const tc::bf16* __restrict__ q,
+                               const int8_t* __restrict__ k_pages,
+                               const float* __restrict__ k_scales,
+                               const int8_t* __restrict__ v_pages,
+                               const float* __restrict__ v_scales,
+                               const int* __restrict__ block_table,
+                               const int* __restrict__ kv_lens,
+                               const int* __restrict__ q_pos, tc::bf16* __restrict__ out,
+                               int C, int H, int KV, int d, int N, int ps, int Pmax,
+                               float scale, int window, float softcap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::bf16* q_s = reinterpret_cast<tc::bf16*>(smem_raw);
+  const paged_tc::BlockTile at = paged_tc::block_tile(C * (H / KV), KV);
+  const paged_tc::Q8Tiles<DP> tiles{
+      k_pages, v_pages, k_scales, v_scales,
+      {block_table + size_t(at.b) * Pmax, ps, KV, at.kvh, N}, d,
+      reinterpret_cast<tc::bf16*>(smem_raw + paged_tc::q_bytes<DP>())};
+  const int kv_len = max(0, min(kv_lens[at.b], Pmax * ps));
+  paged_tc::attend<DP, CAPPED>(tiles, at, q_s, q, out, kv_len, q_pos[at.b], C, H, KV, d,
+                               scale, window, softcap);
+}
+
+template <int DP>
+constexpr size_t smem_tc() {
+  return paged_tc::q_bytes<DP>() + paged_tc::Q8Tiles<DP>::bytes;
+}
+
+template <int DP>
+int run_tc(const void* q, const void* k_pages, const void* k_scales,
+           const void* v_pages, const void* v_scales, const void* block_table,
+           const void* kv_lens, const void* q_pos, void* out, int B, int C, int H,
+           int KV, int d, int N, int ps, int Pmax, float scale, int window,
+           float softcap, void* stream) {
+  const auto kernel = softcap > 0.f ? paged_attention_int8_kernel_tc<DP, true>
+                                    : paged_attention_int8_kernel_tc<DP, false>;
+  return paged_tc::launch(kernel, smem_tc<DP>(), B, C, H, KV, stream,
+                          static_cast<const tc::bf16*>(q),
+                          static_cast<const int8_t*>(k_pages),
+                          static_cast<const float*>(k_scales),
+                          static_cast<const int8_t*>(v_pages),
+                          static_cast<const float*>(v_scales),
+                          static_cast<const int*>(block_table),
+                          static_cast<const int*>(kv_lens),
+                          static_cast<const int*>(q_pos), static_cast<tc::bf16*>(out),
+                          C, H, KV, d, N, ps, Pmax, scale, window, softcap);
+}
+
 }  // namespace
 
 extern "C" int paged_attention_int8_f32(
@@ -83,13 +140,34 @@ extern "C" int paged_attention_int8_f32(
                     window, softcap, stream);
 }
 
+// Decode (C = 1) on the CUDA-core loop, chunks on the tensor cores.
 extern "C" int paged_attention_int8_bf16(
     const void* q, const void* k_pages, const void* k_scales,
     const void* v_pages, const void* v_scales, const void* block_table,
     const void* kv_lens, const void* q_pos, void* out, int B, int C, int H,
     int KV, int d, int N, int ps, int Pmax, float scale, int window,
     float softcap, void* stream) {
-  return run<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales,
-                            block_table, kv_lens, q_pos, out, B, C, H, KV, d,
-                            N, ps, Pmax, scale, window, softcap, stream);
+  if (C == 1)
+    return run<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales,
+                              block_table, kv_lens, q_pos, out, B, C, H, KV, d,
+                              N, ps, Pmax, scale, window, softcap, stream);
+  auto* fn = &run_tc<256>;
+  switch (tc::padded_dim(d)) {
+    case 32: fn = &run_tc<32>; break;
+    case 64: fn = &run_tc<64>; break;
+    case 128: fn = &run_tc<128>; break;
+  }
+  return fn(q, k_pages, k_scales, v_pages, v_scales, block_table, kv_lens, q_pos,
+            out, B, C, H, KV, d, N, ps, Pmax, scale, window, softcap, stream);
+}
+
+// Dynamic shared memory, in bytes, of one block of a bf16 chunk call at
+// head dim d (ptxas -v reports only static shared memory).
+extern "C" int paged_attention_int8_bf16_smem_bytes(int d) {
+  switch (tc::padded_dim(d)) {
+    case 32: return int(smem_tc<32>());
+    case 64: return int(smem_tc<64>());
+    case 128: return int(smem_tc<128>());
+  }
+  return int(smem_tc<256>());
 }

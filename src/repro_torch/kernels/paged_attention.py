@@ -16,7 +16,11 @@ Layouts are the model's (no transposes around the launch):
 Returns o [B, C, H, d] in q's dtype.
 
 Dispatch: CPU tensors take :func:`paged_attention_plain`; CUDA tensors
-launch the kernel or raise.  ``launches`` counts kernel launches.
+launch a kernel or raise.  bf16 chunks (C > 1) run on the tensor cores
+(``csrc/paged_tiles.cuh``); decode (C = 1) and f32 calls on the CUDA-core
+loop (``csrc/attention_common.cuh``).  ``launches`` counts kernel
+launches, ``launches_decode`` those with C = 1 and ``launches_chunk``
+those with C > 1.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from repro_torch.kernels import build
 from repro_torch.models.layers import NO_WINDOW, paged_attention_ref
 
 launches = 0
+launches_decode = 0
+launches_chunk = 0
 
 _SYMBOLS = {torch.float32: "paged_attention_f32",
             torch.bfloat16: "paged_attention_bf16"}
@@ -105,6 +111,10 @@ def paged_attention(q, k_pages, v_pages, block_table, kv_lens, q_pos, *,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")
-    global launches
+    global launches, launches_decode, launches_chunk
     launches += 1
+    if C == 1:
+        launches_decode += 1
+    else:
+        launches_chunk += 1
     return out

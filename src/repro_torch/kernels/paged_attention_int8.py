@@ -16,8 +16,12 @@ Layouts are the model's:
   kv_lens, q_pos     [B] int32
 Returns o [B, C, H, d] in q's dtype.
 
-Dispatch: CPU tensors take :func:`paged_attention_int8_plain`; CUDA
-tensors launch the kernel or raise.  ``launches`` counts kernel launches.
+Dispatch: CPU tensors take :func:`paged_attention_int8_plain`; CUDA tensors
+launch a kernel or raise.  bf16 chunks (C > 1) run on the tensor cores
+(``csrc/paged_tiles.cuh``); decode (C = 1) and f32 calls on the CUDA-core
+loop (``csrc/attention_common.cuh``).  ``launches`` counts kernel
+launches, ``launches_decode`` those with C = 1 and ``launches_chunk``
+those with C > 1.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from repro_torch.kernels import build
 from repro_torch.models.layers import NO_WINDOW, flash_attention, gather_pages
 
 launches = 0
+launches_decode = 0
+launches_chunk = 0
 
 _SYMBOLS = {torch.float32: "paged_attention_int8_f32",
             torch.bfloat16: "paged_attention_int8_bf16"}
@@ -137,6 +143,10 @@ def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales, block_table,
     if rc != 0:
         raise RuntimeError(
             f"paged_attention_int8 kernel launch failed: CUDA error {rc}")
-    global launches
+    global launches, launches_decode, launches_chunk
     launches += 1
+    if C == 1:
+        launches_decode += 1
+    else:
+        launches_chunk += 1
     return out

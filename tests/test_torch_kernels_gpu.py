@@ -30,6 +30,23 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # f32: FMA order; bf16: output round
 PAGED_CASES = [(3, 1, 4, 2, 64, 8, 16, 4), (2, 1, 8, 8, 128, 16, 32, 3),
                (2, 8, 4, 4, 64, 8, 16, 4), (1, 16, 6, 2, 32, 4, 32, 8),
                (2, 4, 4, 4, 112, 8, 16, 4)]
+# C, H, KV, d, ps, q_pos and kv_len of each sequence — chunks (C > 1) at
+# the edges of the paged tensor-core tile loop (64 folded rows x 64 keys
+# a tile, key rows copied through the page table): C = 128 over a history
+# of several key tiles that starts off a page boundary, ps = 4 (a tile
+# spans 17 pages) with padded chunk rows (kv_len < q_pos + C, as the
+# engine pads a short chunk), ps = 8, G = 3 (150 rows, not a multiple of
+# 64), d = 112 and d = 16 (padded head dims), a sequence with kv_len 0,
+# and qwen3's head geometry at chunk_tokens = 256.
+PAGED_CHUNK_CASES = [(128, 4, 2, 64, 16, (300, 45), (428, 173)),
+                     (40, 4, 2, 64, 4, (70, 3), (110, 40)),
+                     (64, 4, 2, 32, 8, (100, 13), (164, 77)),
+                     (50, 6, 2, 64, 16, (37, 90), (87, 140)),
+                     (72, 4, 2, 112, 16, (90, 5), (162, 77)),
+                     (33, 4, 2, 16, 8, (21, 64), (54, 90)),
+                     (20, 4, 2, 64, 8, (0, 44, 9), (0, 64, 25)),
+                     (256, 16, 8, 128, 16, (500,), (756,))]
+CHUNK_KWARGS = [dict(), dict(window=70, softcap=25.0)]
 # B, T, Tk, H, KV, d, first row's kv_len (None: Tk; the others Tk - 5),
 # q/k scale factor.  After the first four, the edges of the bf16 kernel's
 # 64-row x 64-key tensor-core tiles: T not a multiple of 64, T = 1024
@@ -63,15 +80,15 @@ def _rand(rng, *shape):
     return torch.from_numpy((rng.standard_normal(shape) * 0.5).astype(np.float32))
 
 
-def _paged(seed, B, C, H, KV, d, ps, N, Pmax, dtype):
+def _paged(seed, B, C, H, KV, d, ps, N, Pmax, dtype, device="cuda"):
     rng = np.random.RandomState(seed)
     q, kpg, vpg = (_rand(rng, B, C, H, d), _rand(rng, N, ps, KV, d),
                    _rand(rng, N, ps, KV, d))
     bt = torch.from_numpy(rng.permutation(N - 1)[: B * Pmax].reshape(B, Pmax))
     q_pos = torch.from_numpy(rng.randint(0, Pmax * ps - C, size=B))
     args = [q, kpg, vpg, bt, q_pos + C, q_pos]
-    return ([a.to("cuda", dtype) for a in args[:3]]
-            + [a.to("cuda", torch.int32) for a in args[3:]])
+    return ([a.to(device, dtype) for a in args[:3]]
+            + [a.to(device, torch.int32) for a in args[3:]])
 
 
 def _err(a, b):
@@ -153,6 +170,65 @@ def test_paged_int8_kernel_empty_rows_zero_pages_and_stale_table(cuda):
     assert _err(out, want) <= TOL["float32"]
     empty = [args[0][:0]] + args[1:5] + [a[:0] for a in args[5:]]
     assert K3.paged_attention_int8(*empty, scale=0.3).shape == (0, 4, 4, 16)
+
+
+def paged_chunk_inputs(case, seed=0):
+    """A PAGED_CHUNK_CASES entry as f32 CPU tensors: q, k_pages, v_pages,
+    the block table, a stale copy of it, kv_lens, q_pos.  Each sequence
+    owns Pmax = ceil(max kv_len / ps) + 2 pages of a shuffled pool; the
+    pool's last page belongs to no sequence.  The stale table points every
+    slot past ceil(kv_len / ps) far outside the pool, where a read would
+    clamp onto that last page; :func:`poison_last_page` fills it with NaN."""
+    C, H, KV, d, ps, q_pos, kv_lens = case
+    B = len(q_pos)
+    Pmax = -(-max(kv_lens) // ps) + 2
+    N = B * Pmax + 1
+    rng = np.random.RandomState(seed)
+    q, kpg, vpg = _rand(rng, B, C, H, d), _rand(rng, N, ps, KV, d), _rand(rng, N, ps, KV, d)
+    table = torch.from_numpy(rng.permutation(N - 1)[: B * Pmax].reshape(B, Pmax)).int()
+    stale = table.clone()
+    for b, L in enumerate(kv_lens):
+        stale[b, -(-L // ps):] = 10**6
+    return (q, kpg, vpg, table, stale, torch.tensor(kv_lens, dtype=torch.int32),
+            torch.tensor(q_pos, dtype=torch.int32))
+
+
+def poison_last_page(*pools):
+    """NaN into the last page of each pool (fp pages or int8 scales)."""
+    for pool in pools:
+        pool[-1] = float("nan")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["paged_attention", "paged_attention_int8"])
+@pytest.mark.parametrize("case", PAGED_CHUNK_CASES)
+def test_paged_chunk_kernel_matches_plain(cuda, case, kernel, dtype):
+    """K1 and K3 on chunks (bf16: the tensor-core tile loop; f32: the
+    CUDA-core loop) through a stale table, against their plain versions
+    on the clean table; a sequence with kv_len 0 writes exact zeros."""
+    dt = getattr(torch, dtype)
+    q, kpg, vpg, table, stale, lens, q_pos = paged_chunk_inputs(case)
+    if kernel == "paged_attention":
+        mod, run, plain = K1, K1.paged_attention, K1.paged_attention_plain
+        pages = [kpg.to(dt), vpg.to(dt)]
+        poison_last_page(*pages)
+    else:
+        mod, run, plain = K3, K3.paged_attention_int8, K3.paged_attention_int8_plain
+        (kq, ks), (vq, vs) = q8_kv(kpg), q8_kv(vpg)
+        poison_last_page(ks, vs)
+        pages = [kq, ks, vq, vs]
+    q, pages = q.to("cuda", dt), [p.to("cuda") for p in pages]
+    table, stale, lens, q_pos = (x.to("cuda") for x in (table, stale, lens, q_pos))
+    for kw in CHUNK_KWARGS:
+        n, n_chunk = mod.launches, mod.launches_chunk
+        out = run(q, *pages, stale, lens, q_pos, scale=0.2, **kw)
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.launches_chunk) == (n + 1, n_chunk + 1)
+        assert bool(torch.isfinite(out.float()).all())
+        assert _err(out, plain(q, *pages, table, lens, q_pos, scale=0.2, **kw)) <= TOL[dtype]
+        for b in range(len(lens)):
+            if int(lens[b]) == 0:
+                assert bool((out[b] == 0).all())
 
 
 def flash_inputs(case, seed=0):
