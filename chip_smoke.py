@@ -13,14 +13,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      library yardstick (``scaled_dot_product_attention`` on gathered K/V —
      for the int8 kernel after one dequantize call — never called by the
      port; none for the SSD scan, which no single PyTorch call computes),
-     and the card's bound for the same work; K1/K3 at decode (C = 1) and
-     at chunks of C = 128 and 256 (bf16 chunks run their tensor-core tile
-     loop); plus K1/K3 on empty rows and stale page tables (K3 also on
-     all-zero pages), K1/K2 at the hybrid's head geometry, and the scan
-     with a ragged T and a nonzero h0.  First it logs the ``ptxas -v``
-     registers and spills and the dynamic shared memory of each
+     and the card's bound for the same work, and the kernel's and the
+     library's device time (``device_ms``: the calls queued behind a
+     device sleep, so the host's cost per call does not pace them);
+     K1/K3 at decode (C = 1: the split-KV kernel, each case logging its
+     split count, split length and workspace bytes, and its error held to
+     the tolerance relative to each sequence's max |o| too) for B = 16
+     at the main path's 72-page table, 64 and one sequence of 4096 keys,
+     and at chunks of C = 128 and 256 (bf16 chunks run their tensor-core
+     tile loop); plus K1/K3 on empty rows and stale page tables at C = 4
+     and at decode (K3 also on all-zero pages; at decode the stale slots
+     clamp onto a NaN page), K1/K2 at the hybrid's head geometry, and the
+     scan with a ragged T and a nonzero h0.  First it logs the ``ptxas
+     -v`` registers and spills and the dynamic shared memory of each
      instantiation of the bf16 tensor-core kernels (K2's and the chunk
      loops of K1 and K3), and fails if a head-dim 64 or 128 one spills;
+     then the same for every instantiation of the decode kernels and
+     their combines, failing on any spill but f32's at d > 128;
   4. cross-device checks, f32, one seeded set of weights each, greedy
      streams equal between ``cuda`` (kernels) and the CPU (plain versions):
      the engine on qwen3-0.6b at full width and 2 layers with fp pages and
@@ -42,8 +51,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
   6. where the time goes: per mode and page type, one window of engine
      steps, and for the hybrid its prefill and 8 decode steps, timed on the
      host clock and, run again from fresh state, under ``torch.profiler``:
-     device time by kernel class (K1/K3 split into decode and chunk) and
-     the device's busy share.
+     device time by kernel class (K1/K3 split into decode, with its
+     combine, and chunk) and the device's busy share.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 line, the card's ``nvidia-smi`` name and power limit, and
@@ -63,6 +72,7 @@ from dataclasses import replace
 from pathlib import Path
 
 HBM_BYTES_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
+SLEEP_CYCLES_S = 2.0e9         # above the H100's 1.98 GHz boost clock: a sleep lasts at least its time
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-tensor
 # kernel vs plain version: f32 differs only in summation order; bf16 adds
 # the rounding of the output to 8 mantissa bits
@@ -105,6 +115,35 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(fn, iters: int, warmup: int = 3):
+    """(device ms, host ms) of one call of ``fn``.  Like ``cuda_time_ms``,
+    but the timed calls queue behind a device-side sleep that outlasts the
+    host's enqueueing of all of them (twice the host time they took just
+    before, at most 0.5 s), so the host's own cost per call (Python,
+    launch) does not pace the device: the kernels' device time.  The host
+    time is that of the calls just before, on the host's clock.
+    ``cuda_time_ms`` times a call that costs the host more than the device
+    at the host's pace, as the engine sees it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * iters * host_s, 0.5) * SLEEP_CYCLES_S))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_s * 1e3
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -112,10 +151,12 @@ def bound(nbytes: float, flops: float, dtype: str):
 
 
 # ------------------------------------------------------------ phase 3 ---
-def paged_case(torch, B, C, KV, G, d, ps, max_kv, dtype, seed, min_kv=None):
+def paged_case(torch, B, C, KV, G, d, ps, max_kv, dtype, seed, min_kv=None, pmax=None):
     """Inputs of one K1 call as the main path gives them: kv lens from
     ``min_kv`` (default: max_kv / 8, ragged) up to ``max_kv``, chunks
-    ending at each sequence's length, pages scattered over the pool."""
+    ending at each sequence's length, pages scattered over the pool; with
+    ``pmax``, the table is widened to that many slots by zeros, as the
+    engine's table is past a sequence's pages."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     Pmax = -(-max_kv // ps)
     N = B * Pmax + 1
@@ -124,6 +165,8 @@ def paged_case(torch, B, C, KV, G, d, ps, max_kv, dtype, seed, min_kv=None):
     vp = torch.randn(N, ps, KV, d, generator=g, device="cuda").to(dtype)
     table = torch.randperm(N - 1, generator=g, device="cuda")[: B * Pmax]
     table = table.reshape(B, Pmax).to(torch.int32)
+    if pmax is not None:
+        table = torch.nn.functional.pad(table, (0, pmax - Pmax))
     lo = max(C, max_kv // 8 if min_kv is None else min_kv)
     kv_lens = torch.linspace(lo, max_kv, B, device="cuda").round().to(torch.int32)
     q_pos = (kv_lens - C).to(torch.int32)
@@ -177,9 +220,10 @@ def _sdpa_mask(torch, q, kv_lens, q_pos, T):
 
 def sdpa_paged(torch, q, kp, vp, table, kv_lens, q_pos, scale):
     """Library yardstick for K1: SDPA over K/V gathered from the pages
-    (gathered once, outside the timed call)."""
+    that some row reads (gathered once, outside the timed call)."""
     F = torch.nn.functional
     H = q.shape[2]
+    table = table[:, :-(-int(kv_lens.max()) // kp.shape[1])]
     k, v = _gather_heads(torch, kp, table, H), _gather_heads(torch, vp, table, H)
     qt = q.transpose(1, 2).contiguous()
     mask = _sdpa_mask(torch, q, kv_lens, q_pos, k.shape[2])
@@ -189,9 +233,11 @@ def sdpa_paged(torch, q, kp, vp, table, kv_lens, q_pos, scale):
 def sdpa_paged_int8(torch, q, kq, ks, vq, vs, table, kv_lens, q_pos, scale):
     """Library yardstick for K3, two calls: one dequantize (``torch.mul``
     of the stacked K/V codes by their scales, cast to q's type) and SDPA,
-    on codes and scales gathered once outside the timed call."""
+    on codes and scales of the pages that some row reads, gathered once
+    outside the timed call."""
     F = torch.nn.functional
     H = q.shape[2]
+    table = table[:, :-(-int(kv_lens.max()) // kq.shape[1])]
     codes = torch.stack([_gather_heads(torch, kq, table, H), _gather_heads(torch, vq, table, H)])
     scales = torch.stack([_gather_heads(torch, ks, table, H), _gather_heads(torch, vs, table, H)])
     qt = q.transpose(1, 2).contiguous()
@@ -210,19 +256,38 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-def measure(torch, kernel, label, dname, run, plain, lib, work, iters):
+def row_rel_err(a, b):
+    """Max over sequences (dim 0) of a sequence's max abs difference over
+    the largest |b| of that sequence (the abs difference where b is all 0):
+    an error that would hide under a tolerance beside small outputs."""
+    e = (a.float() - b.float()).abs().flatten(1).amax(1)
+    r = b.float().abs().flatten(1).amax(1)
+    return (e / r.clamp(min=1e-30)).where(r > 0, e).max().item()
+
+
+def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=None):
     """One case: the kernel against its plain version on the same inputs
-    (max abs error), then CUDA-event times of kernel, plain version and
-    library yardstick (None: there is none), and the bound for the work."""
+    (max abs error and, for a single output, ``row_rel_err``), then
+    ``cuda_time_ms`` times of kernel, plain version and library yardstick
+    (None: there is none), the kernel's and the library's
+    ``device_time_ms`` times and the kernel's host time per call, and the
+    bound for the work; ``extra`` (e.g. a decode call's split) is logged
+    with it."""
     out = run()
     torch.cuda.synchronize()
-    err = max_err(out, plain())
+    want = plain()
+    err = max_err(out, want)
+    rel = None if isinstance(out, tuple) else row_rel_err(out, want)
     ms = cuda_time_ms(run, iters)
     plain_ms = cuda_time_ms(plain, max(iters // 4, 1))
     lib_ms = cuda_time_ms(lib, iters) if lib else None
+    device_ms, host_ms = device_time_ms(run, iters)
+    lib_device_ms = device_time_ms(lib, iters)[0] if lib else None
     b_ms, b_by = bound(*work, dname)
     return dict(kernel=kernel, case=label, dtype=dname, max_abs_err=err, tol=TOL[dname],
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                row_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                device_ms=device_ms, host_ms=host_ms, library_device_ms=lib_device_ms,
+                **(extra or {}))
 
 
 def int8_pool(torch, kp, vp):
@@ -235,35 +300,51 @@ def int8_pool(torch, kp, vp):
 def stale_checks(torch):
     """Empty rows, all-zero pages with floored scales, and stale table
     entries past ceil(kv_len / ps) (ids far outside the pool): outputs
-    equal the plain version on the clean table, empty rows write 0."""
+    equal the plain version on the clean table, empty rows write 0.  At
+    C = 4 (the chunk loops) and at decode (C = 1, split over several
+    blocks), where the pool's last page, onto which a stale slot would
+    clamp, holds NaN."""
     from repro_torch.kernels import paged_attention as K1
     from repro_torch.kernels import paged_attention_int8 as K3
     from repro_torch.kernels.kv_int8 import SCALE_FLOOR
     out = []
-    q, kp, vp, table, _, _ = paged_case(torch, 3, 4, 8, 2, 128, 16, 64, torch.float32, seed=4)
-    kv_lens = torch.tensor([0, 37, 64], dtype=torch.int32, device="cuda")
-    q_pos = torch.tensor([0, 33, 60], dtype=torch.int32, device="cuda")
-    kq, ks, vq, vs = int8_pool(torch, kp, vp)
-    zero = table[1, :2].long()                     # two of row 1's pages: all zero
-    kq[zero], vq[zero] = 0, 0
-    ks[zero], vs[zero] = SCALE_FLOOR, SCALE_FLOOR
-    kp[zero], vp[zero] = 0, 0
-    scale = 1.0 / math.sqrt(128)
-    i8 = (q, kq, ks, vq, vs)
-    want = {"paged_attention": K1.paged_attention_plain(q, kp, vp, table, kv_lens, q_pos, scale=scale),
-            "paged_attention_int8": K3.paged_attention_int8_plain(*i8, table, kv_lens, q_pos,
-                                                                  scale=scale)}
-    stale = table.clone()
-    stale[0, :] = 10**6                            # kv_len 0: no page is read
-    stale[1, 3] = 10**6                            # ceil(37 / 16) = 3 pages are read
-    got = {"paged_attention": K1.paged_attention(q, kp, vp, stale, kv_lens, q_pos, scale=scale),
-           "paged_attention_int8": K3.paged_attention_int8(*i8, stale, kv_lens, q_pos, scale=scale)}
-    torch.cuda.synchronize()
-    for name in got:
-        o = got[name]
-        out.append(dict(kernel=name, case="empty row, zero pages, stale table", dtype="float32",
-                        max_abs_err=(o - want[name]).abs().max().item(), tol=TOL["float32"],
-                        finite=bool(torch.isfinite(o).all()), empty_row_zero=bool((o[0] == 0).all())))
+    for C, max_kv, lens, dtype in ((4, 64, (0, 37, 64), torch.float32),
+                                   (1, 1024, (0, 37, 1000), torch.float32),
+                                   (1, 1024, (0, 37, 1000), torch.bfloat16)):
+        q, kp, vp, table, _, _ = paged_case(torch, 3, C, 8, 2, 128, 16, max_kv, dtype, seed=4)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q_pos = (kv_lens - C).clamp(min=0).to(torch.int32)
+        kq, ks, vq, vs = int8_pool(torch, kp.float(), vp.float())
+        zero = table[1, :2].long()                 # two of row 1's pages: all zero
+        kq[zero], vq[zero] = 0, 0
+        ks[zero], vs[zero] = SCALE_FLOOR, SCALE_FLOOR
+        kp[zero], vp[zero] = 0, 0
+        if C == 1:                                 # the unowned last page: NaN
+            for pool in (kp, vp, ks, vs):
+                pool[-1] = float("nan")
+        scale = 1.0 / math.sqrt(128)
+        i8 = (q, kq, ks, vq, vs)
+        want = {"paged_attention": K1.paged_attention_plain(q, kp, vp, table, kv_lens, q_pos,
+                                                            scale=scale),
+                "paged_attention_int8": K3.paged_attention_int8_plain(
+                    *i8, table, kv_lens, q_pos, scale=scale)}
+        stale = table.clone()
+        stale[0, :] = 10**6                        # kv_len 0: no page is read
+        stale[1, 3:] = 10**6                       # ceil(37 / 16) = 3 pages are read
+        stale[2, -(-lens[2] // 16):] = 10**6
+        got = {"paged_attention": K1.paged_attention(q, kp, vp, stale, kv_lens, q_pos,
+                                                     scale=scale),
+               "paged_attention_int8": K3.paged_attention_int8(*i8, stale, kv_lens, q_pos,
+                                                               scale=scale)}
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        label = ("decode C=1" if C == 1 else f"C={C}") + ", empty row, zero pages, stale table"
+        for name in got:
+            o = got[name]
+            out.append(dict(kernel=name, case=label, dtype=dname,
+                            max_abs_err=max_err(o, want[name]), tol=TOL[dname],
+                            finite=bool(torch.isfinite(o.float()).all()),
+                            empty_row_zero=bool((o[0] == 0).all())))
     return out
 
 
@@ -339,6 +420,66 @@ def tc_resources(lib, kernel, smem_symbol):
     return out
 
 
+DECODE_KERNELS = (  # library, kernel name, template arguments after the type
+    ("paged_attention", "paged_attention_decode_kernel", ("VPL", "GR")),
+    ("paged_attention_int8", "paged_attention_int8_decode_kernel", ("GR",)))
+
+
+def decode_resources(lib, kernel, params):
+    """Registers, stack, spills and static shared memory of every
+    instantiation of the split-KV decode ``kernel`` in library ``lib`` and
+    of its combine, from the ``ptxas -v`` output in ``build.build_log``.
+    Fails if one spills, except f32 with two vectors a lane (VPL = 2,
+    d > 128)."""
+    import re
+    from repro_torch.kernels import build
+    text = build.build_log[lib]["ptxas"]
+    if text == "(reused)":
+        return "not available: the library was built before this run"
+    combine = kernel.replace("_kernel", "_combine_kernel")
+    args = "".join(r"Li(\d+)E" for _ in params)
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(kernel + r"I(f|13__nv_bfloat16)" + args, line)
+            c = re.search(combine + r"I(f|13__nv_bfloat16)E", line)
+            cur = None
+            if m:
+                key = ("f32" if m[1] == "f" else "bf16") + "".join(
+                    f" {p}={v}" for p, v in zip(params, m.groups()[1:]))
+                cur = out.setdefault(key, {})
+            elif c:
+                cur = out.setdefault("combine " + ("f32" if c[1] == "f" else "bf16"), {})
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                       spill_load_bytes=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(smem[1]) if smem else 0
+    if not any(k.startswith("combine") for k in out) or len(out) < 4:
+        fail(f"ptxas log lacks the decode instantiations of {kernel}: {sorted(out)}")
+    for key, r in out.items():
+        if "VPL=2" in key and key.startswith("f32"):
+            continue
+        if r.get("spill_store_bytes", 1) or r.get("spill_load_bytes", 1):
+            fail(f"{kernel} {key} spills to local memory: {r}")
+    return out
+
+
+def decode_split_info(torch, q, kp, table):
+    """The split of a decode call on this card: split count, split length
+    in keys, and the f32 workspace bytes its partials take."""
+    from repro_torch.kernels import paged_attention as K1
+    B, _, H, d = q.shape
+    S, L = K1.decode_splits(B, kp.shape[2], table.shape[1], kp.shape[1],
+                            K1.sm_count(q.device))
+    return dict(splits=S, split_keys=L, workspace_bytes=B * H * S * (d + 2) * 4 if S > 1 else 0)
+
+
 def phase_kernels(torch, iters):
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_attention as K1
@@ -368,7 +509,8 @@ def phase_kernels(torch, iters):
             lambda: K1.paged_attention(*args, scale=hy_scale),
             lambda: K1.paged_attention_plain(*args, scale=hy_scale),
             sdpa_paged(torch, *args, hy_scale),
-            paged_work(args[0], args[1], args[3], args[4], args[5]), iters))
+            paged_work(args[0], args[1], args[3], args[4], args[5]), iters,
+            decode_split_info(torch, args[0], args[1], args[3])))
         g = torch.Generator(device="cuda").manual_seed(7)
         qkv = [torch.randn(8, 1024, 32, 112, generator=g, device="cuda").to(dtype)
                for _ in range(3)]
@@ -381,24 +523,38 @@ def phase_kernels(torch, iters):
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=hy_scale),
             flash_work(qkv[0], qkv[1], lens), iters))
         del qkv, qt, kt, vt
-        for label, B, C in (("decode", 16, 1), ("chunk", 2, 128), ("chunk", 2, 256)):
-            args = paged_case(torch, B, C, 8, 2, 128, 16, 1024, dtype, seed=1)
+        # decode at qwen3's batch (with the main path's table width, so its
+        # split is the one the engine runs), a full batch of 64 and one user
+        # on a 4096-key context; chunks of 128 and 256
+        for label, B, C, max_kv, min_kv, pmax in (
+                ("decode B=16 C=1", 16, 1, 1024, None, MAIN_SERVE["max_pages_per_seq"]),
+                ("decode B=64 C=1", 64, 1, 1024, None, None),
+                ("decode B=1 C=1 kv=4096", 1, 1, 4096, 4096, None),
+                ("chunk B=2 C=128", 2, 128, 1024, None, None),
+                ("chunk B=2 C=256", 2, 256, 1024, None, None)):
+            args = paged_case(torch, B, C, 8, 2, 128, 16, max_kv, dtype, seed=1, min_kv=min_kv,
+                              pmax=pmax)
+            split = decode_split_info(torch, args[0], args[1], args[3]) if C == 1 else None
             cases.append(measure(
-                torch, "paged_attention", f"{label} B={B} C={C}", dname,
+                torch, "paged_attention", label, dname,
                 lambda: K1.paged_attention(*args, scale=scale),
                 lambda: K1.paged_attention_plain(*args, scale=scale),
                 sdpa_paged(torch, *args, scale),
-                paged_work(args[0], args[1], args[3], args[4], args[5]), iters))
+                paged_work(args[0], args[1], args[3], args[4], args[5]), iters, split))
             # K3 on the same shapes: codes and scales of seeded f32 normals
             q, kp, vp, table, kv_lens, q_pos = paged_case(
-                torch, B, C, 8, 2, 128, 16, 1024, torch.float32, seed=1)
+                torch, B, C, 8, 2, 128, 16, max_kv, torch.float32, seed=1, min_kv=min_kv,
+                pmax=pmax)
             i8 = (q.to(dtype), *int8_pool(torch, kp, vp), table, kv_lens, q_pos)
+            del args, kp, vp
             cases.append(measure(
-                torch, "paged_attention_int8", f"{label} B={B} C={C}", dname,
+                torch, "paged_attention_int8", label, dname,
                 lambda: K3.paged_attention_int8(*i8, scale=scale),
                 lambda: K3.paged_attention_int8_plain(*i8, scale=scale),
                 sdpa_paged_int8(torch, *i8, scale),
-                paged_work(i8[0], kp, table, kv_lens, q_pos, kv_bytes=kp.shape[3] + 4), iters))
+                paged_work(i8[0], i8[1], table, kv_lens, q_pos, kv_bytes=i8[1].shape[3] + 4),
+                iters, split))
+            del i8
         g = torch.Generator(device="cuda").manual_seed(2)
         B, T, H, KV, d = 4, 1024, 16, 8, 128
         q = torch.randn(B, T, H, d, generator=g, device="cuda").to(dtype)
@@ -418,6 +574,11 @@ def phase_kernels(torch, iters):
     for c in cases + edge:
         log("kernel " + json.dumps(c))
     bad = [c for c in cases + edge if not c["max_abs_err"] <= c["tol"]]
+    # decode averages softmax weights over up to thousands of keys, so its
+    # |o| is small: its error is held to the tolerance relative to each
+    # sequence's max |o| as well, which a dropped split or a halved output
+    # would exceed
+    bad += [c for c in cases if "splits" in c and not c["row_rel_err"] <= c["tol"]]
     bad += [c for c in edge if not (c["finite"] and c["empty_row_zero"])]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -780,12 +941,13 @@ def log_agreement(paths):
         {m: agreement(streams["int8"][m], streams["fp"][m]) for m in streams["int8"]}))
 
 
-# bf16 (the main paths): the paged kernels' tensor-core loop runs only
-# chunks (C > 1), their CUDA-core loop only decode (C = 1)
-KERNEL_CLASSES = (("paged_attention_int8 chunk", ("paged_attention_int8_kernel_tc",)),
-                  ("paged_attention_int8 decode", ("paged_attention_int8_kernel",)),
-                  ("paged_attention chunk", ("paged_attention_kernel_tc",)),
-                  ("paged_attention decode", ("paged_attention_kernel",)),
+# K1/K3 decode (C = 1) is the split-KV kernel and its combine; every
+# other paged call is a chunk (bf16: the tensor-core loop, f32: the
+# CUDA-core loop)
+KERNEL_CLASSES = (("paged_attention_int8 decode", ("paged_attention_int8_decode",)),
+                  ("paged_attention_int8 chunk", ("paged_attention_int8_kernel",)),
+                  ("paged_attention decode", ("paged_attention_decode",)),
+                  ("paged_attention chunk", ("paged_attention_kernel",)),
                   ("flash_attention", ("flash_attention_kernel",)),
                   ("ssd_scan", ("ssd_scan_kernel",)),
                   ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
@@ -895,6 +1057,7 @@ def _leaves(tree):
 KERNELS = {
     "paged_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        decode_source="src/repro_torch/kernels/csrc/paged_decode.cuh",
         chunk_source="src/repro_torch/kernels/csrc/paged_tiles.cuh",
         replaces="src/repro/kernels/paged_attention.py:109",
         replaces_function="src/repro/kernels/paged_attention.py::paged_attention",
@@ -906,6 +1069,7 @@ KERNELS = {
         headline=("prefill B=4 T=1024", "bfloat16"), library="scaled_dot_product_attention"),
     "paged_attention_int8": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention_int8.cu",
+        decode_source="src/repro_torch/kernels/csrc/paged_decode.cuh",
         chunk_source="src/repro_torch/kernels/csrc/paged_tiles.cuh",
         replaces="src/repro/kernels/paged_attention_int8.py:111",
         replaces_function="src/repro/kernels/paged_attention_int8.py::paged_attention_int8",
@@ -958,6 +1122,9 @@ def main() -> int:
     for lib, kernel, smem_symbol in TC_KERNELS:
         log(f"{kernel} bf16 tensor-core instantiations (ptxas -v): "
             + json.dumps(tc_resources(lib, kernel, smem_symbol)))
+    for lib, kernel, params in DECODE_KERNELS:
+        log(f"{kernel} split-KV decode instantiations (ptxas -v): "
+            + json.dumps(decode_resources(lib, kernel, params)))
     cases = phase_kernels(torch, iters=1 if args.quick else 20)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if args.quick:
@@ -998,12 +1165,13 @@ def main() -> int:
                           f"launches_{part}_per_step": part_n / part_steps})
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
-            **({"chunk_source": meta["chunk_source"]} if "chunk_source" in meta else {}),
+            **{k: meta[k] for k in ("decode_source", "chunk_source") if k in meta},
             replaces=meta["replaces"], replaces_function=meta["replaces_function"],
             launches=n, launches_by_path=by_path, launches_per_step=n / steps, **parts,
             case=f"{label} {dtype}", max_abs_err=c["max_abs_err"], tol=c["tol"],
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], library=meta["library"],
+            device_ms=c["device_ms"], library_device_ms=c["library_device_ms"],
             cases=[{k: v for k, v in x.items() if k != "kernel"}
                    for x in cases if x["kernel"] == kname]))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -8,27 +8,33 @@
 // folded into C * G rows, masks kv_pos < kv_len and causal
 // kv_pos <= q_pos + row / G, an optional window and tanh softcap.
 //
-// Two loops behind one C entry a type:
-//   - Decode (C = 1) and every f32 call: the CUDA-core loop of
-//     attention_common.cuh (paged_attention_kernel).  Decode reads every
-//     K/V byte of the batch once and does 4 flops per element read, far
-//     below the card's ~295 flops per byte, so it is bound by bytes
-//     (3.35 TB/s): a tile of 32 keys is staged in shared memory with
-//     16-byte loads by all four warps and shared by the block's 4 query
-//     rows.  f32 stays there so the card-vs-CPU parity runs stay in full
-//     f32, off TF32.
+// Three loops:
+//   - Decode (C = 1), f32 and bf16: the split-KV kernel of
+//     paged_decode.cuh (paged_attention_decode_kernel, then
+//     paged_attention_decode_combine_kernel when a row's keys are split),
+//     behind the C entries paged_attention_decode_{f32,bf16}.  Decode
+//     reads every K/V byte of the batch once and does ~4 flops per
+//     element read, far below the card's ~295 flops per byte, so it is
+//     bound by bytes (3.35 TB/s): blocks over (key split, kv head,
+//     sequence) fill the SMs even at small batches and walk a long
+//     sequence in parallel, and each lane keeps several keys' 16-byte
+//     loads in flight in registers.  The header note there says more.
+//   - f32 chunks (C > 1): the CUDA-core loop of attention_common.cuh
+//     (paged_attention_kernel), 4 query rows a block over 32-key tiles in
+//     shared memory; it stays in full f32 (no TF32) for the card-vs-CPU
+//     parity runs.
 //   - bf16 chunks (C > 1): the paged tensor-core tile loop of
 //     paged_tiles.cuh (paged_attention_kernel_tc), 64 folded rows a block,
 //     mma.sync products, K/V rows copied through the page table by
 //     cp.async into double-buffered 64-key tiles.  A chunk of C rows reads
 //     each K/V byte once per 64 rows instead of once per 4.
 // Only the pages below ceil(kv_len / ps) are read; table entries past
-// them may hold zeros or stale ids and are never touched.  Split-KV for
-// small decode batches is later work.
+// them may hold zeros or stale ids and are never touched.
 //
 // Layouts (the model's): q, out [B, C, H, d]; pages [N, ps, KV, d];
 // block_table [B, Pmax], kv_lens [B], q_pos [B] int32.
 #include "attention_common.cuh"
+#include "paged_decode.cuh"
 #include "paged_tiles.cuh"
 
 namespace {
@@ -113,6 +119,70 @@ int run_tc(const void* q, const void* k_pages, const void* v_pages,
                           C, H, KV, d, N, ps, Pmax, scale, window, softcap);
 }
 
+// Decode (C = 1), f32 and bf16: the split-KV kernel and its combine
+// (paged_decode.cuh).
+template <typename T, int VPL, int GR>
+__global__ void __launch_bounds__(pdec::THREADS)
+paged_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                              const T* __restrict__ v_pages,
+                              const int* __restrict__ block_table,
+                              const int* __restrict__ kv_lens,
+                              const int* __restrict__ q_pos, T* __restrict__ out,
+                              float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                              int H, int KV, int d, int N, int ps, int Pmax, int S, int L,
+                              float scale, int window, float softcap) {
+  pdec::attend_split<T, VPL, GR>(pdec::FpRows<T>{k_pages, v_pages}, q, out, ws_acc, ws_ml,
+                                 block_table, kv_lens, q_pos, H, KV, d, N, ps, Pmax, S, L,
+                                 scale, window, softcap);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(pdec::COMBINE_THREADS)
+paged_attention_decode_combine_kernel(const float* __restrict__ ws_acc,
+                                      const float* __restrict__ ws_ml,
+                                      T* __restrict__ out, int d, int S) {
+  pdec::combine<T>(ws_acc, ws_ml, out, d, S);
+}
+
+template <typename T, int VPL, int GR>
+int run_decode_at(const void* q, const void* k_pages, const void* v_pages,
+                  const void* block_table, const void* kv_lens, const void* q_pos,
+                  void* out, void* ws_acc, void* ws_ml, int B, int H, int KV, int d,
+                  int N, int ps, int Pmax, int S, int L, float scale, int window,
+                  float softcap, void* stream) {
+  float* acc = static_cast<float*>(ws_acc);
+  float* ml = static_cast<float*>(ws_ml);
+  return pdec::launch(paged_attention_decode_kernel<T, VPL, GR>,
+                      paged_attention_decode_combine_kernel<T>, GR, B, H, KV, d, S, acc,
+                      ml, static_cast<T*>(out), stream, static_cast<const T*>(q),
+                      static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+                      static_cast<const int*>(block_table),
+                      static_cast<const int*>(kv_lens), static_cast<const int*>(q_pos),
+                      static_cast<T*>(out), acc, ml, H, KV, d, N, ps, Pmax, S, L, scale,
+                      window, softcap);
+}
+
+template <typename T>
+int run_decode(const void* q, const void* k_pages, const void* v_pages,
+               const void* block_table, const void* kv_lens, const void* q_pos, void* out,
+               void* ws_acc, void* ws_ml, int B, int H, int KV, int d, int N, int ps,
+               int Pmax, int S, int L, float scale, int window, float softcap,
+               void* stream) {
+  if (pdec::bad_split(ps, Pmax, S, L, ws_acc, ws_ml)) return int(cudaErrorInvalidValue);
+  constexpr int EPV = 16 / sizeof(T);
+  const int vpl = pdec::vectors_per_lane(d, EPV);
+  const int gr = pdec::rows_per_pass(H / KV, vpl * EPV);
+  auto* fn = gr == 1 ? &run_decode_at<T, 1, 1>
+           : gr == 2 ? &run_decode_at<T, 1, 2> : &run_decode_at<T, 1, 4>;
+  if constexpr (EPV == 4) {       // f32 at d > 128: two vectors a lane
+    if (vpl == 2)
+      fn = gr == 1 ? &run_decode_at<T, 2, 1>
+         : gr == 2 ? &run_decode_at<T, 2, 2> : &run_decode_at<T, 2, 4>;
+  }
+  return fn(q, k_pages, v_pages, block_table, kv_lens, q_pos, out, ws_acc, ws_ml, B, H,
+            KV, d, N, ps, Pmax, S, L, scale, window, softcap, stream);
+}
+
 }  // namespace
 
 extern "C" int paged_attention_f32(
@@ -120,20 +190,18 @@ extern "C" int paged_attention_f32(
     const void* block_table, const void* kv_lens, const void* q_pos, void* out,
     int B, int C, int H, int KV, int d, int N, int ps, int Pmax, float scale,
     int window, float softcap, void* stream) {
+  if (C == 1) return int(cudaErrorInvalidValue);   // decode: paged_attention_decode_f32
   return run<float>(q, k_pages, v_pages, block_table, kv_lens, q_pos, out, B,
                     C, H, KV, d, N, ps, Pmax, scale, window, softcap, stream);
 }
 
-// Decode (C = 1) on the CUDA-core loop, chunks on the tensor cores.
+// Chunks (C > 1) on the tensor cores.
 extern "C" int paged_attention_bf16(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_table, const void* kv_lens, const void* q_pos, void* out,
     int B, int C, int H, int KV, int d, int N, int ps, int Pmax, float scale,
     int window, float softcap, void* stream) {
-  if (C == 1)
-    return run<__nv_bfloat16>(q, k_pages, v_pages, block_table, kv_lens, q_pos,
-                              out, B, C, H, KV, d, N, ps, Pmax, scale, window,
-                              softcap, stream);
+  if (C == 1) return int(cudaErrorInvalidValue);   // decode: paged_attention_decode_bf16
   auto* fn = &run_tc<256>;
   switch (tc::padded_dim(d)) {
     case 32: fn = &run_tc<32>; break;
@@ -153,4 +221,28 @@ extern "C" int paged_attention_bf16_smem_bytes(int d) {
     case 128: return int(smem_tc<128>());
   }
   return int(smem_tc<256>());
+}
+
+// Decode (C = 1): q, out [B, 1, H, d].  The wrapper picks the split
+// (S splits of L keys, kernels/paged_attention.py::decode_splits) and,
+// when S > 1, allocates the f32 workspace ws_acc [B, H, S, d] and
+// ws_ml [B, H, S, 2].
+extern "C" int paged_attention_decode_f32(
+    const void* q, const void* k_pages, const void* v_pages, const void* block_table,
+    const void* kv_lens, const void* q_pos, void* out, void* ws_acc, void* ws_ml, int B,
+    int H, int KV, int d, int N, int ps, int Pmax, int S, int L, float scale, int window,
+    float softcap, void* stream) {
+  return run_decode<float>(q, k_pages, v_pages, block_table, kv_lens, q_pos, out, ws_acc,
+                           ws_ml, B, H, KV, d, N, ps, Pmax, S, L, scale, window, softcap,
+                           stream);
+}
+
+extern "C" int paged_attention_decode_bf16(
+    const void* q, const void* k_pages, const void* v_pages, const void* block_table,
+    const void* kv_lens, const void* q_pos, void* out, void* ws_acc, void* ws_ml, int B,
+    int H, int KV, int d, int N, int ps, int Pmax, int S, int L, float scale, int window,
+    float softcap, void* stream) {
+  return run_decode<__nv_bfloat16>(q, k_pages, v_pages, block_table, kv_lens, q_pos, out,
+                                   ws_acc, ws_ml, B, H, KV, d, N, ps, Pmax, S, L, scale,
+                                   window, softcap, stream);
 }

@@ -8,15 +8,22 @@
 // (code * scale, in f32) before both products.  Masks, the online
 // softmax, the GQA row folding and the empty-row rule are K1's.
 //
-// Two loops behind one C entry a type, as in K1:
-//   - Decode (C = 1) and every f32 call: the CUDA-core loop of
-//     attention_common.cuh (paged_attention_int8_kernel).  Like K1's
-//     decode it does ~4 flops per K/V element and is bound by bytes
-//     (3.35 TB/s), but an element is one byte here plus 4 bytes of scale
-//     per 128-element row, 132 bytes per (token, head) instead of K1's 256
-//     in bf16.  Each code is read once from device memory per block, 16
-//     codes per 16-byte load, dequantized straight into the f32 shared
-//     tiles that the block's query rows share.
+// Three loops, as in K1:
+//   - Decode (C = 1), f32 and bf16 q: K1's split-KV kernel
+//     (paged_decode.cuh) with the Q8Rows loader
+//     (paged_attention_int8_decode_kernel, then
+//     paged_attention_int8_decode_combine_kernel when a row's keys are
+//     split), behind the C entries paged_attention_int8_decode_{f32,bf16}.
+//     Like K1's decode it does ~4 flops per K/V element and is bound by
+//     bytes (3.35 TB/s), but an element is one byte here plus 4 bytes of
+//     scale per row, 132 bytes per (token, head) at d = 128 instead of
+//     K1's 256 in bf16.  A lane loads 16 codes a vector; the dot product
+//     is taken on the codes and scaled once per key, and each scale is
+//     read once per key row.
+//   - f32 chunks (C > 1): the CUDA-core loop of attention_common.cuh
+//     (paged_attention_int8_kernel): 16 codes per 16-byte load,
+//     dequantized straight into the f32 shared tiles that the block's 4
+//     query rows share.
 //   - bf16 chunks (C > 1): K1's paged tensor-core tile loop
 //     (paged_tiles.cuh, paged_attention_int8_kernel_tc) with the Q8Tiles
 //     loader: raw codes and scales are double-buffered by cp.async, and a
@@ -29,6 +36,7 @@
 // [N, ps, KV, d] int8; scales [N, ps, KV, 1] f32; block_table [B, Pmax],
 // kv_lens [B], q_pos [B] int32.  d % 16 == 0, d <= 256.
 #include "attention_common.cuh"
+#include "paged_decode.cuh"
 #include "paged_tiles.cuh"
 
 namespace {
@@ -127,6 +135,71 @@ int run_tc(const void* q, const void* k_pages, const void* k_scales,
                           C, H, KV, d, N, ps, Pmax, scale, window, softcap);
 }
 
+// Decode (C = 1), f32 and bf16 q: the split-KV kernel over int8 rows and
+// its combine (paged_decode.cuh).  A lane holds 16 elements of each of
+// GR query rows and accumulators here (8 for fp pages), ~136 registers at
+// GR = 2: the minimum of 3 blocks an SM lets ptxas use them (up to 168)
+// instead of spilling to reach 4 blocks at 128.
+template <typename T, int GR>
+__global__ void __launch_bounds__(pdec::THREADS, 3)
+paged_attention_int8_decode_kernel(const T* __restrict__ q,
+                                   const int8_t* __restrict__ k_pages,
+                                   const float* __restrict__ k_scales,
+                                   const int8_t* __restrict__ v_pages,
+                                   const float* __restrict__ v_scales,
+                                   const int* __restrict__ block_table,
+                                   const int* __restrict__ kv_lens,
+                                   const int* __restrict__ q_pos, T* __restrict__ out,
+                                   float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                                   int H, int KV, int d, int N, int ps, int Pmax, int S,
+                                   int L, float scale, int window, float softcap) {
+  pdec::attend_split<T, 1, GR>(pdec::Q8Rows{k_pages, v_pages, k_scales, v_scales}, q, out,
+                               ws_acc, ws_ml, block_table, kv_lens, q_pos, H, KV, d, N,
+                               ps, Pmax, S, L, scale, window, softcap);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(pdec::COMBINE_THREADS)
+paged_attention_int8_decode_combine_kernel(const float* __restrict__ ws_acc,
+                                           const float* __restrict__ ws_ml,
+                                           T* __restrict__ out, int d, int S) {
+  pdec::combine<T>(ws_acc, ws_ml, out, d, S);
+}
+
+template <typename T, int GR>
+int run_decode_at(const void* q, const void* k_pages, const void* k_scales,
+                  const void* v_pages, const void* v_scales, const void* block_table,
+                  const void* kv_lens, const void* q_pos, void* out, void* ws_acc,
+                  void* ws_ml, int B, int H, int KV, int d, int N, int ps, int Pmax, int S,
+                  int L, float scale, int window, float softcap, void* stream) {
+  float* acc = static_cast<float*>(ws_acc);
+  float* ml = static_cast<float*>(ws_ml);
+  return pdec::launch(paged_attention_int8_decode_kernel<T, GR>,
+                      paged_attention_int8_decode_combine_kernel<T>, GR, B, H, KV, d, S,
+                      acc, ml, static_cast<T*>(out), stream, static_cast<const T*>(q),
+                      static_cast<const int8_t*>(k_pages),
+                      static_cast<const float*>(k_scales),
+                      static_cast<const int8_t*>(v_pages),
+                      static_cast<const float*>(v_scales),
+                      static_cast<const int*>(block_table),
+                      static_cast<const int*>(kv_lens), static_cast<const int*>(q_pos),
+                      static_cast<T*>(out), acc, ml, H, KV, d, N, ps, Pmax, S, L, scale,
+                      window, softcap);
+}
+
+template <typename T>
+int run_decode(const void* q, const void* k_pages, const void* k_scales,
+               const void* v_pages, const void* v_scales, const void* block_table,
+               const void* kv_lens, const void* q_pos, void* out, void* ws_acc,
+               void* ws_ml, int B, int H, int KV, int d, int N, int ps, int Pmax, int S,
+               int L, float scale, int window, float softcap, void* stream) {
+  if (pdec::bad_split(ps, Pmax, S, L, ws_acc, ws_ml)) return int(cudaErrorInvalidValue);
+  const int gr = pdec::rows_per_pass(H / KV, pdec::Q8Rows::EPV);
+  auto* fn = gr == 1 ? &run_decode_at<T, 1> : &run_decode_at<T, 2>;
+  return fn(q, k_pages, k_scales, v_pages, v_scales, block_table, kv_lens, q_pos, out,
+            ws_acc, ws_ml, B, H, KV, d, N, ps, Pmax, S, L, scale, window, softcap, stream);
+}
+
 }  // namespace
 
 extern "C" int paged_attention_int8_f32(
@@ -135,22 +208,20 @@ extern "C" int paged_attention_int8_f32(
     const void* kv_lens, const void* q_pos, void* out, int B, int C, int H,
     int KV, int d, int N, int ps, int Pmax, float scale, int window,
     float softcap, void* stream) {
+  if (C == 1) return int(cudaErrorInvalidValue);   // decode: paged_attention_int8_decode_f32
   return run<float>(q, k_pages, k_scales, v_pages, v_scales, block_table,
                     kv_lens, q_pos, out, B, C, H, KV, d, N, ps, Pmax, scale,
                     window, softcap, stream);
 }
 
-// Decode (C = 1) on the CUDA-core loop, chunks on the tensor cores.
+// Chunks (C > 1) on the tensor cores.
 extern "C" int paged_attention_int8_bf16(
     const void* q, const void* k_pages, const void* k_scales,
     const void* v_pages, const void* v_scales, const void* block_table,
     const void* kv_lens, const void* q_pos, void* out, int B, int C, int H,
     int KV, int d, int N, int ps, int Pmax, float scale, int window,
     float softcap, void* stream) {
-  if (C == 1)
-    return run<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales,
-                              block_table, kv_lens, q_pos, out, B, C, H, KV, d,
-                              N, ps, Pmax, scale, window, softcap, stream);
+  if (C == 1) return int(cudaErrorInvalidValue);   // decode: paged_attention_int8_decode_bf16
   auto* fn = &run_tc<256>;
   switch (tc::padded_dim(d)) {
     case 32: fn = &run_tc<32>; break;
@@ -170,4 +241,27 @@ extern "C" int paged_attention_int8_bf16_smem_bytes(int d) {
     case 128: return int(smem_tc<128>());
   }
   return int(smem_tc<256>());
+}
+
+// Decode (C = 1): q, out [B, 1, H, d].  The wrapper picks the split
+// (kernels/paged_attention.py::decode_splits) and, when S > 1, allocates
+// the f32 workspace ws_acc [B, H, S, d] and ws_ml [B, H, S, 2].
+extern "C" int paged_attention_int8_decode_f32(
+    const void* q, const void* k_pages, const void* k_scales, const void* v_pages,
+    const void* v_scales, const void* block_table, const void* kv_lens, const void* q_pos,
+    void* out, void* ws_acc, void* ws_ml, int B, int H, int KV, int d, int N, int ps,
+    int Pmax, int S, int L, float scale, int window, float softcap, void* stream) {
+  return run_decode<float>(q, k_pages, k_scales, v_pages, v_scales, block_table, kv_lens,
+                           q_pos, out, ws_acc, ws_ml, B, H, KV, d, N, ps, Pmax, S, L,
+                           scale, window, softcap, stream);
+}
+
+extern "C" int paged_attention_int8_decode_bf16(
+    const void* q, const void* k_pages, const void* k_scales, const void* v_pages,
+    const void* v_scales, const void* block_table, const void* kv_lens, const void* q_pos,
+    void* out, void* ws_acc, void* ws_ml, int B, int H, int KV, int d, int N, int ps,
+    int Pmax, int S, int L, float scale, int window, float softcap, void* stream) {
+  return run_decode<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales, block_table,
+                                   kv_lens, q_pos, out, ws_acc, ws_ml, B, H, KV, d, N, ps,
+                                   Pmax, S, L, scale, window, softcap, stream);
 }

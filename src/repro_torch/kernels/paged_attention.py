@@ -16,15 +16,21 @@ Layouts are the model's (no transposes around the launch):
 Returns o [B, C, H, d] in q's dtype.
 
 Dispatch: CPU tensors take :func:`paged_attention_plain`; CUDA tensors
-launch a kernel or raise.  bf16 chunks (C > 1) run on the tensor cores
-(``csrc/paged_tiles.cuh``); decode (C = 1) and f32 calls on the CUDA-core
-loop (``csrc/attention_common.cuh``).  ``launches`` counts kernel
-launches, ``launches_decode`` those with C = 1 and ``launches_chunk``
-those with C > 1.
+launch a kernel or raise.  Decode (C = 1), f32 and bf16, runs the split-KV
+kernel of ``csrc/paged_decode.cuh``: it is bound by the bytes of K/V it
+reads, so :func:`decode_splits` cuts each row's keys into S splits of L
+keys, from shapes alone, to put about four blocks on every SM whatever the
+batch; with S > 1 a combine kernel merges the splits' f32 partials, which
+live in a workspace allocated here once per shape (:func:`decode_plan`).  bf16 chunks (C > 1) run on the tensor
+cores (``csrc/paged_tiles.cuh``), f32 chunks on the CUDA-core loop
+(``csrc/attention_common.cuh``).  ``launches`` counts wrapper calls that
+launch, ``launches_decode`` those with C = 1 and ``launches_chunk`` those
+with C > 1 (a split decode call launches two kernels and counts once).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,6 +45,61 @@ _SYMBOLS = {torch.float32: "paged_attention_f32",
             torch.bfloat16: "paged_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_DECODE_SYMBOLS = {torch.float32: "paged_attention_decode_f32",
+                   torch.bfloat16: "paged_attention_decode_bf16"}
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+
+BLOCKS_PER_SM = 4        # the decode grid aims at about this many blocks an SM
+MIN_SPLIT_KEYS = 128     # a shorter split costs more in partials than it spreads
+MAX_SPLIT_PAGES = 1024   # = csrc/paged_decode.cuh's, whose C entries refuse more
+
+
+def decode_splits(B: int, KV: int, Pmax: int, ps: int, sms: int):
+    """(S, L): the decode kernel's split of a row's ``Pmax * ps`` keys into
+    S splits of L keys each, L a whole number of pages.
+
+    Decode's grid is (S, KV, B): S grows until the grid holds about
+    ``BLOCKS_PER_SM`` blocks for each of the ``sms`` SMs, but a split keeps
+    at least ``MIN_SPLIT_KEYS`` keys and at most ``MAX_SPLIT_PAGES`` pages.
+    It reads shapes only, never ``kv_lens`` or ``q_pos``: those live on the
+    card, and reading them would put a host sync into every decode step.
+    Split s covers the absolute keys [s * L, (s + 1) * L); the kernel clips
+    it to the row's visible range.
+    """
+    S = max(1, min(-(-BLOCKS_PER_SM * sms // max(B * KV, 1)),
+                   -(-Pmax * ps // MIN_SPLIT_KEYS)))
+    pages = max(1, min(-(-Pmax // S), MAX_SPLIT_PAGES))
+    return max(1, -(-Pmax // pages)), pages * ps
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_plans = {}
+
+
+def decode_plan(B: int, H: int, KV: int, d: int, Pmax: int, ps: int,
+                device: torch.device, stream: int):
+    """(S, L, acc pointer, (m, l) pointer) of a decode call: the split of
+    :func:`decode_splits` and the f32 workspace of its partials, acc
+    [B, H, S, d] and (m, l) [B, H, S, 2] (null pointers when S == 1).
+    Made once per shape, device and stream, then reused, so a decode step
+    costs the host no split choice and no allocation: calls on one stream
+    run in order, so one call's combine has read the workspace before the
+    next call's split kernel writes it."""
+    key = (B, H, KV, d, Pmax, ps, device, stream)
+    plan = _plans.get(key)
+    if plan is None:
+        S, L = decode_splits(B, KV, Pmax, ps, sm_count(device))
+        ws = None
+        if S > 1:
+            ws = torch.empty(B * H * S * (d + 2), dtype=torch.float32, device=device)
+        plan = _plans[key] = (S, L, None if ws is None else ws.data_ptr(),
+                              None if ws is None else ws.data_ptr() + 4 * B * H * S * d, ws)
+    return plan[:4]
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_table, kv_lens, q_pos, *,
@@ -102,13 +163,20 @@ def paged_attention(q, k_pages, v_pages, block_table, kv_lens, q_pos, *,
         return out              # phase-exclusive prefill step
     B, C, H, d = q.shape
     N, ps, KV, _ = k_pages.shape
-    fn = build.kernel_fn("paged_attention", _SYMBOLS[q.dtype], _ARGTYPES)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), kv_lens.data_ptr(), q_pos.data_ptr(),
-            out.data_ptr(), B, C, H, KV, d, N, ps, block_table.shape[1],
-            float(scale), NO_WINDOW if window is None else int(window),
-            0.0 if softcap is None else float(softcap),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    Pmax = block_table.shape[1]
+    pointers = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_table.data_ptr(), kv_lens.data_ptr(), q_pos.data_ptr(),
+                out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rest = (float(scale), NO_WINDOW if window is None else int(window),
+            0.0 if softcap is None else float(softcap), stream)
+    if C == 1:
+        S, L, acc, ml = decode_plan(B, H, KV, d, Pmax, ps, q.device, stream)
+        fn = build.kernel_fn("paged_attention", _DECODE_SYMBOLS[q.dtype], _DECODE_ARGTYPES)
+        rc = fn(*pointers, acc, ml, B, H, KV, d, N, ps, Pmax, S, L, *rest)
+    else:
+        fn = build.kernel_fn("paged_attention", _SYMBOLS[q.dtype], _ARGTYPES)
+        rc = fn(*pointers, B, C, H, KV, d, N, ps, Pmax, *rest)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")
     global launches, launches_decode, launches_chunk

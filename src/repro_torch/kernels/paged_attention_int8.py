@@ -17,11 +17,14 @@ Layouts are the model's:
 Returns o [B, C, H, d] in q's dtype.
 
 Dispatch: CPU tensors take :func:`paged_attention_int8_plain`; CUDA tensors
-launch a kernel or raise.  bf16 chunks (C > 1) run on the tensor cores
-(``csrc/paged_tiles.cuh``); decode (C = 1) and f32 calls on the CUDA-core
-loop (``csrc/attention_common.cuh``).  ``launches`` counts kernel
-launches, ``launches_decode`` those with C = 1 and ``launches_chunk``
-those with C > 1.
+launch a kernel or raise.  Decode (C = 1), f32 and bf16 q, runs K1's
+split-KV kernel (``csrc/paged_decode.cuh``) over int8 rows, with K1's
+split choice and workspace (``paged_attention.decode_plan``): it is
+bound by the bytes of codes and scales it reads.  bf16 chunks (C > 1) run
+on the tensor cores (``csrc/paged_tiles.cuh``), f32 chunks on the
+CUDA-core loop (``csrc/attention_common.cuh``).  ``launches`` counts
+wrapper calls that launch, ``launches_decode`` those with C = 1 and
+``launches_chunk`` those with C > 1.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import paged_attention as _k1
 from repro_torch.models.layers import NO_WINDOW, flash_attention, gather_pages
 
 launches = 0
@@ -40,6 +44,10 @@ _SYMBOLS = {torch.float32: "paged_attention_int8_f32",
             torch.bfloat16: "paged_attention_int8_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_DECODE_SYMBOLS = {torch.float32: "paged_attention_int8_decode_f32",
+                   torch.bfloat16: "paged_attention_int8_decode_bf16"}
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
 def paged_attention_int8_plain(q, k_pages, k_scales, v_pages, v_scales,
@@ -132,14 +140,21 @@ def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales, block_table,
         return out              # phase-exclusive prefill step
     B, C, H, d = q.shape
     N, ps, KV, _ = k_pages.shape
-    fn = build.kernel_fn("paged_attention_int8", _SYMBOLS[q.dtype], _ARGTYPES)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
-            v_pages.data_ptr(), v_scales.data_ptr(), block_table.data_ptr(),
-            kv_lens.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-            B, C, H, KV, d, N, ps, block_table.shape[1], float(scale),
-            NO_WINDOW if window is None else int(window),
-            0.0 if softcap is None else float(softcap),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    Pmax = block_table.shape[1]
+    pointers = (q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
+                v_pages.data_ptr(), v_scales.data_ptr(), block_table.data_ptr(),
+                kv_lens.data_ptr(), q_pos.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rest = (float(scale), NO_WINDOW if window is None else int(window),
+            0.0 if softcap is None else float(softcap), stream)
+    if C == 1:
+        S, L, acc, ml = _k1.decode_plan(B, H, KV, d, Pmax, ps, q.device, stream)
+        fn = build.kernel_fn("paged_attention_int8", _DECODE_SYMBOLS[q.dtype],
+                             _DECODE_ARGTYPES)
+        rc = fn(*pointers, acc, ml, B, H, KV, d, N, ps, Pmax, S, L, *rest)
+    else:
+        fn = build.kernel_fn("paged_attention_int8", _SYMBOLS[q.dtype], _ARGTYPES)
+        rc = fn(*pointers, B, C, H, KV, d, N, ps, Pmax, *rest)
     if rc != 0:
         raise RuntimeError(
             f"paged_attention_int8 kernel launch failed: CUDA error {rc}")

@@ -47,6 +47,24 @@ PAGED_CHUNK_CASES = [(128, 4, 2, 64, 16, (300, 45), (428, 173)),
                      (20, 4, 2, 64, 8, (0, 44, 9), (0, 64, 25)),
                      (256, 16, 8, 128, 16, (500,), (756,))]
 CHUNK_KWARGS = [dict(), dict(window=70, softcap=25.0)]
+# The same layout at C = 1 (q_pos = kv_len - 1, 0 for an empty row) — the
+# edges of the split-KV decode kernel, whose splits are whole pages of at
+# least 128 keys (paged_attention.decode_splits): a 1037-key row that no
+# split length divides, rows with kv_len 0 and 1, G = 3 and 8 (query rows
+# beyond one pass), d = 16 and 112 (lane groups of 2 and 14 of 16 lanes in
+# bf16, 1 and 7 of 8 for int8 codes), ps = 4, 8 and 16, 40 sequences x 16
+# kv heads (one split on 132 SMs) and one sequence of 4000 keys (32
+# splits).  DECODE_KWARGS' window of 200 keys crosses a split boundary on
+# every row longer than it and empties the splits before it.
+PAGED_DECODE_CASES = [(1, 8, 4, 64, 16, (1036, 299), (1037, 300)),
+                      (1, 4, 4, 64, 8, (0, 0, 44), (0, 1, 45)),
+                      (1, 6, 2, 64, 8, (199, 76), (200, 77)),
+                      (1, 16, 2, 128, 16, (499, 0), (500, 1)),
+                      (1, 4, 2, 16, 4, (299, 8), (300, 9)),
+                      (1, 4, 4, 112, 16, (1039, 599), (1040, 600)),
+                      (1, 32, 16, 64, 8, tuple(range(0, 200, 5)), tuple(range(1, 201, 5))),
+                      (1, 16, 8, 128, 16, (3999,), (4000,))]
+DECODE_KWARGS = [dict(), dict(window=200, softcap=25.0)]
 # B, T, Tk, H, KV, d, first row's kv_len (None: Tk; the others Tk - 5),
 # q/k scale factor.  After the first four, the edges of the bf16 kernel's
 # 64-row x 64-key tensor-core tiles: T not a multiple of 64, T = 1024
@@ -93,6 +111,14 @@ def _paged(seed, B, C, H, KV, d, ps, N, Pmax, dtype, device="cuda"):
 
 def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def _row_rel_err(a, b):
+    """Max over sequences (dim 0) of the max abs difference over that
+    sequence's largest |b| (the abs difference where b is all 0)."""
+    e = (a.float() - b.float()).abs().flatten(1).amax(1)
+    r = b.float().abs().flatten(1).amax(1)
+    return (e / r.clamp(min=1e-30)).where(r > 0, e).max().item()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -225,7 +251,46 @@ def test_paged_chunk_kernel_matches_plain(cuda, case, kernel, dtype):
         torch.cuda.synchronize()
         assert (mod.launches, mod.launches_chunk) == (n + 1, n_chunk + 1)
         assert bool(torch.isfinite(out.float()).all())
-        assert _err(out, plain(q, *pages, table, lens, q_pos, scale=0.2, **kw)) <= TOL[dtype]
+        want = plain(q, *pages, table, lens, q_pos, scale=0.2, **kw)
+        assert _err(out, want) <= TOL[dtype]
+        assert _row_rel_err(out, want) <= TOL[dtype]
+        for b in range(len(lens)):
+            if int(lens[b]) == 0:
+                assert bool((out[b] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["paged_attention", "paged_attention_int8"])
+@pytest.mark.parametrize("case", PAGED_DECODE_CASES)
+def test_paged_decode_kernel_matches_plain(cuda, case, kernel, dtype):
+    """K1 and K3 at decode (C = 1; the split-KV kernel and its combine)
+    through a stale table onto a NaN page, against their plain versions
+    on the clean table; a sequence with kv_len 0 writes exact zeros.  A
+    long row's |o| is small (an average over many keys), so the error is
+    also held relative to each sequence's max |o|: a dropped split or a
+    halved output exceeds it."""
+    dt = getattr(torch, dtype)
+    q, kpg, vpg, table, stale, lens, q_pos = paged_chunk_inputs(case)
+    if kernel == "paged_attention":
+        mod, run, plain = K1, K1.paged_attention, K1.paged_attention_plain
+        pages = [kpg.to(dt), vpg.to(dt)]
+        poison_last_page(*pages)
+    else:
+        mod, run, plain = K3, K3.paged_attention_int8, K3.paged_attention_int8_plain
+        (kq, ks), (vq, vs) = q8_kv(kpg), q8_kv(vpg)
+        poison_last_page(ks, vs)
+        pages = [kq, ks, vq, vs]
+    q, pages = q.to("cuda", dt), [p.to("cuda") for p in pages]
+    table, stale, lens, q_pos = (x.to("cuda") for x in (table, stale, lens, q_pos))
+    for kw in DECODE_KWARGS:
+        n, n_decode = mod.launches, mod.launches_decode
+        out = run(q, *pages, stale, lens, q_pos, scale=0.2, **kw)
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.launches_decode) == (n + 1, n_decode + 1)
+        assert bool(torch.isfinite(out.float()).all())
+        want = plain(q, *pages, table, lens, q_pos, scale=0.2, **kw)
+        assert _err(out, want) <= TOL[dtype]
+        assert _row_rel_err(out, want) <= TOL[dtype]
         for b in range(len(lens)):
             if int(lens[b]) == 0:
                 assert bool((out[b] == 0).all())
