@@ -24,12 +24,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      tile loop); plus K1/K3 on empty rows and stale page tables at C = 4
      and at decode (K3 also on all-zero pages; at decode the stale slots
      clamp onto a NaN page), K1/K2 at the hybrid's head geometry, and the
-     scan with a ragged T and a nonzero h0.  First it logs the ``ptxas
-     -v`` registers and spills and the dynamic shared memory of each
-     instantiation of the bf16 tensor-core kernels (K2's and the chunk
-     loops of K1 and K3), and fails if a head-dim 64 or 128 one spills;
-     then the same for every instantiation of the decode kernels and
-     their combines, failing on any spill but f32's at d > 128;
+     scan with a ragged T and a nonzero h0 (its y and h_final errors
+     logged apart: y held to the dtype's tolerance, h_final to 1e-4 in
+     both dtypes).  First it logs the ``ptxas -v`` registers and spills
+     and the dynamic shared memory of each instantiation of the bf16
+     tensor-core kernels (K2's and the chunk loops of K1 and K3), and
+     fails if a head-dim 64 or 128 one spills; then the same for every
+     instantiation of the decode kernels and their combines, failing on
+     any spill but f32's at d > 128; then for K4's bf16 tensor-core
+     kernel, with the blocks an SM holds, failing if its main-path
+     instantiation spills;
   4. cross-device checks, f32, one seeded set of weights each, greedy
      streams equal between ``cuda`` (kernels) and the CPU (plain versions):
      the engine on qwen3-0.6b at full width and 2 layers with fp pages and
@@ -250,9 +254,7 @@ def sdpa_paged_int8(torch, q, kq, ks, vq, vs, table, kv_lens, q_pos, scale):
 
 
 def max_err(a, b):
-    """Max abs difference of two outputs, or of two tuples of outputs."""
-    if isinstance(a, tuple):
-        return max(max_err(x, y) for x, y in zip(a, b))
+    """Max abs difference of two outputs."""
     return (a.float() - b.float()).abs().max().item()
 
 
@@ -265,9 +267,12 @@ def row_rel_err(a, b):
     return (e / r.clamp(min=1e-30)).where(r > 0, e).max().item()
 
 
-def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=None):
+def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=None,
+            outputs=None):
     """One case: the kernel against its plain version on the same inputs
-    (max abs error and, for a single output, ``row_rel_err``), then
+    (max abs error and, for a single output, ``row_rel_err``; for a tuple
+    of outputs named by ``outputs``, each one's error as ``<name>_err``,
+    ``max_abs_err`` being the first's), then
     ``cuda_time_ms`` times of kernel, plain version and library yardstick
     (None: there is none), the kernel's and the library's
     ``device_time_ms`` times and the kernel's host time per call, and the
@@ -276,8 +281,12 @@ def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=Non
     out = run()
     torch.cuda.synchronize()
     want = plain()
-    err = max_err(out, want)
-    rel = None if isinstance(out, tuple) else row_rel_err(out, want)
+    if isinstance(out, tuple):
+        errs = {f"{n}_err": max_err(o, w) for n, o, w in zip(outputs, out, want)}
+        err, rel = errs[f"{outputs[0]}_err"], None
+        extra = dict(extra or {}, **errs)
+    else:
+        err, rel = max_err(out, want), row_rel_err(out, want)
     ms = cuda_time_ms(run, iters)
     plain_ms = cuda_time_ms(plain, max(iters // 4, 1))
     lib_ms = cuda_time_ms(lib, iters) if lib else None
@@ -420,6 +429,42 @@ def tc_resources(lib, kernel, smem_symbol):
     return out
 
 
+def ssd_resources():
+    """Registers, stack and spills of both instantiations of K4's bf16
+    tensor-core kernel (``VEC``: P and N multiples of 8, the main path's;
+    else element copies) from the ``ptxas -v`` output, with the dynamic
+    shared memory a block takes and the blocks one SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Fails if the
+    main path's instantiation spills."""
+    import re
+    from repro_torch.kernels import build
+    text = build.build_log["ssd_scan"]["ptxas"]
+    if text == "(reused)":
+        return "not available: the library was built before this run"
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"ssd_scan_kernel_tcILb([01])E", line)
+            cur = out.setdefault("VEC" if m[1] == "1" else "element copies", {}) if m else None
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                       spill_load_bytes=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m[1])
+    if sorted(out) != ["VEC", "element copies"]:
+        fail(f"ptxas log lacks the bf16 instantiations of ssd_scan_kernel_tc: {sorted(out)}")
+    if out["VEC"].get("spill_store_bytes", 1) or out["VEC"].get("spill_load_bytes", 1):
+        fail(f"ssd_scan_kernel_tc VEC spills to local memory: {out['VEC']}")
+    out["dynamic_smem_bytes"] = build.kernel_fn("ssd_scan", "ssd_scan_bf16_smem_bytes", [])()
+    out["blocks_per_sm"] = build.kernel_fn("ssd_scan", "ssd_scan_bf16_blocks_per_sm", [])()
+    if out["blocks_per_sm"] < 1:
+        fail(f"ssd_scan_kernel_tc cannot be resident on an SM: {out}")
+    return out
+
+
 DECODE_KERNELS = (  # library, kernel name, template arguments after the type
     ("paged_attention", "paged_attention_decode_kernel", ("VPL", "GR")),
     ("paged_attention_int8", "paged_attention_int8_decode_kernel", ("GR",)))
@@ -499,7 +544,8 @@ def phase_kernels(torch, iters):
                 torch, "ssd_scan", label, dname,
                 lambda: K4.ssd_chunk_scan(x, la, Bc, Cc, h, chunk=64),
                 lambda: K4.ssd_chunk_scan_plain(x, la, Bc, Cc, h, chunk=64),
-                None, ssd_work(x, Bc, h, 64), iters))
+                None, ssd_work(x, Bc, h, 64), iters,
+                dict(h_final_tol=TOL["float32"]), outputs=("y", "h_final")))
         # K1/K2 at the hybrid's shared attention: d=112, 32 q and 32 kv
         # heads (G=1); decode rows all at one length, as in its decode
         hy_scale = 1.0 / math.sqrt(112)
@@ -574,6 +620,9 @@ def phase_kernels(torch, iters):
     for c in cases + edge:
         log("kernel " + json.dumps(c))
     bad = [c for c in cases + edge if not c["max_abs_err"] <= c["tol"]]
+    # K4's state feeds every later step: h_final is held to f32's 1e-4 in
+    # both dtypes, y (max_abs_err) to the dtype's tolerance
+    bad += [c for c in cases if "h_final_tol" in c and not c["h_final_err"] <= c["h_final_tol"]]
     # decode averages softmax weights over up to thousands of keys, so its
     # |o| is small: its error is held to the tolerance relative to each
     # sequence's max |o| as well, which a dropped split or a halved output
@@ -943,7 +992,8 @@ def log_agreement(paths):
 
 # K1/K3 decode (C = 1) is the split-KV kernel and its combine; every
 # other paged call is a chunk (bf16: the tensor-core loop, f32: the
-# CUDA-core loop)
+# CUDA-core loop).  "ssd_scan_kernel" matches K4's f32 kernel and its bf16
+# ssd_scan_kernel_tc.
 KERNEL_CLASSES = (("paged_attention_int8 decode", ("paged_attention_int8_decode",)),
                   ("paged_attention_int8 chunk", ("paged_attention_int8_kernel",)),
                   ("paged_attention decode", ("paged_attention_decode",)),
@@ -1077,6 +1127,7 @@ KERNELS = {
         library="two calls: torch.mul dequantize + scaled_dot_product_attention"),
     "ssd_scan": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        tiles_source="src/repro_torch/kernels/csrc/ssd_tiles.cuh",
         replaces="src/repro/kernels/ssd_scan.py:64",
         replaces_function="src/repro/kernels/ssd_scan.py::ssd_chunk_scan",
         headline=("prefill B=8 T=1024 H=112", "bfloat16"),
@@ -1125,6 +1176,8 @@ def main() -> int:
     for lib, kernel, params in DECODE_KERNELS:
         log(f"{kernel} split-KV decode instantiations (ptxas -v): "
             + json.dumps(decode_resources(lib, kernel, params)))
+    log("ssd_scan_kernel_tc bf16 tensor-core instantiations (ptxas -v): "
+        + json.dumps(ssd_resources()))
     cases = phase_kernels(torch, iters=1 if args.quick else 20)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if args.quick:
@@ -1165,7 +1218,8 @@ def main() -> int:
                           f"launches_{part}_per_step": part_n / part_steps})
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
-            **{k: meta[k] for k in ("decode_source", "chunk_source") if k in meta},
+            **{k: meta[k] for k in ("decode_source", "chunk_source", "tiles_source")
+               if k in meta},
             replaces=meta["replaces"], replaces_function=meta["replaces_function"],
             launches=n, launches_by_path=by_path, launches_per_step=n / steps, **parts,
             case=f"{label} {dtype}", max_abs_err=c["max_abs_err"], tol=c["tol"],

@@ -14,22 +14,20 @@
 // evaluated only on the branch i <= t: above the diagonal it can overflow,
 // and a 0/1 mask would turn inf into NaN.
 //
-// What bounds it on an H100: at zamba2's prefill (B=8, T=1024, H=112,
-// P=N=Q=64, bf16) one call moves ~0.25 GB (x and y dominate) and does
-// ~28 GFLOP, about 110 flops per byte: below the bf16 tensor cores'
-// ~295, so the bound is the bytes (~0.08 ms at 3.35 TB/s).  This first
-// kernel does its four products on the CUDA cores in f32 (67 TFLOP/s),
-// which puts its own ceiling near 0.4 ms; `wgmma` tiles, TMA loads and
-// sharing C.B^T across the heads of a batch row are the later steps.
+// bf16 (ssd_scan_bf16) runs the tensor-core kernel of ssd_tiles.cuh,
+// whose note says what bounds it and how.  f32 (ssd_scan_f32) keeps the
+// CUDA-core kernel below, so the card-vs-CPU parity runs stay in full
+// f32: its four products run on the CUDA cores in f32 (67 TFLOP/s, ~28
+// GFLOP at zamba2's prefill, a ceiling near 0.4 ms).
 //
-// Design: one block of 16 x 16 threads per (batch row, head) walks the
-// chunks in order — the loop that replaces Pallas's sequential third grid
-// axis.  Per chunk it stages x [Q,P], B and C [Q,N] in shared memory as
-// f32 (rows padded to N + 1 floats: no bank conflicts), scans la with
-// warp shuffles, then each thread computes 4 x 4 outputs of each product
-// (rows ty + 16 r, columns tx + 16 c).  The 16 x 16 tiles wholly above
-// the diagonal of C.B^T are skipped, in that product and in (C.B^T o
-// decay) x.  The state stays in shared memory, each entry updated by the
+// Design of the f32 kernel: one block of 16 x 16 threads per (batch row,
+// head) walks the chunks in order — the loop that replaces Pallas's
+// sequential third grid axis.  Per chunk it stages x [Q,P], B and C [Q,N]
+// in shared memory (rows padded to N + 1 floats: no bank conflicts), scans
+// la with warp shuffles, then each thread computes 4 x 4 outputs of each
+// product (rows ty + 16 r, columns tx + 16 c).  The 16 x 16 tiles wholly
+// above the diagonal of C.B^T are skipped, in that product and in (C.B^T
+// o decay) x.  The state stays in shared memory, each entry updated by the
 // one thread that owns it once y has read it.
 //
 // Layouts (the model's, no transposes around the launch):
@@ -38,6 +36,8 @@
 //   h0 [B, H, P, N] f32 or null (zeros)   h_out [B, H, P, N] f32
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "ssd_tiles.cuh"
 
 namespace {
 
@@ -48,13 +48,9 @@ constexpr int MAX_DIM = TX * R;         // 64: the largest Q, P and N
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Dynamic shared memory of one block, in floats.
 inline size_t smem_floats(int Q, int P, int N) {
@@ -282,6 +278,13 @@ extern "C" int ssd_scan_bf16(const void* x, const void* la, const void* Bc,
                              const void* Cc, const void* h0, void* y,
                              void* h_out, int B, int T, int H, int P, int N,
                              int Q, void* stream) {
-  return run<__nv_bfloat16>(x, la, Bc, Cc, h0, y, h_out, B, T, H, P, N, Q,
-                            stream);
+  return ssd::run_tc(x, la, Bc, Cc, h0, y, h_out, B, T, H, P, N, Q, stream);
 }
+
+// Dynamic shared memory, in bytes, of one block of the bf16 kernel
+// (ptxas -v reports only static shared memory).
+extern "C" int ssd_scan_bf16_smem_bytes() { return int(ssd::SMEM_BYTES); }
+
+// Blocks of the bf16 kernel (P, N multiples of 8) resident on one SM of
+// the current device, or -1 on a CUDA error.
+extern "C" int ssd_scan_bf16_blocks_per_sm() { return ssd::blocks_per_sm(); }

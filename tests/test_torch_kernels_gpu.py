@@ -79,11 +79,20 @@ FLASH_CASES = [(2, 32, 32, 4, 2, 64, None, 1), (1, 64, 64, 8, 8, 128, None, 1),
                (2, 70, 70, 4, 4, 112, None, 1), (2, 50, 50, 4, 2, 16, None, 1),
                (2, 45, 45, 12, 4, 64, None, 1), (2, 40, 96, 4, 2, 64, None, 1),
                (3, 80, 80, 4, 2, 64, 0, 1), (2, 300, 300, 8, 2, 112, None, 4)]
-# B, H, T, P, N, chunk — tests/test_ssd_kernel.py's cases, then zamba2's
-# head geometry with a ragged last chunk, then sizes that are not
-# multiples of the kernel's 16-wide tiles (chunk above 32: both scan halves)
-SSD_CASES = [(2, 3, 32, 16, 8, 8), (1, 2, 64, 32, 16, 16), (2, 1, 24, 8, 8, 8),
-             (2, 112, 200, 64, 64, 64), (1, 5, 77, 24, 40, 40)]
+# B, H, T, P, N, chunk, decay — tests/test_ssd_kernel.py's cases, then
+# zamba2's head geometry with a ragged last chunk, then sizes that are not
+# multiples of the kernel's 16-wide tiles (chunk above 32: both scan
+# halves).  After those, the edges of the bf16 kernel's 64-row tensor-core
+# tiles: zamba2's geometry at T = 130 and T = 40 (< 64), P = 16 with
+# N = 64 and P = 64 with N = 16 (zero-filled columns), P = 20 and N = 12
+# (rows not whole 16-byte vectors: element copies), and a strong decay
+# (la down to -8 a step: 2^(L_t) and the decay underflow within a chunk).
+# la = -min(|normal| * decay, 8).
+SSD_CASES = [(2, 3, 32, 16, 8, 8, 0.1), (1, 2, 64, 32, 16, 16, 0.1), (2, 1, 24, 8, 8, 8, 0.1),
+             (2, 112, 200, 64, 64, 64, 0.1), (1, 5, 77, 24, 40, 40, 0.1),
+             (1, 112, 130, 64, 64, 64, 0.1), (2, 112, 40, 64, 64, 64, 0.1),
+             (2, 4, 150, 16, 64, 64, 0.1), (2, 4, 150, 64, 16, 64, 0.1),
+             (1, 3, 70, 20, 12, 64, 0.1), (2, 8, 256, 64, 64, 64, 4.0)]
 
 
 @pytest.fixture
@@ -321,27 +330,38 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
             assert bool((out[0] == 0).all())
 
 
+def ssd_inputs(case, h0):
+    """Seeded inputs of one SSD case, f32 on the CPU: x [B,T,H,P], la
+    [B,T,H], Bc/Cc [B,T,N] at scale 0.25, and h0 [B,H,P,N] (None for
+    zeros).  Scale 0.25 keeps |y| < 4, where one bf16 step (0.0156) is
+    inside 2e-2."""
+    B, H, T, P, N, _, decay = case
+    rng = np.random.RandomState(0)
+    x, Bc, Cc = (_rand(rng, *s).mul(0.5) for s in ((B, T, H, P), (B, T, N), (B, T, N)))
+    la = -np.abs(rng.standard_normal((B, T, H))).astype(np.float32) * np.float32(decay)
+    h = _rand(rng, B, H, P, N).mul(0.5) if h0 == "random" else None
+    return x, torch.from_numpy(np.maximum(la, np.float32(-8))), Bc, Cc, h
+
+
 @pytest.mark.parametrize("h0", ["zero", "random"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_kernel_matches_plain(cuda, case, dtype, h0):
-    """K4 against its plain version on the same inputs.  Inputs at scale
-    0.25 keep |y| < 4, where one bf16 step (0.0156) is inside 2e-2."""
-    B, H, T, P, N, chunk = case
-    rng = np.random.RandomState(0)
+    """K4 against its plain version on the same inputs: y to the dtype's
+    tolerance, h_final to 1e-4 in both dtypes, both finite."""
     dt = getattr(torch, dtype)
-    x, Bc, Cc = (_rand(rng, *s).mul(0.5).to("cuda", dt)
-                 for s in ((B, T, H, P), (B, T, N), (B, T, N)))
-    la = torch.from_numpy(-np.abs(rng.standard_normal((B, T, H))).astype(np.float32) * 0.1)
-    la = la.to("cuda")
-    h = _rand(rng, B, H, P, N).mul(0.5).to("cuda") if h0 == "random" else None
+    x, la, Bc, Cc, h = ssd_inputs(case, h0)
+    x, Bc, Cc = (a.to("cuda", dt) for a in (x, Bc, Cc))
+    la, h = la.to("cuda"), None if h is None else h.to("cuda")
+    chunk = case[5]
     n = K4.launches
     y, hf = K4.ssd_chunk_scan(x, la, Bc, Cc, h, chunk=chunk)
     torch.cuda.synchronize()
     assert K4.launches == n + 1                 # a CUDA tensor launches, never plain
     py, ph = K4.ssd_chunk_scan_plain(x, la, Bc, Cc, h, chunk=chunk)
     assert y.dtype == dt and hf.dtype == torch.float32
-    assert torch.isfinite(y.float()).all() and float(py.float().abs().max()) < 4
+    assert torch.isfinite(y.float()).all() and torch.isfinite(hf).all()
+    assert float(py.float().abs().max()) < 4
     assert _err(y, py) <= TOL[dtype] and _err(hf, ph) <= TOL["float32"]
 
 
