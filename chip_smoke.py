@@ -82,7 +82,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-ten
 # the rounding of the output to 8 mantissa bits
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # ServeConfig reads these two from the environment: fix them so the run
-# does not depend on it (the port refuses the dispatch sentinel)
+# does not depend on it (the sentinel phase turns the sentinel on itself)
 ANALYSIS_OFF = dict(sanitize_level="off", dispatch_sentinel=False)
 INT8_SANITIZED = dict(kv_dtype="int8", sanitize_level="step", dispatch_sentinel=False)
 
@@ -177,31 +177,40 @@ def paged_case(torch, B, C, KV, G, d, ps, max_kv, dtype, seed, min_kv=None, pmax
     return q, kp, vp, table, kv_lens, q_pos
 
 
-def paged_work(q, kp, table, kv_lens, q_pos, kv_bytes=None):
+def visible_keys(L, p, window=None):
+    """Keys a query at position p sees among a row's first L: causal, and
+    inside the window when there is one."""
+    return max(min(L, p + 1) - (0 if window is None else max(p - window + 1, 0)), 0)
+
+
+def paged_work(q, kp, table, kv_lens, q_pos, kv_bytes=None, window=None):
     """(bytes, flops) a paged-attention call must move and do on these
-    inputs: each K/V row below kv_len read once (``kv_bytes`` per
-    (token, head) of K or V, default d elements of q's type), q read and
-    out written once; 4 flops per (query row, visible key, dim), plus,
-    for int8 pages, one dequant multiply per K/V element read."""
+    inputs: each K/V row below kv_len that some query sees read once
+    (``kv_bytes`` per (token, head) of K or V, default d elements of q's
+    type), q read and out written once; 4 flops per (query row, visible
+    key, dim), plus, for int8 pages, one dequant multiply per K/V element
+    read."""
     B, C, H, d = q.shape
     KV = kp.shape[2]
     isz = q.element_size()
-    keys = 0
+    keys = rows = 0
     for b in range(B):
         L, p0 = int(kv_lens[b]), int(q_pos[b])
-        keys += sum(max(min(L, p0 + c + 1), 0) for c in range(C))
-    rows = int(kv_lens.sum()) * KV * 2
+        keys += sum(visible_keys(L, p0 + c, window) for c in range(C))
+        rows += L - (0 if window is None else min(max(p0 - window + 1, 0), L))
+    rows *= KV * 2
     read_kv = rows * (d * isz if kv_bytes is None else kv_bytes)
     nbytes = read_kv + 2 * q.numel() * isz + table.numel() * 4 + 2 * B * 4
     flops = 4.0 * d * (H // KV) * KV * keys + (0 if kv_bytes is None else rows * d)
     return nbytes, flops
 
 
-def flash_work(q, k, kv_lens):
+def flash_work(q, k, kv_lens, window=None):
     B, T, H, d = q.shape
     Tk = k.shape[1]
     isz = q.element_size()
-    keys = sum(min(t + 1, int(kv_lens[b]), Tk) for b in range(B) for t in range(T))
+    keys = sum(visible_keys(min(int(kv_lens[b]), Tk), t, window)
+               for b in range(B) for t in range(T))
     nbytes = (2 * q.numel() + 2 * k.numel()) * isz + B * 4
     return nbytes, 4.0 * d * H * keys
 
@@ -214,27 +223,30 @@ def _gather_heads(torch, pages, table, H):
     return g.repeat_interleave(H // pages.shape[2], dim=1).contiguous()
 
 
-def _sdpa_mask(torch, q, kv_lens, q_pos, T):
+def _sdpa_mask(torch, q, kv_lens, q_pos, T, window=None):
     C = q.shape[1]
     t = torch.arange(T, device="cuda")
     qp = q_pos[:, None].long() + torch.arange(C, device="cuda")[None]
     mask = (t[None, None, :] < kv_lens[:, None, None]) & (t[None, None, :] <= qp[:, :, None])
+    if window is not None:
+        mask &= t[None, None, :] > qp[:, :, None] - window
     return mask[:, None]
 
 
-def sdpa_paged(torch, q, kp, vp, table, kv_lens, q_pos, scale):
+def sdpa_paged(torch, q, kp, vp, table, kv_lens, q_pos, scale, window=None):
     """Library yardstick for K1: SDPA over K/V gathered from the pages
-    that some row reads (gathered once, outside the timed call)."""
+    that some row reads (gathered once, outside the timed call); with a
+    window, masked to it (SDPA has no softcap)."""
     F = torch.nn.functional
     H = q.shape[2]
     table = table[:, :-(-int(kv_lens.max()) // kp.shape[1])]
     k, v = _gather_heads(torch, kp, table, H), _gather_heads(torch, vp, table, H)
     qt = q.transpose(1, 2).contiguous()
-    mask = _sdpa_mask(torch, q, kv_lens, q_pos, k.shape[2])
+    mask = _sdpa_mask(torch, q, kv_lens, q_pos, k.shape[2], window)
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, scale=scale)
 
 
-def sdpa_paged_int8(torch, q, kq, ks, vq, vs, table, kv_lens, q_pos, scale):
+def sdpa_paged_int8(torch, q, kq, ks, vq, vs, table, kv_lens, q_pos, scale, window=None):
     """Library yardstick for K3, two calls: one dequantize (``torch.mul``
     of the stacked K/V codes by their scales, cast to q's type) and SDPA,
     on codes and scales of the pages that some row reads, gathered once
@@ -245,7 +257,7 @@ def sdpa_paged_int8(torch, q, kq, ks, vq, vs, table, kv_lens, q_pos, scale):
     codes = torch.stack([_gather_heads(torch, kq, table, H), _gather_heads(torch, vq, table, H)])
     scales = torch.stack([_gather_heads(torch, ks, table, H), _gather_heads(torch, vs, table, H)])
     qt = q.transpose(1, 2).contiguous()
-    mask = _sdpa_mask(torch, q, kv_lens, q_pos, codes.shape[3])
+    mask = _sdpa_mask(torch, q, kv_lens, q_pos, codes.shape[3], window)
 
     def call():
         kv = torch.mul(codes, scales).to(q.dtype)
@@ -525,6 +537,75 @@ def decode_split_info(torch, q, kp, table):
     return dict(splits=S, split_keys=L, workspace_bytes=B * H * S * (d + 2) * 4 if S > 1 else 0)
 
 
+SDPA_WINDOW_ONLY = "SDPA with the window mask alone (it has no softcap)"
+
+
+def gemma2_cases(torch, dtype, dname, iters):
+    """K1, K2 and K3 at gemma2-2b's attention: 8 q / 4 kv heads of d = 256
+    (the kernels' <256> instantiations), scale 1/16, window 4096 and
+    attention softcap 50, at the shapes of its phase-5 path: K2 on a
+    prefill of 2 prompts of 4608 tokens, K1/K3 decode for 16 sequences of
+    up to 5000 keys through the path's table width, and chunks of 256
+    tokens ending past 4096.  The library yardstick has the window mask
+    but no softcap."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as K2
+    from repro_torch.kernels import paged_attention as K1
+    from repro_torch.kernels import paged_attention_int8 as K3
+    F = torch.nn.functional
+    cfg = get_config("gemma2-2b")
+    KV, G, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    W = cfg.sliding_window
+    kw = dict(scale=cfg.attn_scale_override, window=W, softcap=cfg.attn_logit_softcap)
+    note = dict(library_note=SDPA_WINDOW_ONLY)
+    cases = []
+    g = torch.Generator(device="cuda").manual_seed(8)
+    B, T = 2, 4608
+    q = torch.randn(B, T, KV * G, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, T, KV, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, T, KV, d, generator=g, device="cuda").to(dtype)
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    t = torch.arange(T, device="cuda")
+    mask = (t[None, :] <= t[:, None]) & (t[None, :] > t[:, None] - W)
+    cases.append(measure(
+        torch, "flash_attention", f"gemma2 prefill B={B} T={T} d=256 window={W}", dname,
+        lambda: K2.flash_attention(q, k, v, lens, **kw),
+        lambda: K2.flash_attention_plain(q, k, v, lens, **kw),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"]),
+        flash_work(q, k, lens, W), iters, note))
+    del q, k, v, qt, kt, vt, mask
+    for label, B, C, min_kv, pmax in (
+            ("gemma2 decode B=16 C=1 d=256 kv<=5000", 16, 1, None, GEMMA_SERVE["max_pages_per_seq"]),
+            ("gemma2 chunk B=2 C=256 d=256 kv 4400-5000", 2, 256, 4400, None)):
+        args = paged_case(torch, B, C, KV, G, d, 16, 5000, dtype, seed=9, min_kv=min_kv,
+                          pmax=pmax)
+        split = decode_split_info(torch, args[0], args[1], args[3]) if C == 1 else {}
+        cases.append(measure(
+            torch, "paged_attention", label, dname,
+            lambda: K1.paged_attention(*args, **kw),
+            lambda: K1.paged_attention_plain(*args, **kw),
+            sdpa_paged(torch, *args, kw["scale"], W),
+            paged_work(args[0], args[1], args[3], args[4], args[5], window=W), iters,
+            dict(split, **note)))
+        q, kp, vp, table, kv_lens, q_pos = paged_case(
+            torch, B, C, KV, G, d, 16, 5000, torch.float32, seed=9, min_kv=min_kv, pmax=pmax)
+        i8 = (q.to(dtype), *int8_pool(torch, kp, vp), table, kv_lens, q_pos)
+        del args, kp, vp
+        cases.append(measure(
+            torch, "paged_attention_int8", label, dname,
+            lambda: K3.paged_attention_int8(*i8, **kw),
+            lambda: K3.paged_attention_int8_plain(*i8, **kw),
+            sdpa_paged_int8(torch, *i8, kw["scale"], W),
+            paged_work(i8[0], i8[1], table, kv_lens, q_pos, kv_bytes=i8[1].shape[3] + 4,
+                       window=W),
+            iters, dict(split, **note)))
+        del i8
+    return cases
+
+
 def phase_kernels(torch, iters):
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_attention as K1
@@ -616,6 +697,8 @@ def phase_kernels(torch, iters):
             lambda: K2.flash_attention_plain(q, k, v, lens, scale=scale),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale),
             flash_work(q, k, lens), iters))
+        del q, k, v, qt, kt, vt
+        cases += gemma2_cases(torch, dtype, dname, iters)
     edge = stale_checks(torch)
     for c in cases + edge:
         log("kernel " + json.dumps(c))
@@ -650,15 +733,26 @@ def make_engine_cls():
     return CheckedEngine
 
 
-def requests(n, vocab, lo, hi, new_lo, new_hi, seed):
+def requests(n, vocab, lo, hi, new_lo, new_hi, seed, base_rid=0):
     import numpy as np
     from repro_torch.core.engine import Request
     from repro_torch.core.sampler import SamplingParams
     rng = np.random.RandomState(seed)
-    return [Request(rid=i,
+    return [Request(rid=base_rid + i,
                     prompt=[int(t) for t in rng.randint(2, vocab, size=rng.randint(lo, hi + 1))],
                     sampling=SamplingParams(max_new_tokens=int(rng.randint(new_lo, new_hi + 1))))
             for i in range(n)]
+
+
+def requests_of_lengths(lengths, vocab, new, seed):
+    """One request per prompt length, each generating ``new`` tokens."""
+    import numpy as np
+    from repro_torch.core.engine import Request
+    from repro_torch.core.sampler import SamplingParams
+    rng = np.random.RandomState(seed)
+    return [Request(rid=i, prompt=[int(t) for t in rng.randint(2, vocab, size=n)],
+                    sampling=SamplingParams(max_new_tokens=new))
+            for i, n in enumerate(lengths)]
 
 
 def launch_counts():
@@ -687,48 +781,118 @@ def read_launches():
     return {name: getattr(mod, attr) for name, (mod, attr) in launch_counts().items()}
 
 
+CROSS_SERVE = dict(max_batch=8, page_size=16, n_pages=128, max_pages_per_seq=16,
+                   prefill_chunk=32, n_streams=2, chunk_tokens=64)
+CHUNKING_MODES = ("splitwiser", "splitwiser_mps", "chunked")
+
+
+def cross_device(torch, label, model, params, serve_kw, modes, make_requests):
+    """Serve ``make_requests()`` on cuda (kernels) and on the CPU (plain
+    versions) in each of ``modes``, f32: the greedy streams must be equal,
+    and on cuda the paged kernel (K1, or K3 for int8 pages) must launch,
+    K2 in ``sequential`` and the paged chunk loop in the modes that chunk
+    prompts; under the sanitizer it must have run on cuda (clean: a
+    violation raises)."""
+    from repro_torch.configs import ServeConfig
+    Engine = make_engine_cls()
+    cfg = ServeConfig(**serve_kw)
+    paged = "paged_attention_int8" if cfg.kv_dtype == "int8" else "paged_attention"
+    for mode in modes:
+        streams, checks = {}, {}
+        for dev in ("cuda", "cpu"):
+            zero_launches()
+            reqs = make_requests()
+            eng = Engine(model, params, replace(cfg, mode=mode), device=dev)
+            eng.run(reqs, max_steps=4000)
+            streams[dev] = [r.out_tokens for r in reqs]
+            checks[dev] = eng.sanitizer.n_checks if eng.sanitizer else 0
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = read_launches()
+            del eng
+        if streams["cuda"] != streams["cpu"]:
+            first = next((i, a, b) for i, (a, b) in
+                         enumerate(zip(streams["cuda"], streams["cpu"])) if a != b)
+            fail(f"{label} {mode}: greedy streams differ between cuda and cpu: {first}")
+        want = ([paged] + (["flash_attention"] if mode == "sequential" else [])
+                + ([paged + "_chunk"] if mode in CHUNKING_MODES else []))
+        if any(counts[k] == 0 for k in want):
+            fail(f"{label} {mode}: kernels were not launched on cuda: {counts}")
+        if cfg.sanitize_level != "off" and not checks["cuda"]:
+            fail(f"{label} {mode}: the sanitizer did not run on cuda")
+        log(f"cross-device {label} {mode}: {len(streams['cuda'])} greedy streams equal "
+            f"(cuda vs cpu); launches {json.dumps(counts)}; sanitizer checks "
+            f"cuda={checks['cuda']} cpu={checks['cpu']} (clean)")
+
+
 def phase_cross_device(torch):
     """cuda vs cpu greedy streams at full width, 2 layers, f32: fp pages,
     then int8 pages under the step sanitizer, which must run clean on the
     card."""
-    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_model
     cfg = replace(get_config("qwen3-0.6b"), n_layers=2)
     model = get_model("qwen3-0.6b", cfg)
     params = T.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
-    Engine = make_engine_cls()
-    serve_kw = dict(max_batch=8, page_size=16, n_pages=128, max_pages_per_seq=16,
-                    prefill_chunk=32, n_streams=2, chunk_tokens=64)
-    # kernels each run must launch on cuda: K1 or K3 for paged attention,
-    # K2 for sequential's monolithic prefill
-    for pages, extra, paged in (("fp", ANALYSIS_OFF, "paged_attention"),
-                                ("int8", INT8_SANITIZED, "paged_attention_int8")):
-        for mode in ("sequential", "splitwiser_mps"):
-            streams, checks = {}, {}
-            for dev in ("cuda", "cpu"):
-                zero_launches()
-                reqs = requests(6, cfg.vocab_size, 16, 96, 8, 8, seed=3)
-                eng = Engine(model, params, ServeConfig(mode=mode, **serve_kw, **extra),
-                             device=dev)
-                eng.run(reqs, max_steps=2000)
-                streams[dev] = [r.out_tokens for r in reqs]
-                checks[dev] = eng.sanitizer.n_checks if eng.sanitizer else 0
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                    counts = read_launches()
-            if streams["cuda"] != streams["cpu"]:
-                first = next((i, a, b) for i, (a, b) in
-                             enumerate(zip(streams["cuda"], streams["cpu"])) if a != b)
-                fail(f"{pages} {mode}: greedy streams differ between cuda and cpu: {first}")
-            want = [paged] + (["flash_attention"] if mode == "sequential" else [])
-            if any(counts[k] == 0 for k in want):
-                fail(f"{pages} {mode}: kernels were not launched on cuda: {counts}")
-            if pages == "int8" and not checks["cuda"]:
-                fail(f"int8 {mode}: the sanitizer did not run on cuda")
-            log(f"cross-device {pages} {mode}: {len(streams['cuda'])} greedy streams equal "
-                f"(cuda vs cpu); launches {json.dumps(counts)}; sanitizer checks "
-                f"cuda={checks['cuda']} cpu={checks['cpu']} (clean)")
+    for pages, extra in (("fp", ANALYSIS_OFF), ("int8", INT8_SANITIZED)):
+        cross_device(torch, pages, model, params, dict(CROSS_SERVE, **extra),
+                     ("sequential", "splitwiser_mps"),
+                     lambda: requests(6, cfg.vocab_size, 16, 96, 8, 8, seed=3))
+
+
+def phase_family_cross_device(torch):
+    """The rest of the transformer family, f32, cuda against the CPU:
+    opt-125m at full width and depth in every mode; gemma2-2b at full
+    width and 4 layers (2 local, 2 global) in ``sequential`` and
+    ``chunked``, with one prompt of 4200 tokens, past its window of 4096;
+    olmoe-1b-7b (MoE) at full width and 2 layers in ``splitwiser_mps``;
+    internvl2-2b's prefill logits over 256 patches and 64 tokens at full
+    width and 2 layers, within 1e-4 of the CPU's."""
+    from repro_torch.configs import SERVE_MODES, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    for arch, layers, modes, serve_kw, make in (
+            ("opt-125m", None, SERVE_MODES, CROSS_SERVE,
+             lambda vocab: requests(6, vocab, 16, 96, 8, 8, seed=3)),
+            ("gemma2-2b", 4, ("sequential", "chunked"),
+             dict(CROSS_SERVE, max_batch=4, n_pages=320, max_pages_per_seq=272,
+                  max_seq_len=4352, prefill_chunk=256, chunk_tokens=512),
+             lambda vocab: requests_of_lengths((4200, 64), vocab, 8, seed=3)),
+            ("olmoe-1b-7b", 2, ("splitwiser_mps",), CROSS_SERVE,
+             lambda vocab: requests(4, vocab, 16, 96, 8, 8, seed=3))):
+        cfg = get_config(arch)
+        cfg = replace(cfg, n_layers=layers or cfg.n_layers)
+        model = get_model(arch, cfg)
+        params = model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
+        cross_device(torch, f"{arch} ({cfg.n_layers} layers) fp", model, params,
+                     dict(serve_kw, **ANALYSIS_OFF), modes,
+                     lambda: make(cfg.vocab_size))
+        del model, params
+        gc.collect()
+    cfg = replace(get_config("internvl2-2b"), n_layers=2)
+    params = get_model("internvl2-2b", cfg).init(torch.Generator().manual_seed(0),
+                                                 torch.float32, "cpu")
+    toks = torch.as_tensor(prompts(2, 64, cfg.vocab_size, seed=4))
+    patches = torch.randn(2, cfg.n_vision_patches, cfg.d_vision,
+                          generator=torch.Generator().manual_seed(5)) * 0.3
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        zero_launches()
+        logits[dev], _ = T.prefill(to_device(params, dev), cfg, toks.to(dev),
+                                   patches=patches.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_launches()
+    gap = max_err(logits["cuda"].cpu()[:, :cfg.vocab_size], logits["cpu"][:, :cfg.vocab_size])
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"internvl2-2b: K2 launched {counts['flash_attention']} times in a "
+             f"{cfg.n_layers}-layer prefill")
+    if not gap <= TOL["float32"]:
+        fail(f"internvl2-2b: prefill logits differ between cuda and cpu by {gap}")
+    log(f"cross-device internvl2-2b ({cfg.n_layers} layers): prefill of 2 x "
+        f"({cfg.n_vision_patches} patches + 64 tokens), max abs logit gap cuda vs cpu "
+        f"{gap:.3e}; launches {json.dumps(counts)}")
 
 
 def to_device(tree, device):
@@ -742,29 +906,59 @@ def prompts(n, S, vocab, seed):
 
 
 def hybrid_serve(torch, params, cfg, toks, steps, ps):
-    """Serve the hybrid at model level, as its users do: prefill the
-    prompts ``toks`` [B, S] as one batch, lay the prompts' K/V out as
-    pages of ``ps`` tokens with room for ``steps`` more, then ``steps``
-    greedy decode steps with every row active.  Fails on a non-finite
-    logit.  Returns the greedy tokens [B, steps + 1] (the first from the
-    prefill), the first decode step's logits, the prefill's wall time and
-    launch counts, and each decode step's wall time (host clock, each
-    ending in a synchronize on the card)."""
+    """Serve the hybrid at model level, as its users do (``paged_serve``
+    over ``hybrid.prefill``/``decode``, which update the conv/SSM states
+    in place)."""
     from repro_torch.models import hybrid as HY
+    states = []
+
+    def prefill(t):
+        last, kv, st = HY.prefill(params, cfg, t)
+        states[:] = st
+        return last, kv
+
+    def decode(nxt, kp, vp, bt, lens):
+        return HY.decode(params, cfg, nxt, *states, kp, vp, bt, lens)[0]
+
+    return paged_serve(torch, params, cfg, toks, steps, ps, prefill, decode, "hybrid")
+
+
+def vlm_serve(torch, params, cfg, toks, patches, steps, ps):
+    """Serve the VLM at model level: ``paged_serve`` over the
+    transformer's ``prefill`` with the patch prefix, then ``decode``."""
+    from repro_torch.models import transformer as T
+    return paged_serve(
+        torch, params, cfg, toks, steps, ps,
+        lambda t: T.prefill(params, cfg, t, patches=patches),
+        lambda nxt, kp, vp, bt, lens: T.decode(params, cfg, nxt, kp, vp, bt, lens)[0],
+        cfg.name)
+
+
+def paged_serve(torch, params, cfg, toks, steps, ps, prefill, decode, label):
+    """Prefill the prompts ``toks`` [B, S] as one batch (``prefill(toks)``
+    -> last logits, (k, v) [L, B, S_tot, KV, hd]), lay the K/V out as
+    pages of ``ps`` tokens with room for ``steps`` more, then ``steps``
+    greedy decode steps with every row active (``decode(tokens, k_pages,
+    v_pages, table, lens)`` -> logits).  Fails on a non-finite logit.
+    Returns the greedy tokens [B, steps + 1] (the first from the prefill),
+    the first decode step's logits, the prefill's wall time and launch
+    counts, and each decode step's wall time (host clock, each ending in a
+    synchronize on the card)."""
     from repro_torch.models import transformer as T
     dev = params["embed"].device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    B, S = toks.shape
+    B = toks.shape[0]
     toks = torch.as_tensor(toks, device=dev)
     sync()
     t0 = time.perf_counter()
-    last, (k, v), (conv, ssm) = HY.prefill(params, cfg, toks)
+    last, (k, v) = prefill(toks)
     nxt = last.argmax(-1)
     sync()
     ttft = time.perf_counter() - t0
     prefill_launches = read_launches()
     if not bool(torch.isfinite(last[:, :cfg.vocab_size]).all()):
-        fail("hybrid: non-finite prefill logits")
+        fail(f"{label}: non-finite prefill logits")
+    S = k.shape[2]
     per, new = S // ps, -(-steps // ps)
     kp, vp = T.init_pages(cfg, B * (per + new) + 1, ps, k.dtype, dev, n_layers=k.shape[0])
     kp[:, :B * per] = T.kv_to_pages(k, ps)
@@ -776,13 +970,12 @@ def hybrid_serve(torch, params, cfg, toks, steps, ps):
     out, gaps, first = [nxt], [], None
     for i in range(steps):
         t1 = time.perf_counter()
-        logits, _, _ = HY.decode(params, cfg, nxt, conv, ssm, kp, vp, bt,
-                                 torch.full((B,), S + i, device=dev))
+        logits = decode(nxt, kp, vp, bt, torch.full((B,), S + i, device=dev))
         nxt = logits.argmax(-1)
         sync()
         gaps.append(time.perf_counter() - t1)
         if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
-            fail(f"hybrid: non-finite logits at decode step {i}")
+            fail(f"{label}: non-finite logits at decode step {i}")
         first = logits if first is None else first
         out.append(nxt)
     return dict(tokens=torch.stack(out, 1).cpu(), first_logits=first, ttft_s=ttft,
@@ -842,23 +1035,41 @@ def agreement(a, b):
 
 MAIN_SERVE = dict(max_batch=16, page_size=16, n_pages=2048, max_pages_per_seq=72,
                   max_seq_len=1152, prefill_chunk=128, n_streams=2, chunk_tokens=256)
+# gemma2-2b's path: prompts up to 5000 tokens, 32 new each (320 pages of 16)
+GEMMA_SERVE = dict(MAIN_SERVE, max_pages_per_seq=320, max_seq_len=5120)
 
 
-def run_path(torch, model, params, serve_kw, label):
-    """Serve the 16 main-path requests in every mode with one page type.
+def main_requests(vocab, base_rid=0):
+    """The main path's traffic: 16 requests of 128-1024 prompt tokens and
+    32-64 new tokens."""
+    return requests(16, vocab, 128, 1024, 32, 64, seed=5, base_rid=base_rid)
+
+
+def gemma2_requests(vocab):
+    """gemma2-2b's traffic: 8 requests of 256-1024 prompt tokens and 2 of
+    4300-5000, past its window of 4096, 32 new tokens each."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    lengths = [int(n) for n in rng.randint(256, 1025, size=8)]
+    lengths += [int(n) for n in rng.randint(4300, 5001, size=2)]
+    return requests_of_lengths(lengths, vocab, 32, seed=7)
+
+
+def run_path(torch, model, params, serve_kw, label, modes, make_requests):
+    """Serve ``make_requests()`` in each of ``modes`` with one page type.
     Launch counters are zeroed just before and read just after; per mode
     the launches of each kernel are the counters' growth."""
-    from repro_torch.configs import SERVE_MODES, ServeConfig
+    from repro_torch.configs import ServeConfig
     Engine = make_engine_cls()
     per_mode, streams, steps = {}, {}, 0
     torch.cuda.synchronize()
     zero_launches()
-    for mode in SERVE_MODES:
+    for mode in modes:
         # the engine and its scheduler reference each other: collect the
         # last mode's engine so its page pool is not in this mode's peak
         gc.collect()
         eng = Engine(model, params, ServeConfig(mode=mode, **serve_kw), device="cuda")
-        reqs = requests(16, model.cfg.vocab_size, 128, 1024, 32, 64, seed=5)
+        reqs = make_requests()
         before = read_launches()
         torch.cuda.reset_peak_memory_stats()
         m = eng.run(reqs, max_steps=20000)
@@ -891,38 +1102,145 @@ def run_path(torch, model, params, serve_kw, label):
     return per_mode, streams, launches, steps
 
 
-def phase_main_path(torch):
-    """The fp main path, then the int8 path in a pool of the same bytes
-    (``n_pages`` fp-width pages), both at full depth in bf16."""
-    from repro_torch.configs import get_config
+def init_model(torch, arch):
+    """``arch`` at full width and depth, seeded bf16 weights on the card."""
     from repro_torch.models.registry import get_model
-    cfg = get_config("qwen3-0.6b")
-    model = get_model("qwen3-0.6b", cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        torch.bfloat16, "cuda")
+    model = get_model(arch)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, "cuda")
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"main path: qwen3-0.6b, {cfg.n_layers} layers, {n_params} params bf16")
+    log(f"path: {arch}, {model.cfg.n_layers} layers, {n_params} params bf16")
+    return model, params
+
+
+def serve_paths(torch, model, params, name, serve, pages, modes, make_requests):
+    """Serve one model in each of ``modes`` for each page type of
+    ``pages`` ("fp", "int8" in a pool of the same bytes), bf16.  The
+    paged kernel of the page type (K1, K3) must launch in every mode, K2
+    in ``sequential``'s monolithic prefill, and the paged chunk loop
+    (C > 1) in every mode that chunks prompts.  Paths are labelled
+    ``<name> <page type>`` (the page type alone without a name)."""
     paths = {}
-    for label, extra, needed in (
-            ("fp", ANALYSIS_OFF, {"paged_attention": None, "flash_attention": None}),
-            ("int8", dict(ANALYSIS_OFF, kv_dtype="int8"),
-             {"paged_attention_int8": "every mode", "flash_attention": None})):
+    for kind in pages:
+        label = kind if name is None else f"{name} {kind}"
         per_mode, streams, launches, steps = run_path(
-            torch, model, params, dict(MAIN_SERVE, **extra), label)
-        for name, every in needed.items():
-            if launches[name] == 0:
-                fail(f"kernel {name} was not launched on the {label} path")
-            if every and any(r["launches"][name] == 0 for r in per_mode.values()):
-                fail(f"kernel {name} was not launched in every mode of the {label} path")
-        # the chunk path (C > 1) runs in every mode that chunks prompts
-        chunk = ("paged_attention" if label == "fp" else "paged_attention_int8") + "_chunk"
-        for mode in ("splitwiser", "splitwiser_mps", "chunked"):
-            if per_mode[mode]["launches"][chunk] == 0:
-                fail(f"{chunk} was not launched in {label} {mode}")
-        paths[label] = dict(per_mode=per_mode, streams=streams, launches=launches,
-                            steps=steps)
-    log_agreement(paths)
+            torch, model, params, dict(serve, **ANALYSIS_OFF, kv_dtype=kind), label, modes,
+            make_requests)
+        paged = "paged_attention_int8" if kind == "int8" else "paged_attention"
+        for mode, r in per_mode.items():
+            want = ([paged] + (["flash_attention"] if mode == "sequential" else [])
+                    + ([paged + "_chunk"] if mode in CHUNKING_MODES else []))
+            missing = [k for k in want if r["launches"][k] == 0]
+            if missing:
+                fail(f"{missing} not launched in {label} {mode}: {r['launches']}")
+        paths[kind] = dict(per_mode=per_mode, streams=streams, launches=launches,
+                           steps=steps)
+    log_agreement(name or model.name, paths)
+    return {(k if name is None else f"{name} {k}"): v for k, v in paths.items()}
+
+
+def phase_main_path(torch):
+    """qwen3-0.6b: the main-path traffic in every mode, with fp pages,
+    then int8 pages in a pool of the same bytes (``n_pages`` fp-width
+    pages), at full depth in bf16."""
+    from repro_torch.configs import SERVE_MODES
+    model, params = init_model(torch, "qwen3-0.6b")
+    paths = serve_paths(torch, model, params, None, MAIN_SERVE, ("fp", "int8"), SERVE_MODES,
+                        lambda: main_requests(model.cfg.vocab_size))
     return paths, (model, params)
+
+
+def phase_family_paths(torch):
+    """The rest of the transformer family at full width and depth, bf16:
+    opt-125m on the main-path traffic in every mode, fp and int8 pages;
+    gemma2-2b (d = 256, window 4096, softcaps) in ``sequential`` and
+    ``chunked``, fp and int8, with two prompts past its window; olmoe-1b-7b
+    (64 experts, top 8) in ``splitwiser_mps`` with fp pages on 8 requests;
+    internvl2-2b at model level (``phase_vlm_path``).  Returns the paths
+    and the (model, params) of opt-125m and gemma2-2b."""
+    from repro_torch.configs import SERVE_MODES
+    paths, setups = {}, {}
+    for arch, serve, pages, modes, make in (
+            ("opt-125m", MAIN_SERVE, ("fp", "int8"), SERVE_MODES, main_requests),
+            ("gemma2-2b", GEMMA_SERVE, ("fp", "int8"), ("sequential", "chunked"),
+             gemma2_requests),
+            ("olmoe-1b-7b", MAIN_SERVE, ("fp",), ("splitwiser_mps",),
+             lambda vocab: requests(8, vocab, 128, 1024, 32, 64, seed=5))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, params = init_model(torch, arch)
+        vocab = model.cfg.vocab_size
+        paths.update(serve_paths(torch, model, params, arch, serve, pages, modes,
+                                 lambda: make(vocab)))
+        if arch != "olmoe-1b-7b":
+            setups[arch] = (model, params)
+        del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["internvl2-2b"] = phase_vlm_path(torch)
+    return paths, setups
+
+
+VLM = dict(batch=4, prompt=256, steps=8, page_size=16)
+
+
+def phase_vlm_path(torch):
+    """internvl2-2b at full width and depth in bf16, at model level (the
+    engine serves text): 4 prompts of 256 tokens after 256 patches each,
+    prefilled as one batch, then 8 greedy decode steps.  The prefill must
+    launch K2 once a layer, each decode step K1 once a layer."""
+    model, params = init_model(torch, "internvl2-2b")
+    cfg = model.cfg
+    toks = prompts(VLM["batch"], VLM["prompt"], cfg.vocab_size, seed=6)
+    patches = (torch.randn(VLM["batch"], cfg.n_vision_patches, cfg.d_vision, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(6)) * 0.3
+               ).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    r = vlm_serve(torch, params, cfg, toks, patches, VLM["steps"], VLM["page_size"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    pre, steps, L = r["prefill_launches"], VLM["steps"], cfg.n_layers
+    want = {"flash_attention": (L, 0), "paged_attention": (0, L * steps),
+            "paged_attention_decode": (0, L * steps), "paged_attention_chunk": (0, 0),
+            "paged_attention_int8": (0, 0), "ssd_scan": (0, 0)}
+    got = {k: (pre[k], launches[k] - pre[k]) for k in want}
+    if got != want:
+        fail(f"internvl2-2b path launches (prefill, decode) {got}, expected {want}")
+    B, S = VLM["batch"], cfg.n_vision_patches + VLM["prompt"]
+    tbt = sorted(r["tbt_s"])
+    log("internvl2-2b path: " + json.dumps(dict(
+        prefill_positions=B * S, prefill_tokens_per_s=B * S / r["ttft_s"], ttft_s=r["ttft_s"],
+        decode_tokens_per_s=B * steps / sum(tbt), tbt_p50_s=pct(tbt, 0.5),
+        tbt_p99_s=pct(tbt, 0.99), max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches_prefill={k: v[0] for k, v in got.items()},
+        launches_decode_per_step={k: v[1] / steps for k, v in got.items()})))
+    del params
+    return dict(launches=launches, steps=1 + steps)
+
+
+def phase_sentinel(torch, setup):
+    """The dispatch sentinel on the opt-125m engine at full width, bf16, in
+    every mode: two warm runs of the main-path traffic, ``mark_warm``, a
+    third run, then ``check(budget=0)``: a step callable that met a new
+    argument signature after warm-up raises, and the run fails."""
+    from repro_torch.configs import SERVE_MODES, ServeConfig
+    model, params = setup
+    Engine = make_engine_cls()
+    for mode in SERVE_MODES:
+        gc.collect()
+        eng = Engine(model, params, ServeConfig(mode=mode, **MAIN_SERVE, sanitize_level="off",
+                                                dispatch_sentinel=True), device="cuda")
+        for run in range(3):
+            if run == 2:
+                eng.dispatch.mark_warm()
+            eng.run(main_requests(model.cfg.vocab_size, base_rid=100 * run), max_steps=20000)
+        torch.cuda.synchronize()
+        eng.dispatch.check(budget=0)
+        log(f"sentinel opt-125m {mode}: post-warm compiles "
+            f"{json.dumps(eng.dispatch.post_warm_compiles())}; report "
+            + json.dumps(eng.dispatch.report()))
+        del eng
 
 
 HYBRID = dict(batch=8, prompt=1024, steps=32, page_size=16)
@@ -977,17 +1295,18 @@ def phase_hybrid_path(torch):
     return dict(launches=launches, steps=1 + steps), (model, params)
 
 
-def log_agreement(paths):
+def log_agreement(name, paths):
     """Greedy agreement between modes per page type, and between page
     types per mode.  In bf16 cross-mode streams need not agree (batch
     composition changes GEMM rounding; the int8 monolithic prefill rounds
     its fake-quantized K/V to bf16): reported, not checked."""
     streams = {label: path["streams"] for label, path in paths.items()}
     for label, st in streams.items():
-        log(f"{label} greedy agreement between modes, share of token positions (bf16): "
-            + json.dumps({m: {n: agreement(st[m], st[n]) for n in st} for m in st}))
-    log("int8 vs fp greedy agreement per mode (bf16): " + json.dumps(
-        {m: agreement(streams["int8"][m], streams["fp"][m]) for m in streams["int8"]}))
+        log(f"{name} {label} greedy agreement between modes, share of token positions "
+            "(bf16): " + json.dumps({m: {n: agreement(st[m], st[n]) for n in st} for m in st}))
+    if {"fp", "int8"} <= set(streams):
+        log(f"{name} int8 vs fp greedy agreement per mode (bf16): " + json.dumps(
+            {m: agreement(streams["int8"][m], streams["fp"][m]) for m in streams["int8"]}))
 
 
 # K1/K3 decode (C = 1) is the split-KV kernel and its combine; every
@@ -1003,21 +1322,21 @@ KERNEL_CLASSES = (("paged_attention_int8 decode", ("paged_attention_int8_decode"
                   ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
 
-def phase_profile(torch, setup, warm_steps=8, window=16):
-    """Where the time goes, per mode and page type: the same window of
-    engine steps (after ``warm_steps``) run twice on fresh engines with
-    the same requests — once timed on the host clock, once under
-    ``torch.profiler`` for device time by kernel class.  The device's
-    busy share is the profiled device time over the unprofiled wall."""
+def phase_profile(torch, windows, warm_steps=8, window=16):
+    """Where the time goes, per path and mode: ``windows`` lists (label,
+    (model, params), serve config, requests maker, modes).  For each, the
+    same window of engine steps (after ``warm_steps``) run twice on fresh
+    engines with the same requests — once timed on the host clock, once
+    under ``torch.profiler`` for device time by kernel class.  The
+    device's busy share is the profiled device time over the unprofiled
+    wall."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import SERVE_MODES, ServeConfig
-    model, params = setup
+    from repro_torch.configs import ServeConfig
     Engine = make_engine_cls()
 
-    def engine_at_window(mode, extra):
-        eng = Engine(model, params, ServeConfig(mode=mode, **MAIN_SERVE, **extra),
-                     device="cuda")
-        for r in requests(16, model.cfg.vocab_size, 128, 1024, 32, 64, seed=5):
+    def engine_at_window(setup, serve_kw, make_requests, mode):
+        eng = Engine(*setup, ServeConfig(mode=mode, **serve_kw), device="cuda")
+        for r in make_requests():
             eng.submit(r)
         for _ in range(warm_steps):
             eng.step()
@@ -1025,17 +1344,17 @@ def phase_profile(torch, setup, warm_steps=8, window=16):
         return eng
 
     out = {}
-    for label, extra in (("fp", ANALYSIS_OFF), ("int8", dict(ANALYSIS_OFF, kv_dtype="int8"))):
-        for mode in SERVE_MODES:
+    for label, setup, serve_kw, make_requests, modes in windows:
+        for mode in modes:
             gc.collect()
-            eng = engine_at_window(mode, extra)
+            eng = engine_at_window(setup, serve_kw, make_requests, mode)
             t0 = time.perf_counter()
             for _ in range(window):
                 eng.step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             kinds = eng.metrics.step_kinds[warm_steps:warm_steps + window]
-            eng = engine_at_window(mode, extra)
+            eng = engine_at_window(setup, serve_kw, make_requests, mode)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(window):
                     eng.step()
@@ -1187,16 +1506,31 @@ def main() -> int:
     # 4. cross-device checks
     phase_cross_device(torch)
     phase_hybrid_cross_device(torch)
+    phase_family_cross_device(torch)
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 5. the main paths
+    # 5. the main paths, then the dispatch sentinel on opt-125m's engine
     paths, setup = phase_main_path(torch)
-    log("modes " + json.dumps({k: v["per_mode"] for k, v in paths.items()}))
+    family, setups = phase_family_paths(torch)
+    paths.update(family)
+    log("modes " + json.dumps({k: v["per_mode"] for k, v in paths.items() if "per_mode" in v}))
     paths["hybrid"], hybrid_setup = phase_hybrid_path(torch)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    phase_sentinel(torch, setups["opt-125m"])
+    log(f"sentinel phase done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. where the time goes
-    phase_profile(torch, setup)
+    from repro_torch.configs import SERVE_MODES
+    vocab = {name: s[0].cfg.vocab_size for name, s in dict(setups, qwen3=setup).items()}
+    phase_profile(torch, (
+        ("fp", setup, dict(MAIN_SERVE, **ANALYSIS_OFF), lambda: main_requests(vocab["qwen3"]),
+         SERVE_MODES),
+        ("int8", setup, dict(MAIN_SERVE, **ANALYSIS_OFF, kv_dtype="int8"),
+         lambda: main_requests(vocab["qwen3"]), SERVE_MODES),
+        ("opt-125m fp", setups["opt-125m"], dict(MAIN_SERVE, **ANALYSIS_OFF),
+         lambda: main_requests(vocab["opt-125m"]), ("splitwiser_mps",)),
+        ("gemma2-2b fp", setups["gemma2-2b"], dict(GEMMA_SERVE, **ANALYSIS_OFF),
+         lambda: gemma2_requests(vocab["gemma2-2b"]), ("sequential",))))
     phase_hybrid_profile(torch, hybrid_setup)
 
     kernels = []

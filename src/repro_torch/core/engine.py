@@ -48,9 +48,11 @@ same bytes, so it holds about twice the pages: commits quantize, decode
 and mixed steps attend through the int8 kernel (K3), and the monolithic
 prefill fake-quantizes K/V so every mode attends to the same values.
 ``ServeConfig.sanitize_level`` arms the runtime sanitizer
-(``analysis/invariants.py``) at ``finish``, ``step`` or ``call``.  Not
-ported yet (refused with ``NotImplementedError``): the dispatch
-sentinel.
+(``analysis/invariants.py``) at ``finish``, ``step`` or ``call``.
+``ServeConfig.dispatch_sentinel`` wraps the step callables in the
+dispatch sentinel (``analysis/dispatch.py``).  The steps are plain
+functions, so it counts distinct argument signatures (shapes and dtypes
+of the tensors): the count the reference's jit caches would compile.
 
 Request/response surface (vLLM-shaped):
 
@@ -99,6 +101,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.dispatch import DispatchSentinel
 from repro_torch.analysis.invariants import KVSanitizer
 from repro_torch.configs.base import ServeConfig
 from repro_torch.core.kv_cache import (KVQuantSidecar, PageAllocator,
@@ -184,17 +187,14 @@ class _Clock:
 
 
 class Engine:
-    """Paged-KV serving engine for the dense transformer family."""
+    """Paged-KV serving engine for the transformer family (dense, MoE,
+    VLM; the VLM serves text, as the reference's engine does)."""
 
     def __init__(self, model, params, serve: ServeConfig, *,
                  time_fn=time.perf_counter, device=None):
         if model.cache_kind != "paged":
             raise TypeError(
                 f"Engine supports paged-cache archs; got {model.cache_kind}")
-        if serve.dispatch_sentinel:
-            raise NotImplementedError(
-                "dispatch_sentinel=True is not ported yet; it comes with the "
-                "port's own dispatch sentinel (ROADMAP.md queue 1 item 8)")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -266,7 +266,27 @@ class Engine:
         # None at the default "off" level so hot paths pay one None test
         self.sanitizer = (KVSanitizer(self)
                           if serve.sanitize_level != "off" else None)
-        self.dispatch = None    # the dispatch sentinel is refused above
+        # dispatch sentinel (analysis/dispatch.py): counts argument
+        # signatures per step callable and raises on signature storms /
+        # post-warmup budget
+        self.dispatch = (DispatchSentinel()
+                         if serve.dispatch_sentinel else None)
+        # prefill/commit batches legitimately vary with workload shape, so
+        # the sentinel only counts them; decode/mixed/samplers are the
+        # steady-state step loop where any new signature is a bug.
+        self._prefill = self._sentineled("prefill", self._prefill,
+                                         storm_guard=False)
+        self._commit = self._sentineled("commit", self._commit,
+                                        storm_guard=False)
+        self._decode = self._sentineled("decode", self._decode)
+        self._mixed = self._sentineled("mixed", self._mixed)
+        self._greedy = self._sentineled("sample_greedy", greedy_tokens)
+        self._sample = self._sentineled("sample", sample_tokens)
+
+    def _sentineled(self, name, fn, storm_guard: bool = True):
+        if self.dispatch is None:
+            return fn
+        return self.dispatch.wrap(name, fn, storm_guard=storm_guard)
 
     @property
     def waiting(self) -> "deque[Request]":
@@ -1155,7 +1175,7 @@ class Engine:
         being sampled — so results don't depend on batch composition,
         engine mode, or preemption history."""
         if all(r is None or r.sampling.temperature <= 0.0 for r in reqs):
-            return greedy_tokens(logits).cpu().numpy()  # all-greedy fast path
+            return self._greedy(logits).cpu().numpy()  # all-greedy fast path
         B = logits.shape[0]
         temp = np.zeros((B,), np.float32)
         top_k = np.zeros((B,), np.int32)
@@ -1173,7 +1193,7 @@ class Engine:
             seed[i] = sp.seed
             rid[i] = r.rid
             pos[i] = len(r.out_tokens)
-        return sample_tokens(
+        return self._sample(
             logits, *(torch.from_numpy(a) for a in (temp, top_k, top_p, seed,
                                                     rid, pos))).cpu().numpy()
 

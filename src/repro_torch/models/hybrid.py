@@ -110,8 +110,8 @@ def _shared_qkv(cfg, shared, lora_i, h2):
 
 def _attn_out(cfg, shared, x, o):
     """Residual output projection and MLP of the shared block."""
-    x = x + T._o_proj(cfg, shared, o, T._head_mask(cfg, x.device, x.dtype))
-    return T._ffn_residual(cfg, shared, x)
+    return T._residuals(cfg, shared, x, T._o_proj(
+        cfg, shared, o, T._head_mask(cfg, x.device, x.dtype)))
 
 
 def _shared_block_seq(cfg, shared, lora_i, x, x0, positions, *,

@@ -1,11 +1,11 @@
 """Model registry: maps an architecture to its module.
 
-The port serves the dense transformer family with paged KV
-(``cache_kind="paged"``) and the zamba2 hybrid (``"paged+state"``: paged
-KV for the shared attention plus conv/SSM states; served at model level
-through ``hybrid.prefill``/``decode``, as the reference's engine refuses
-it too).  The other families of the reference registry come with later
-slices.
+The port serves the transformer family, dense, MoE and VLM, with paged
+KV (``cache_kind="paged"``), and the zamba2 hybrid (``"paged+state"``:
+paged KV for the shared attention plus conv/SSM states; served at model
+level through ``hybrid.prefill``/``decode``, as the reference's engine
+refuses it too).  The reference registry's encdec and ssm (rwkv6)
+families come with later slices.
 """
 from dataclasses import dataclass
 from typing import Any
@@ -15,8 +15,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import hybrid, transformer
 
-FAMILY_MODULE = {"dense": transformer, "hybrid": hybrid}
-CACHE_KIND = {"dense": "paged", "hybrid": "paged+state"}
+FAMILY_MODULE = {"dense": transformer, "moe": transformer, "vlm": transformer,
+                 "hybrid": hybrid}
+CACHE_KIND = {"dense": "paged", "moe": "paged", "vlm": "paged",
+              "hybrid": "paged+state"}
 
 
 @dataclass(frozen=True)

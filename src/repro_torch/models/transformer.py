@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense family, in PyTorch.
+"""Decoder-only transformer (dense / MoE / VLM families) in PyTorch.
 
 The serving steps of the reference ``models/transformer.py``:
   - prefill / forward_hidden   (batched prompt -> KV + last logits)
@@ -19,9 +19,14 @@ the card, their plain versions for CPU tensors.  Page pools are fp
 tensors or, for int8 KV pages, dicts ``{"q": int8 codes, "s": f32
 scales}`` (``kernels/kv_int8.py``): ``decode``/``mixed`` quantize the
 step's new K/V into them and attend with the int8 kernel (K3).
-Training, MoE, VLM and the gemma2 features (post-attention norms,
-embedding scale, final-logit softcap) are later slices;
-:func:`check_config` refuses them.
+
+The family's features follow the reference: gemma2's post-attention
+norms (``ln1b``/``ln2b``), ``sqrt(d_model)`` embedding scale, final-logit
+and attention softcaps and local/global windows; the MoE FFN
+(``models/moe.py``, olmoe and grok-1); the VLM's projected patch prefix
+(``vision_prefix``, internvl2), which ``prefill`` takes as ``patches``.
+Training is a later slice.  ``models/registry.py`` decides which
+families this module serves.
 """
 from __future__ import annotations
 
@@ -33,30 +38,16 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.kv_int8 import q8_kv
-from repro_torch.models.layers import (NEG_INF, NO_WINDOW, dense_init,
-                                       head_rms_norm, mlp_apply, mlp_init,
-                                       rms_norm, rope)
+from repro_torch.models.layers import (NEG_INF, NO_WINDOW, act_fn,
+                                       dense_init, head_rms_norm, mlp_apply,
+                                       mlp_init, rms_norm, rope, softcap)
+from repro_torch.models.moe import moe_apply, moe_init
 
 VOCAB_PAD = 256
 
 
 def pad_vocab(v: int) -> int:
     return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
-
-
-def check_config(cfg):
-    """Raise for configurations outside the dense serving slice."""
-    unsupported = [name for name, on in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
-        ("post_attn_norm", cfg.post_attn_norm),
-        ("emb_scale_by_sqrt_dim", cfg.emb_scale_by_sqrt_dim),
-        ("final_logit_softcap", cfg.final_logit_softcap),
-        (f"mlp_act {cfg.mlp_act!r}", cfg.mlp_act not in ("silu", "gelu")),
-    ) if on]
-    if unsupported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not ported yet (the port "
-            "serves dense gated-MLP transformers; ROADMAP.md queue 1 item 9)")
 
 
 # ------------------------------------------------------------ GQA layout ---
@@ -110,7 +101,6 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
     (``transformer.py::init_params``), drawn from ``generator`` (the
     numbers differ from JAX's; tests hand both packages the same weights
     through ``models.convert.params_from_jax``)."""
-    check_config(cfg)
     device = resolve_device(device)
     D, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
     H_p, KV_p, q_map, _, _ = gqa_layout(cfg.n_heads, cfg.n_kv_heads)
@@ -132,16 +122,26 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
         "wk": dense((L, D, cfg.n_kv_heads, hd), D),
         "wv": dense((L, D, cfg.n_kv_heads, hd), D),
         "wo": dense((L, H_p, hd, D), H_p * hd, out_scale),
-        "mlp": mlp_init(generator, D, cfg.d_ff, cfg.mlp_act, dtype, device,
-                        out_scale, stack=(L,)),
     }
     if cfg.use_qk_norm:
         blocks["q_norm"] = zeros(L, hd)
         blocks["k_norm"] = zeros(L, hd)
+    if cfg.post_attn_norm:
+        blocks["ln1b"] = zeros(L, D)
+        blocks["ln2b"] = zeros(L, D)
+    if cfg.is_moe:
+        blocks["moe"] = moe_init(generator, cfg, dtype, device, stack=(L,))
+    else:
+        blocks["mlp"] = mlp_init(generator, D, cfg.d_ff, cfg.mlp_act, dtype,
+                                 device, out_scale, stack=(L,))
     params = {"embed": dense((Vp, D), 1, 0.02), "ln_f": zeros(D),
               "blocks": blocks}
     if not cfg.tie_embeddings:
         params["head"] = dense((Vp, D), 1, 0.02)
+    if cfg.family == "vlm":
+        params["proj"] = {"ln": zeros(cfg.d_vision),
+                          "w1": dense((cfg.d_vision, D), cfg.d_vision),
+                          "w2": dense((D, D), D)}
     return params
 
 
@@ -153,11 +153,23 @@ def layer_params(blocks, l: int):
 
 # ------------------------------------------------------------- embedding ---
 def embed(params, cfg, tokens):
-    return params["embed"][tokens]
+    x = params["embed"][tokens]
+    if cfg.emb_scale_by_sqrt_dim:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def vision_prefix(params, cfg, patches):
+    """[B, Np, d_vision] precomputed patch embeds -> [B, Np, D] prefix."""
+    p = params["proj"]
+    h = rms_norm(patches, p["ln"], cfg.norm_eps)
+    h = act_fn("gelu")(h @ p["w1"])
+    return h @ p["w2"]
 
 
 def unembed(params, cfg, x):
-    """x [..., D] -> f32 logits [..., Vp], padded vocab columns NEG_INF.
+    """x [..., D] -> f32 logits [..., Vp]: the final softcap, if any, then
+    the padded vocab columns set to NEG_INF.
 
     The reference asks XLA for f32 output from the product
     (``preferred_element_type``).  Here f32 weights multiply in f32; on
@@ -172,6 +184,8 @@ def unembed(params, cfg, x):
         logits = torch.mm(x2, table.t(), out_dtype=torch.float32)
     else:
         logits = x2.float() @ table.float().t()
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
     Vp = table.shape[0]
     if Vp != cfg.vocab_size:
         logits[:, cfg.vocab_size:] = NEG_INF
@@ -209,9 +223,29 @@ def _o_proj(cfg, lp, o, head_mask):
     return o.flatten(-2) @ lp["wo"].reshape(-1, cfg.d_model)
 
 
-def _ffn_residual(cfg, lp, x):
-    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                         cfg.mlp_act)
+def _ffn(cfg, lp, x2d):
+    """x2d [T, D] -> y2d [T, D]: the MLP, or the MoE over all T tokens at
+    once (expert capacity depends on T, as in the reference).  The MoE's
+    aux loss belongs to training and is dropped."""
+    if cfg.is_moe:
+        act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
+        return moe_apply(lp["moe"], x2d, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k, act=act,
+                         capacity_factor=cfg.moe_capacity_factor)[0]
+    return mlp_apply(lp["mlp"], x2d, cfg.mlp_act)
+
+
+def _residuals(cfg, lp, x, attn_out):
+    """The rest of a block after attention: x [..., D] plus the (post-
+    normed) attention output, then plus the (post-normed) FFN."""
+    if cfg.post_attn_norm:
+        attn_out = rms_norm(attn_out, lp["ln1b"], cfg.norm_eps)
+    x = x + attn_out
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y = _ffn(cfg, lp, h2.reshape(-1, h2.shape[-1])).reshape(h2.shape)
+    if cfg.post_attn_norm:
+        y = rms_norm(y, lp["ln2b"], cfg.norm_eps)
+    return x + y
 
 
 # ------------------------------------------------------- full-seq forward --
@@ -244,7 +278,7 @@ def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
         o = ops.flash_attention(q, ka, va, kv_lens, scale=_attn_scale(cfg),
                                 causal=True, window=int(windows[l]),
                                 softcap=cfg.attn_logit_softcap)
-        x = _ffn_residual(cfg, lp, x + _o_proj(cfg, lp, o, head_mask))
+        x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o, head_mask))
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -252,12 +286,15 @@ def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kv
 
 
-def prefill(params, cfg, tokens, *, kv_fake_quant=None):
-    """Full-prompt prefill. tokens [B, S].
+def prefill(params, cfg, tokens, *, patches=None, kv_fake_quant=None):
+    """Full-prompt prefill. tokens [B, S]; for the VLM family, optional
+    ``patches`` [B, Np, d_vision] become a prefix of Np positions.
 
-    Returns (last_logits [B, Vp], (k, v) each [L, B, S, KV_p, hd]).
+    Returns (last_logits [B, Vp], (k, v) each [L, B, S_tot, KV_p, hd]).
     """
     x = embed(params, cfg, tokens)
+    if cfg.family == "vlm" and patches is not None:
+        x = torch.cat([vision_prefix(params, cfg, patches), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     hidden, kv = forward_hidden(params, cfg, x, positions, collect_kv=True,
@@ -385,7 +422,7 @@ def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
         o = attn_fn(q, kpg, vpg, bt, kv_lens, pos,
                     scale=_attn_scale(cfg), window=int(windows[l]),
                     softcap=cfg.attn_logit_softcap)
-        x = _ffn_residual(cfg, lp, x + _o_proj(cfg, lp, o[:, 0], head_mask))
+        x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o[:, 0], head_mask))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params, cfg, x), (k_pages, v_pages)
 
@@ -404,7 +441,7 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
       d_lens   [B]         current kv lens (before this step)
       d_active [B] bool
 
-    Every GEMM (QKV/O/FFN/unembed) runs on the union of prefill and
+    Every GEMM (QKV/O/FFN/MoE/unembed) runs on the union of prefill and
     decode tokens; attention splits by phase.  ``attn_fn`` is an optional
     ``{"decode": fn, "chunk": fn}`` of paged attentions with
     ``ops.paged_attention``'s signature (default: K1 for fp pools, K3 for
@@ -459,7 +496,7 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
         o_d = decode_attn(qd, kpg, vpg, d_table, d_kv_lens, d_lens, **kw)
 
         o = torch.cat([o_p.reshape(P * C, H_p, -1), o_d[:, 0]], dim=0)
-        x = _ffn_residual(cfg, lp, x + _o_proj(cfg, lp, o, head_mask))  # shared GEMMs
+        x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o, head_mask))  # shared GEMMs
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     last = torch.clamp(p_lens.long() - 1, 0, C - 1)

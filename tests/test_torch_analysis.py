@@ -163,10 +163,9 @@ def test_unknown_sanitize_level_is_rejected():
 
 
 def test_analysis_exports_match_reference():
-    """The port's analysis package exports the reference's names, minus
-    the dispatch sentinel, which is not ported."""
+    """The port's analysis package exports the reference's names."""
     import repro.analysis as ref
     import repro_torch.analysis as port
-    assert set(port.__all__) == set(ref.__all__) - {"DispatchSentinel"}
+    assert set(port.__all__) == set(ref.__all__)
     assert port.SANITIZE_LEVELS == ref.SANITIZE_LEVELS
     assert sorted(port.CHECKS) == sorted(ref.CHECKS)

@@ -1,6 +1,6 @@
 """Entry points run on the GPU unless the caller asks for the CPU: with no
 card they raise, naming device="cpu", and never drop to the CPU quietly.
-Settings the port does not serve yet are refused, not ignored."""
+Settings the port once refused now build on the CPU."""
 import pytest
 import torch
 
@@ -36,15 +36,13 @@ def test_engine_on_cpu_when_asked(model_and_params):
 @pytest.mark.parametrize("knob", [dict(kv_dtype="int8"), dict(sanitize_level="step"),
                                   dict(dispatch_sentinel=True)])
 def test_unported_settings_are_refused(model_and_params, knob):
-    """int8 KV pages and the sanitizer are ported and build on the CPU;
-    the dispatch sentinel is still refused."""
+    """int8 KV pages, the sanitizer and the dispatch sentinel are ported
+    and build on the CPU."""
     serve = ServeConfig(**dict(SERVE, **knob))
-    if serve.dispatch_sentinel:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Engine(*model_and_params, serve, device="cpu")
-        return
     eng = Engine(*model_and_params, serve, device="cpu")
-    if serve.kv_dtype == "int8":
+    if serve.dispatch_sentinel:
+        assert eng.dispatch is not None and "decode" in eng.dispatch.report()
+    elif serve.kv_dtype == "int8":
         assert eng.kv_quant is not None
         assert eng.k_pages["q"].dtype == torch.int8 and eng.k_pages["q"].device.type == "cpu"
     else:

@@ -2,13 +2,14 @@
 
 Same model, weights, requests and ServeConfig on both sides: greedy
 token streams, step kinds and scheduler event traces (without their
-wall-clock ``t``) must be equal, in every mode, with the prefix cache on
-and under preemption.
+wall-clock ``t``) must be equal, in every mode (on qwen3-0.6b, opt-125m
+and gemma2-2b, whose reduced window of 8 keys the prompts outgrow), with
+the prefix cache on and under preemption.
 """
 import numpy as np
 import pytest
 
-from torch_parity import both_models, reduced_cfg
+from torch_parity import reduced_models
 
 from repro.configs import ServeConfig as JServeConfig
 from repro.core.engine import Engine as JEngine
@@ -20,6 +21,7 @@ from repro_torch.core.engine import Request as PRequest
 from repro_torch.core.sampler import SamplingParams as PSampling
 
 MODES = ["sequential", "splitwiser", "splitwiser_mps", "chunked"]
+ARCHS = ["qwen3-0.6b", "opt-125m", "gemma2-2b"]
 # the workload of tests/test_system.py
 SYSTEM = dict(max_batch=4, page_size=4, n_pages=128, max_pages_per_seq=16,
               prefill_chunk=4, n_streams=2, chunk_tokens=8)
@@ -27,7 +29,7 @@ SYSTEM = dict(max_batch=4, page_size=4, n_pages=128, max_pages_per_seq=16,
 
 @pytest.fixture(scope="module")
 def models():
-    return both_models(reduced_cfg())
+    return reduced_models()
 
 
 def _system_prompts(vocab):
@@ -77,7 +79,9 @@ def _assert_same(ref, port):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_engine_matches_reference(models, mode):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_matches_reference(arch, mode):
+    models = reduced_models(arch)
     ref, port = _both(models, _system_prompts(models[0].cfg.vocab_size), 6,
                       mode=mode, **SYSTEM)
     _assert_same(ref, port)

@@ -20,6 +20,7 @@ from test_torch_engine import (MODES, SYSTEM, _pressure_prompts, _shared_prefix_
                                _system_prompts)
 from test_torch_layers import PAGED_CASES
 from torch_parity import both_models, reduced_cfg
+from torch_parity import reduced_models as shared_reduced_models
 
 from repro.configs import ServeConfig as JServeConfig
 from repro.configs import get_config as jax_get_config
@@ -176,7 +177,7 @@ def reduced_models():
     equal inputs (test_q8_kv_bit_equal_to_reference), so the tests that
     quantize freshly computed K/V at every position (fake-quant prefill,
     the mixed step's chunk) compare on the reduced model."""
-    return both_models(reduced_cfg())
+    return shared_reduced_models()
 
 
 def _int8_pools(cfg, n_pages, ps, seed):
@@ -290,8 +291,10 @@ def _assert_same(ref, port):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_int8_engine_matches_reference(reduced_models, mode):
-    ref, port = _both(reduced_models, _system_prompts(reduced_models[0].cfg.vocab_size), 6,
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "opt-125m"])
+def test_int8_engine_matches_reference(arch, mode):
+    models = shared_reduced_models(arch)
+    ref, port = _both(models, _system_prompts(models[0].cfg.vocab_size), 6,
                       mode=mode, **SYSTEM)
     _assert_same(ref, port)
     assert port["summary"]["n_done"] == 6

@@ -37,7 +37,9 @@ PAGED_CASES = [(3, 1, 4, 2, 64, 8, 16, 4), (2, 1, 8, 8, 128, 16, 32, 3),
 # spans 17 pages) with padded chunk rows (kv_len < q_pos + C, as the
 # engine pads a short chunk), ps = 8, G = 3 (150 rows, not a multiple of
 # 64), d = 112 and d = 16 (padded head dims), a sequence with kv_len 0,
-# and qwen3's head geometry at chunk_tokens = 256.
+# qwen3's head geometry at chunk_tokens = 256, and gemma2's (8 q / 4 kv
+# heads of d = 256: the <256> instantiations) over histories longer than
+# CHUNK_KWARGS' window.
 PAGED_CHUNK_CASES = [(128, 4, 2, 64, 16, (300, 45), (428, 173)),
                      (40, 4, 2, 64, 4, (70, 3), (110, 40)),
                      (64, 4, 2, 32, 8, (100, 13), (164, 77)),
@@ -45,7 +47,9 @@ PAGED_CHUNK_CASES = [(128, 4, 2, 64, 16, (300, 45), (428, 173)),
                      (72, 4, 2, 112, 16, (90, 5), (162, 77)),
                      (33, 4, 2, 16, 8, (21, 64), (54, 90)),
                      (20, 4, 2, 64, 8, (0, 44, 9), (0, 64, 25)),
-                     (256, 16, 8, 128, 16, (500,), (756,))]
+                     (256, 16, 8, 128, 16, (500,), (756,)),
+                     (64, 8, 4, 256, 16, (300, 45), (364, 109)),
+                     (100, 8, 4, 256, 8, (0, 130), (37, 230))]
 CHUNK_KWARGS = [dict(), dict(window=70, softcap=25.0)]
 # The same layout at C = 1 (q_pos = kv_len - 1, 0 for an empty row) — the
 # edges of the split-KV decode kernel, whose splits are whole pages of at
@@ -54,8 +58,9 @@ CHUNK_KWARGS = [dict(), dict(window=70, softcap=25.0)]
 # beyond one pass), d = 16 and 112 (lane groups of 2 and 14 of 16 lanes in
 # bf16, 1 and 7 of 8 for int8 codes), ps = 4, 8 and 16, 40 sequences x 16
 # kv heads (one split on 132 SMs) and one sequence of 4000 keys (32
-# splits).  DECODE_KWARGS' window of 200 keys crosses a split boundary on
-# every row longer than it and empties the splits before it.
+# splits), then gemma2's head geometry (d = 256) over 5000 and 1201 keys.
+# DECODE_KWARGS' window of 200 keys crosses a split boundary on every row
+# longer than it and empties the splits before it.
 PAGED_DECODE_CASES = [(1, 8, 4, 64, 16, (1036, 299), (1037, 300)),
                       (1, 4, 4, 64, 8, (0, 0, 44), (0, 1, 45)),
                       (1, 6, 2, 64, 8, (199, 76), (200, 77)),
@@ -63,7 +68,8 @@ PAGED_DECODE_CASES = [(1, 8, 4, 64, 16, (1036, 299), (1037, 300)),
                       (1, 4, 2, 16, 4, (299, 8), (300, 9)),
                       (1, 4, 4, 112, 16, (1039, 599), (1040, 600)),
                       (1, 32, 16, 64, 8, tuple(range(0, 200, 5)), tuple(range(1, 201, 5))),
-                      (1, 16, 8, 128, 16, (3999,), (4000,))]
+                      (1, 16, 8, 128, 16, (3999,), (4000,)),
+                      (1, 8, 4, 256, 16, (4999, 1200, 0), (5000, 1201, 1))]
 DECODE_KWARGS = [dict(), dict(window=200, softcap=25.0)]
 # B, T, Tk, H, KV, d, first row's kv_len (None: Tk; the others Tk - 5),
 # q/k scale factor.  After the first four, the edges of the bf16 kernel's
@@ -72,13 +78,16 @@ DECODE_KWARGS = [dict(), dict(window=200, softcap=25.0)]
 # dims), G = 3 (folded rows that do not divide 64), Tk > T, a row with
 # kv_len = 0, and q/k at 4x scale (scores 16x larger, so the running max
 # jumps between key tiles).  v keeps its scale: at |o| >= 4 one bf16 step
-# (0.031) would exceed the tolerance whatever the kernel computes.
+# (0.031) would exceed the tolerance whatever the kernel computes.  Last,
+# gemma2's head geometry (8 q / 4 kv heads of d = 256: the <256>
+# instantiations), with a ragged T, and with an empty row.
 FLASH_CASES = [(2, 32, 32, 4, 2, 64, None, 1), (1, 64, 64, 8, 8, 128, None, 1),
                (2, 16, 16, 6, 2, 32, None, 1), (2, 37, 37, 16, 8, 128, None, 1),
                (2, 100, 100, 4, 2, 64, None, 1), (1, 1024, 1024, 4, 2, 128, None, 1),
                (2, 70, 70, 4, 4, 112, None, 1), (2, 50, 50, 4, 2, 16, None, 1),
                (2, 45, 45, 12, 4, 64, None, 1), (2, 40, 96, 4, 2, 64, None, 1),
-               (3, 80, 80, 4, 2, 64, 0, 1), (2, 300, 300, 8, 2, 112, None, 4)]
+               (3, 80, 80, 4, 2, 64, 0, 1), (2, 300, 300, 8, 2, 112, None, 4),
+               (1, 200, 200, 8, 4, 256, None, 1), (2, 70, 70, 8, 4, 256, 0, 1)]
 # B, H, T, P, N, chunk, decay — tests/test_ssd_kernel.py's cases, then
 # zamba2's head geometry with a ragged last chunk, then sizes that are not
 # multiples of the kernel's 16-wide tiles (chunk above 32: both scan

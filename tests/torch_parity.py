@@ -7,6 +7,7 @@ Every helper takes the architecture (default: qwen3-0.6b, the arch of
 the engine tests).
 """
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -40,3 +41,9 @@ def both_models(cfg, seed=0, arch=ARCH):
     pm = port_model(cfg, arch)
     pp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, pm, pp
+
+
+@functools.lru_cache(maxsize=None)
+def reduced_models(arch=ARCH):
+    """``both_models`` on ``arch``'s reduced config, built once a process."""
+    return both_models(reduced_cfg(arch), arch=arch)
