@@ -23,10 +23,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and at chunks of C = 128 and 256 (bf16 chunks run their tensor-core
      tile loop); plus K1/K3 on empty rows and stale page tables at C = 4
      and at decode (K3 also on all-zero pages; at decode the stale slots
-     clamp onto a NaN page), K1/K2 at the hybrid's head geometry, and the
-     scan with a ragged T and a nonzero h0 (its y and h_final errors
-     logged apart: y held to the dtype's tolerance, h_final to 1e-4 in
-     both dtypes).  First it logs the ``ptxas -v`` registers and spills
+     clamp onto a NaN page), K1/K2 at the hybrid's head geometry and at
+     seamless-m4t-medium's (K2 non-causal over a ragged encoder, cross-
+     attention of 64 and of 1 query row against 1024 frames, K1 decode at
+     G = 1, d = 64), and the scan with a ragged T and a nonzero h0 (its y
+     and h_final errors logged apart: y held to the dtype's tolerance,
+     h_final to 1e-4 in both dtypes).  First it logs the ``ptxas -v`` registers and spills
      and the dynamic shared memory of each instantiation of the bf16
      tensor-core kernels (K2's and the chunk loops of K1 and K3), and
      fails if a head-dim 64 or 128 one spills; then the same for every
@@ -40,23 +42,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
      with int8 pages under the runtime sanitizer (``sanitize_level="step"``);
      the zamba2 hybrid at full width and 7 layer-units (2 prompts of 64
      tokens, 8 decode steps), whose first decode logits on ``cuda`` must
-     match the full-sequence forward;
+     match the full-sequence forward; the rest of the transformer family;
+     rwkv6-7b at full width and 2 layers and seamless-m4t-medium at full
+     width and 2 + 2 layers (2 prompts of 64 tokens, seamless after 12
+     frames, 8 decode steps), with their logit and state gaps;
   5. the main paths, in bf16 at full depth: qwen3-0.6b, 16 requests of
      128-1024 prompt tokens through all four serving modes, first with fp
      KV pages, then with int8 KV pages in a pool of the same bytes; then
      zamba2-7b (81 layer-units), 8 prompts of 1024 tokens prefilled as one
-     batch and 32 greedy decode steps.  Kernel launch counters are zeroed
-     just before each path and read just after; every request must finish
-     by length (every logit finite), and every kernel of the path must
-     have launched (the int8 kernel in every mode; the scan once per Mamba2
-     block of the prefill), and K1/K3's chunk loop (C > 1) in every mode
-     that chunks prompts (``splitwiser``, ``splitwiser_mps``, ``chunked``);
-     K1 and K3 count decode and chunk launches apart;
+     batch and 32 greedy decode steps; rwkv6-7b, the same prompts, 32
+     decode steps and 8 ``mixed`` steps (128-token chunks of 4 new prompts
+     beside the 8 decode rows), launching no hand-written kernel;
+     seamless-m4t-medium, 16 utterances of 1024 frames with 64-token
+     prompts and 32 decode steps over fp pages (K2 in the encoder, the
+     decoder prefill and every cross-attention, K1 in decode); and the
+     launcher, ``python -m repro_torch.launch.serve`` on opt-125m in a
+     subprocess, which must finish its 16 requests.  Kernel launch
+     counters are zeroed just before each path and read just after; every
+     request must finish by length (every logit finite), and every kernel
+     of the path must have launched (the int8 kernel in every mode; the
+     scan once per Mamba2 block of the prefill), and K1/K3's chunk loop
+     (C > 1) in every mode that chunks prompts (``splitwiser``,
+     ``splitwiser_mps``, ``chunked``); K1 and K3 count decode and chunk
+     launches apart;
   6. where the time goes: per mode and page type, one window of engine
-     steps, and for the hybrid its prefill and 8 decode steps, timed on the
-     host clock and, run again from fresh state, under ``torch.profiler``:
-     device time by kernel class (K1/K3 split into decode, with its
-     combine, and chunk) and the device's busy share.
+     steps, for the hybrid its prefill and 8 decode steps, and for rwkv6
+     and seamless 8 decode steps, timed on the host clock and, run again
+     from the same state, under ``torch.profiler``: device time by kernel
+     class (K1/K3 split into decode, with its combine, and chunk) and the
+     device's busy share.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 line, the card's ``nvidia-smi`` name and power limit, and
@@ -205,13 +219,18 @@ def paged_work(q, kp, table, kv_lens, q_pos, kv_bytes=None, window=None):
     return nbytes, flops
 
 
-def flash_work(q, k, kv_lens, window=None):
+def flash_work(q, k, kv_lens, window=None, causal=True):
+    """(bytes, flops) of a flash-attention call: q read and out written
+    once, each K/V row below kv_len read once; 4 flops per (query row,
+    visible key, dim) — causal rows see the keys up to their own index
+    (and inside the window), non-causal ones all keys below kv_len."""
     B, T, H, d = q.shape
-    Tk = k.shape[1]
+    Tk, KV = k.shape[1], k.shape[2]
     isz = q.element_size()
-    keys = sum(visible_keys(min(int(kv_lens[b]), Tk), t, window)
-               for b in range(B) for t in range(T))
-    nbytes = (2 * q.numel() + 2 * k.numel()) * isz + B * 4
+    lens = [min(int(n), Tk) for n in kv_lens]
+    keys = (sum(visible_keys(L, t, window) for L in lens for t in range(T)) if causal
+            else T * sum(lens))
+    nbytes = (2 * q.numel() + 2 * sum(lens) * KV * d) * isz + B * 4
     return nbytes, 4.0 * d * H * keys
 
 
@@ -606,6 +625,54 @@ def gemma2_cases(torch, dtype, dname, iters):
     return cases
 
 
+def seamless_cases(torch, dtype, dname, iters):
+    """K2 and K1 at seamless-m4t-medium's attention (16 q / 16 kv heads of
+    d = 64, G = 1, scale 1/8) in the shapes its phase-5 path gives them:
+    K2 over the encoder (B = 8 utterances of 1024 frames, non-causal,
+    valid frames ragged from 512 to 1024), cross-attention in prefill (B =
+    8 prompts of 64 tokens against 1024 frames) and in decode (B = 16, one
+    query row against 1024 frames), all non-causal; K1 decode for 16 rows
+    of 65-96 keys (64-token prompts and up to 32 new tokens) through the
+    path's 6-page table.  K2's library yardstick is SDPA with the kv_lens
+    mask."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as K2
+    from repro_torch.kernels import paged_attention as K1
+    F = torch.nn.functional
+    cfg = get_config("seamless-m4t-medium")
+    H, d = cfg.n_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(d)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    cases = []
+    for label, B, T, Tk, ragged in (
+            ("seamless encoder B=8 T=1024 non-causal, ragged kv_lens", 8, 1024, 1024, True),
+            ("seamless cross prefill B=8 T=64 Tk=1024", 8, 64, 1024, False),
+            ("seamless cross decode B=16 T=1 Tk=1024", 16, 1, 1024, False)):
+        q = torch.randn(B, T, H, d, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, Tk, H, d, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, Tk, H, d, generator=g, device="cuda").to(dtype)
+        lens = (torch.linspace(Tk // 2, Tk, B, device="cuda").round().to(torch.int32) if ragged
+                else torch.full((B,), Tk, dtype=torch.int32, device="cuda"))
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        mask = (torch.arange(Tk, device="cuda")[None, :] < lens[:, None])[:, None, None]
+        cases.append(measure(
+            torch, "flash_attention", label, dname,
+            lambda: K2.flash_attention(q, k, v, lens, scale=scale, causal=False),
+            lambda: K2.flash_attention_plain(q, k, v, lens, scale=scale, causal=False),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale),
+            flash_work(q, k, lens, causal=False), iters))
+        del q, k, v, qt, kt, vt
+    args = paged_case(torch, 16, 1, H, 1, d, 16, 96, dtype, seed=11, min_kv=65)
+    cases.append(measure(
+        torch, "paged_attention", "seamless decode B=16 C=1 d=64 G=1, kv 65-96", dname,
+        lambda: K1.paged_attention(*args, scale=scale),
+        lambda: K1.paged_attention_plain(*args, scale=scale),
+        sdpa_paged(torch, *args, scale),
+        paged_work(args[0], args[1], args[3], args[4], args[5]), iters,
+        decode_split_info(torch, args[0], args[1], args[3])))
+    return cases
+
+
 def phase_kernels(torch, iters):
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_attention as K1
@@ -699,6 +766,7 @@ def phase_kernels(torch, iters):
             flash_work(q, k, lens), iters))
         del q, k, v, qt, kt, vt
         cases += gemma2_cases(torch, dtype, dname, iters)
+        cases += seamless_cases(torch, dtype, dname, iters)
     edge = stale_checks(torch)
     for c in cases + edge:
         log("kernel " + json.dumps(c))
@@ -941,9 +1009,10 @@ def paged_serve(torch, params, cfg, toks, steps, ps, prefill, decode, label):
     greedy decode steps with every row active (``decode(tokens, k_pages,
     v_pages, table, lens)`` -> logits).  Fails on a non-finite logit.
     Returns the greedy tokens [B, steps + 1] (the first from the prefill),
-    the first decode step's logits, the prefill's wall time and launch
-    counts, and each decode step's wall time (host clock, each ending in a
-    synchronize on the card)."""
+    the prefill's and the first decode step's logits, the prefill's wall
+    time and launch counts, each decode step's wall time (host clock, each
+    ending in a synchronize on the card), the pools and table
+    (``pages``) and the prompt length."""
     from repro_torch.models import transformer as T
     dev = params["embed"].device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -978,8 +1047,9 @@ def paged_serve(torch, params, cfg, toks, steps, ps, prefill, decode, label):
             fail(f"{label}: non-finite logits at decode step {i}")
         first = logits if first is None else first
         out.append(nxt)
-    return dict(tokens=torch.stack(out, 1).cpu(), first_logits=first, ttft_s=ttft,
-                prefill_launches=prefill_launches, tbt_s=gaps)
+    return dict(tokens=torch.stack(out, 1).cpu(), prefill_logits=last, first_logits=first,
+                ttft_s=ttft, prefill_launches=prefill_launches, tbt_s=gaps,
+                pages=(kp, vp, bt), prompt_len=S)
 
 
 def phase_hybrid_cross_device(torch):
@@ -1417,6 +1487,290 @@ def phase_hybrid_profile(torch, setup, steps=8):
     return out
 
 
+# ------------------------------------------- rwkv6 and the encoder-decoder ---
+def rwkv_serve(torch, params, cfg, toks, steps):
+    """Serve rwkv6 at model level, as its users do: prefill the prompts
+    ``toks`` [B, S] as one batch, then ``steps`` greedy decode steps over
+    the recurrent state.  Fails on a non-finite logit.  Returns the greedy
+    tokens [B, steps + 1] (the first from the prefill), the prefill's
+    logits and state, the first decode step's logits, the last state and
+    tokens, the prefill's wall time and each decode step's (host clock,
+    each ending in a synchronize on the card)."""
+    from repro_torch.models import rwkv as RW
+    dev = params["embed"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    toks = torch.as_tensor(toks, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    last, state = RW.prefill(params, cfg, toks)
+    nxt = last.argmax(-1)
+    sync()
+    ttft = time.perf_counter() - t0
+    if not bool(torch.isfinite(last[:, :cfg.vocab_size]).all()):
+        fail(f"{cfg.name}: non-finite prefill logits")
+    out, gaps, first, prefill_state = [nxt], [], None, state
+    for i in range(steps):
+        t1 = time.perf_counter()
+        logits, state = RW.decode(params, cfg, nxt, state)
+        nxt = logits.argmax(-1)
+        sync()
+        gaps.append(time.perf_counter() - t1)
+        if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+            fail(f"{cfg.name}: non-finite logits at decode step {i}")
+        first = logits if first is None else first
+        out.append(nxt)
+    return dict(tokens=torch.stack(out, 1).cpu(), prefill_logits=last,
+                prefill_state=prefill_state, first_logits=first, state=state, last=nxt,
+                ttft_s=ttft, tbt_s=gaps)
+
+
+def encdec_serve(torch, params, cfg, frames, toks, steps, ps):
+    """Serve the encoder-decoder at model level: ``paged_serve`` over
+    ``encdec.prefill`` (encoder, cross K/V, decoder prompts) and
+    ``encdec.decode`` (paged self-attention, cross-attention over the
+    fixed cross K/V).  Returns ``paged_serve``'s dict with the decode
+    step as ``decode``."""
+    from repro_torch.models import encdec as ED
+    cross = []
+
+    def prefill(t):
+        last, kv, xkv = ED.prefill(params, cfg, frames, t)
+        cross[:] = xkv
+        return last, kv
+
+    def decode(nxt, kp, vp, bt, lens):
+        return ED.decode(params, cfg, nxt, kp, vp, *cross, bt, lens)[0]
+
+    r = paged_serve(torch, params, cfg, toks, steps, ps, prefill, decode, cfg.name)
+    return dict(r, decode=decode)
+
+
+def phase_model_level_cross_device(torch):
+    """rwkv6-7b at full width (d_model 4096) and 2 layers, and
+    seamless-m4t-medium at full width (d_model 1024) and 2 + 2 layers, f32,
+    one seeded set of weights each: 2 prompts of 64 tokens (seamless:
+    after 12 frames) and 8 greedy decode steps on cuda and on the CPU.
+    The greedy streams must be equal, and on cuda the first decode step's
+    logits must match the full-sequence forward within 2e-3; the prefill
+    logit gap (and rwkv6's state gaps) cuda vs cpu are logged.  On cuda
+    seamless must launch K1 and K2; rwkv6 runs no hand-written kernel (its
+    WKV scan is plain PyTorch, as the reference's is jnp)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.registry import get_model
+    for arch, layers in (("rwkv6-7b", dict(n_layers=2)),
+                         ("seamless-m4t-medium", dict(n_layers=2, n_encoder_layers=2))):
+        cfg = replace(get_config(arch), **layers)
+        params = get_model(arch, cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                                           torch.float32, "cuda")
+        toks = prompts(2, 64, cfg.vocab_size, seed=4)
+        frames = (torch.randn(2, 12, cfg.d_model, generator=torch.Generator().manual_seed(5))
+                  * 0.3)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = params if dev == "cuda" else to_device(params, "cpu")
+            zero_launches()
+            if cfg.family == "ssm":
+                runs[dev] = rwkv_serve(torch, p, cfg, toks, steps=8)
+                batch = {}
+            else:
+                runs[dev] = encdec_serve(torch, p, cfg, frames.to(dev), toks, steps=8, ps=16)
+                batch = {"frames": frames.to(dev)}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = read_launches()
+                batch["tokens"] = torch.cat([torch.as_tensor(toks, device="cuda"),
+                                             runs[dev]["tokens"][:, :1].cuda()], 1)
+                module = RW if cfg.family == "ssm" else ED
+                full, _ = module.train_logits(params, cfg, batch)
+                full_gap = max_err(runs[dev]["first_logits"][:, :cfg.vocab_size],
+                                   full[:, -1, :cfg.vocab_size])
+                del full
+            del p
+        cuda, cpu = runs["cuda"], runs["cpu"]
+        if not torch.equal(cuda["tokens"], cpu["tokens"]):
+            fail(f"{arch}: greedy streams differ between cuda and cpu: "
+                 f"{cuda['tokens'].tolist()} vs {cpu['tokens'].tolist()}")
+        want = [] if cfg.family == "ssm" else ["paged_attention", "flash_attention"]
+        if any(counts[k] == 0 for k in want) or (not want and any(counts.values())):
+            fail(f"{arch}: launches on cuda {counts}, expected launches of {want} only")
+        if not full_gap < 2e-3:
+            fail(f"{arch}: first decode logits differ from the full forward by {full_gap}")
+        V = cfg.vocab_size
+        gaps = {"prefill_logits": max_err(cuda["prefill_logits"].cpu()[:, :V],
+                                           cpu["prefill_logits"][:, :V]),
+                "first_decode_logits": max_err(cuda["first_logits"].cpu()[:, :V],
+                                               cpu["first_logits"][:, :V])}
+        if cfg.family == "ssm":
+            gaps.update({f"state_{k}": max_err(v.cpu(), cpu["prefill_state"][k])
+                         for k, v in cuda["prefill_state"].items()})
+        log(f"cross-device {arch} ({json.dumps(layers)}): 2 greedy streams of "
+            f"{cuda['tokens'].shape[1]} tokens equal (cuda vs cpu); max abs gaps cuda vs cpu "
+            f"{json.dumps(gaps)}; decode vs full forward {full_gap:.3e} on cuda; launches "
+            + json.dumps(counts))
+        del params, runs, cuda, cpu
+        gc.collect()
+
+
+RWKV = dict(batch=8, prompt=1024, steps=32, mixed_steps=8, mixed_rows=4, mixed_chunk=128)
+
+
+def phase_rwkv_path(torch):
+    """rwkv6-7b at full width and depth in bf16, at model level: 8 prompts
+    of 1024 tokens prefilled as one batch, 32 greedy decode steps, then 8
+    ``mixed`` steps, each a 128-token chunk of 4 new prompts beside the 8
+    decode rows.  No hand-written kernel may launch (the path's WKV scan
+    is plain PyTorch).  Returns the path's launches and steps, and its
+    decode window for phase 6."""
+    from repro_torch.models import rwkv as RW
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()          # earlier paths' setups
+    model, params = init_model(torch, "rwkv6-7b")
+    cfg = model.cfg
+    n_params = sum(t.numel() for t in _leaves(params))
+    toks = prompts(RWKV["batch"], RWKV["prompt"], cfg.vocab_size, seed=6)
+    C, P = RWKV["mixed_chunk"], RWKV["mixed_rows"]
+    new = torch.as_tensor(prompts(P, C * RWKV["mixed_steps"], cfg.vocab_size, seed=7),
+                          device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    r = rwkv_serve(torch, params, cfg, toks, RWKV["steps"])
+    p_state = RW.init_state(cfg, P, params["embed"].dtype, "cuda")
+    d_state, nxt, walls = r["state"], r["last"], []
+    for i in range(RWKV["mixed_steps"]):
+        mb = {"p_tokens": new[:, i * C:(i + 1) * C], "d_tokens": nxt}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_logits, d_logits, p_state, d_state = RW.mixed(params, cfg, mb, p_state, d_state)
+        nxt = d_logits.argmax(-1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not (bool(torch.isfinite(p_logits[:, :cfg.vocab_size]).all())
+                and bool(torch.isfinite(d_logits[:, :cfg.vocab_size]).all())):
+            fail(f"rwkv6-7b: non-finite logits at mixed step {i}")
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"rwkv6-7b path launched a hand-written kernel: {launches}")
+    B, S, steps = RWKV["batch"], RWKV["prompt"], RWKV["steps"]
+    tbt = sorted(r["tbt_s"])
+    log("rwkv6-7b path: " + json.dumps(dict(
+        n_params=n_params, prompt_tokens=B * S, decode_steps=steps,
+        prefill_tokens_per_s=B * S / r["ttft_s"], ttft_s=r["ttft_s"],
+        decode_tokens_per_s=B * steps / sum(tbt), tbt_p50_s=pct(tbt, 0.5),
+        tbt_p99_s=pct(tbt, 0.99), mixed_steps=len(walls),
+        mixed_step_p50_s=pct(walls, 0.5), mixed_step_max_s=max(walls),
+        mixed_tokens_per_step=P * C + B, held_before_path=held,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)))
+
+    def window(n=8):
+        state, tok = r["prefill_state"], r["tokens"][:, 0].cuda()
+        for _ in range(n):
+            logits, state = RW.decode(params, cfg, tok, state)
+            tok = logits.argmax(-1)
+
+    return dict(launches=launches, steps=1 + steps + len(walls)), window
+
+
+SEAMLESS = dict(batch=16, frames=1024, prompt=64, steps=32, page_size=16)
+
+
+def phase_seamless_path(torch):
+    """seamless-m4t-medium at full width and depth in bf16, at model level:
+    16 utterances of 1024 frames and 64-token decoder prompts (encoder,
+    cross K/V and decoder prefill as one batch), then 32 greedy decode
+    steps over fp pages.  The prefill must launch K2 once an encoder layer
+    and twice a decoder layer (self and cross), each decode step K1 and K2
+    once a decoder layer.  Returns the path's launches and steps, and its
+    decode window for phase 6."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()          # earlier paths' setups
+    model, params = init_model(torch, "seamless-m4t-medium")
+    cfg = model.cfg
+    B, steps = SEAMLESS["batch"], SEAMLESS["steps"]
+    frames = (torch.randn(B, SEAMLESS["frames"], cfg.d_model, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(6)) * 0.3
+              ).to(torch.bfloat16)
+    toks = prompts(B, SEAMLESS["prompt"], cfg.vocab_size, seed=6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    r = encdec_serve(torch, params, cfg, frames, toks, steps, SEAMLESS["page_size"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    pre, L, Le = r["prefill_launches"], cfg.n_layers, cfg.n_encoder_layers
+    want = {"flash_attention": (Le + 2 * L, L * steps), "paged_attention": (0, L * steps),
+            "paged_attention_decode": (0, L * steps), "paged_attention_chunk": (0, 0),
+            "paged_attention_int8": (0, 0), "ssd_scan": (0, 0)}
+    got = {k: (pre[k], launches[k] - pre[k]) for k in want}
+    if got != want:
+        fail(f"seamless-m4t-medium path launches (prefill, decode) {got}, expected {want}")
+    tbt = sorted(r["tbt_s"])
+    log("seamless-m4t-medium path: " + json.dumps(dict(
+        n_params=sum(t.numel() for t in _leaves(params)), utterances=B,
+        encoder_frames=B * SEAMLESS["frames"], prompt_tokens=B * SEAMLESS["prompt"],
+        decode_steps=steps, ttft_s=r["ttft_s"], decode_tokens_per_s=B * steps / sum(tbt),
+        tbt_p50_s=pct(tbt, 0.5), tbt_p99_s=pct(tbt, 0.99), held_before_path=held,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches_prefill={k: v[0] for k, v in got.items()},
+        launches_decode_per_step={k: v[1] / steps for k, v in got.items()})))
+    kp, vp, bt = r["pages"]
+
+    def window(n=8):
+        tok, S = r["tokens"][:, 0].cuda(), r["prompt_len"]
+        for i in range(n):      # rewrites the same K/V into the same slots
+            tok = r["decode"](tok, kp, vp, bt, torch.full((B,), S + i, device="cuda")).argmax(-1)
+
+    return dict(launches=launches, steps=1 + steps), window
+
+
+def phase_launcher(torch):
+    """The serving launcher as its users run it: ``python -m
+    repro_torch.launch.serve --arch opt-125m --mode splitwiser_mps
+    --n-requests 16 --json`` at full size on the card, in a subprocess.
+    It must exit 0 with every request done; its summary line is logged."""
+    import os
+    gc.collect()
+    torch.cuda.empty_cache()
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "opt-125m",
+           "--mode", "splitwiser_mps", "--n-requests", "16", "--json"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"launcher exited {out.returncode}: {out.stderr.strip()[-2000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    summary = json.loads(line)
+    if summary["n_done"] != 16:
+        fail(f"launcher finished {summary['n_done']} of 16 requests: {line}")
+    log(f"launcher ({' '.join(cmd[1:])}; {wall:.1f} s with start-up): {line}")
+
+
+def phase_decode_profile(torch, label, window, steps=8):
+    """Where a model-level path's decode time goes: ``window(steps)`` runs
+    ``steps`` decode steps from a fixed state, timed on the host clock,
+    then again under ``torch.profiler``: device time by kernel class and
+    the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window(steps)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window(steps)
+        torch.cuda.synchronize()
+    out = window_summary(wall_ms, *device_ms_by_class(torch, prof))
+    log(f"profile {label} decode x{steps}: " + json.dumps(out))
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1507,6 +1861,7 @@ def main() -> int:
     phase_cross_device(torch)
     phase_hybrid_cross_device(torch)
     phase_family_cross_device(torch)
+    phase_model_level_cross_device(torch)
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. the main paths, then the dispatch sentinel on opt-125m's engine
@@ -1515,6 +1870,9 @@ def main() -> int:
     paths.update(family)
     log("modes " + json.dumps({k: v["per_mode"] for k, v in paths.items() if "per_mode" in v}))
     paths["hybrid"], hybrid_setup = phase_hybrid_path(torch)
+    paths["rwkv6-7b"], rwkv_window = phase_rwkv_path(torch)
+    paths["seamless-m4t-medium"], seamless_window = phase_seamless_path(torch)
+    phase_launcher(torch)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
     phase_sentinel(torch, setups["opt-125m"])
     log(f"sentinel phase done at {time.perf_counter() - t_start:.1f} s")
@@ -1532,6 +1890,8 @@ def main() -> int:
         ("gemma2-2b fp", setups["gemma2-2b"], dict(GEMMA_SERVE, **ANALYSIS_OFF),
          lambda: gemma2_requests(vocab["gemma2-2b"]), ("sequential",))))
     phase_hybrid_profile(torch, hybrid_setup)
+    phase_decode_profile(torch, "rwkv6-7b", rwkv_window)
+    phase_decode_profile(torch, "seamless-m4t-medium", seamless_window)
 
     kernels = []
     for kname, meta in KERNELS.items():

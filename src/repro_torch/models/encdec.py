@@ -1,0 +1,216 @@
+"""Seamless-M4T-style encoder-decoder backbone in PyTorch.
+
+The counterpart of the reference's ``models/encdec.py``, with its names,
+layouts and parameter names (``embed``, ``enc_blocks``, ``enc_ln_f``,
+``dec_blocks``, ``ln_f``; per-layer weights stacked on a leading axis,
+``wq [L,D,H,hd]``, ``wo [L,H,hd,D]``; no ``head``: the unembedding is the
+embedding).  The speech frontend is a stub: the encoder consumes
+precomputed frame embeddings [B, S_enc, D] in the params' dtype.  Phases:
+"prefill" = encoder pass + cross-KV build + decoder prompt prefill;
+"decode" = decoder token steps (paged self-KV, written in place, + fixed
+cross-KV).  The reference's engine serves only paged caches, so this
+family is served at model level, as the zamba2 hybrid is.
+
+Kernels, through ``kernels.ops``: flash attention (K2) for the encoder's
+self-attention (non-causal, ``kv_lens`` = the valid frames), the
+decoder's causal self-attention in prefill and every cross-attention
+(non-causal, un-roped, T_q = the prompt in prefill and 1 in decode);
+paged attention (K1) for the decoder's self-attention in decode.  K2
+masks by index positions; that is exact here: the encoder and
+cross-attention are non-causal with no window, so positions never enter
+their masks, and the decoder's causal prefill numbers queries and keys
+alike from 0.  There is no tensor parallelism (the reference's
+``tp``/``policy``): at tp = 1 the padded head layout is the identity, so
+no head is masked or replicated.  The cross K/V are built once from the
+encoder output (``build_cross_kv``) and read by every decoder pass.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
+                                       rms_norm, rope)
+
+
+def _attn_init(generator, cfg, L, dtype, device, out_scale):
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def dense(shape, fan_in, scale=1.0):
+        return dense_init(generator, (L,) + shape, fan_in, dtype, device, scale)
+
+    return {"wq": dense((D, H, hd), D), "wk": dense((D, KV, hd), D),
+            "wv": dense((D, KV, hd), D), "wo": dense((H, hd, D), H * hd, out_scale)}
+
+
+def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
+                device=None):
+    """Random parameters with the reference's shapes and init scales,
+    drawn from ``generator`` in the reference's order (the numbers differ
+    from JAX's; tests hand both packages the same weights through
+    ``models.convert.params_from_jax``)."""
+    device = resolve_device(device)
+    D = cfg.d_model
+    Le, Ld = cfg.n_encoder_layers, cfg.n_layers
+    s_enc, s_dec = 1.0 / math.sqrt(2 * Le), 1.0 / math.sqrt(2 * Ld)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def mlp(L, scale):
+        return mlp_init(generator, D, cfg.d_ff, cfg.mlp_act, dtype, device, scale,
+                        stack=(L,))
+
+    enc_attn = _attn_init(generator, cfg, Le, dtype, device, s_enc)
+    enc_blocks = {"ln1": zeros(Le, D), "attn": enc_attn, "ln2": zeros(Le, D),
+                  "mlp": mlp(Le, s_enc)}
+    dec_self = _attn_init(generator, cfg, Ld, dtype, device, s_dec)
+    dec_cross = _attn_init(generator, cfg, Ld, dtype, device, s_dec)
+    dec_blocks = {"ln1": zeros(Ld, D), "self": dec_self, "lnx": zeros(Ld, D),
+                  "cross": dec_cross, "ln2": zeros(Ld, D), "mlp": mlp(Ld, s_dec)}
+    return {
+        "embed": dense_init(generator, (T.pad_vocab(cfg.vocab_size), D), 1, dtype,
+                            device, 0.02),
+        "enc_blocks": enc_blocks,
+        "enc_ln_f": zeros(D),
+        "dec_blocks": dec_blocks,
+        "ln_f": zeros(D),
+    }
+
+
+def _scale(cfg):
+    return 1.0 / math.sqrt(cfg.head_dim)
+
+
+def _full_lens(x, n):
+    return torch.full((x.shape[0],), n, dtype=torch.int32, device=x.device)
+
+
+def encode(params, cfg, frames, *, enc_valid_len=None):
+    """frames [B, S_enc, D] (stub frontend output) -> [B, S_enc, D].
+    ``enc_valid_len`` [B]: keys at or past it are masked (None: all)."""
+    B, S, _ = frames.shape
+    pos = torch.arange(S, device=frames.device)[None].expand(B, S)
+    kv_lens = _full_lens(frames, S) if enc_valid_len is None else enc_valid_len
+    x = frames
+    for l in range(cfg.n_encoder_layers):
+        lp = T.layer_params(params["enc_blocks"], l)
+        q, k, v = T._qkv(cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps))
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+        # non-causal, no window: K2's index positions mask only by kv_lens
+        o = ops.flash_attention(q, k, v, kv_lens, scale=_scale(cfg), causal=False)
+        x = x + T._o_proj(cfg, lp["attn"], o, None)
+        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.mlp_act)
+    return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
+def build_cross_kv(params, cfg, enc_out):
+    """Per-decoder-layer cross K/V from the encoder output.
+
+    Returns (xk, xv) [Ld, B, S_enc, KV, hd] (not roped: cross-attention
+    uses raw keys; rope is self-attention only here).
+    """
+    cross = params["dec_blocks"]["cross"]
+    return (torch.einsum("bsd,ldhk->lbshk", enc_out, cross["wk"]).contiguous(),
+            torch.einsum("bsd,ldhk->lbshk", enc_out, cross["wv"]).contiguous())
+
+
+def _cross_attention(cfg, ap, hx, xk, xv, kv_lens):
+    """hx [B, T, D] against one layer's cross K/V [B, S_enc, KV, hd];
+    non-causal, no window: K2's index positions mask only by kv_lens."""
+    D = hx.shape[-1]
+    qx = (hx @ ap["wq"].reshape(D, -1)).reshape(*hx.shape[:-1], -1, cfg.head_dim)
+    o = ops.flash_attention(qx, xk, xv, kv_lens, scale=_scale(cfg), causal=False)
+    return T._o_proj(cfg, ap, o, None)
+
+
+def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False):
+    """The decoder over whole prompts from position 0. tokens [B, T];
+    cross_kv from ``build_cross_kv``.  Returns (hidden [B, T, D], (k, v)
+    self-KV each [Ld, B, T, KV, hd] or None)."""
+    xk, xv = cross_kv
+    x = params["embed"][tokens]
+    B, Tn, _ = x.shape
+    pos = torch.arange(Tn, device=x.device)[None].expand(B, Tn)
+    self_lens, cross_lens = _full_lens(x, Tn), _full_lens(x, xk.shape[2])
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        lp = T.layer_params(params["dec_blocks"], l)
+        q, k, v = T._qkv(cfg, lp["self"], rms_norm(x, lp["ln1"], cfg.norm_eps))
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+        # causal, queries and keys both at positions 0..T-1: K2's index
+        # positions are these positions
+        o = ops.flash_attention(q, k, v, self_lens, scale=_scale(cfg), causal=True)
+        x = x + T._o_proj(cfg, lp["self"], o, None)
+        x = x + _cross_attention(cfg, lp["cross"], rms_norm(x, lp["lnx"], cfg.norm_eps),
+                                 xk[l], xv[l], cross_lens)
+        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.mlp_act)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), kv
+
+
+def train_logits(params, cfg, batch):
+    """batch: frames [B, S_enc, D], tokens [B, T_dec].  Full-sequence
+    logits [B, T_dec, Vp], the forward-only oracle of the serving steps;
+    the reference's (logits, aux loss) pair with aux 0."""
+    enc_out = encode(params, cfg, batch["frames"])
+    hidden, _ = _decoder_seq(params, cfg, batch["tokens"],
+                             build_cross_kv(params, cfg, enc_out))
+    return T.unembed(params, cfg, hidden), torch.zeros((), device=hidden.device)
+
+
+def prefill(params, cfg, frames, tokens):
+    """Encoder pass + decoder prompt prefill.
+
+    Returns (last_logits, (k, v) self-KV [Ld,B,T,KV,hd],
+             (xk, xv) cross-KV [Ld,B,S_enc,KV,hd]).
+    """
+    cross = build_cross_kv(params, cfg, encode(params, cfg, frames))
+    hidden, kv = _decoder_seq(params, cfg, tokens, cross, collect_kv=True)
+    return T.unembed(params, cfg, hidden[:, -1]), kv, cross
+
+
+def decode(params, cfg, tokens, k_pages, v_pages, cross_k, cross_v,
+           block_table, seq_lens, *, attn_fn=None, enc_valid_len=None):
+    """One decoder token step.
+
+    tokens [B]; pages [Ld, N, ps, KV, hd], written in place; cross_k/v
+    [Ld, B, S_enc, KV, hd]; ``enc_valid_len`` [B] masks cross keys at or
+    past it (None: all).  ``attn_fn``: a paged attention with ``ops.paged_attention``'s
+    signature over one layer's pages (default: K1).
+    Returns (logits [B, Vp], (k_pages, v_pages)).
+    """
+    attn_fn = attn_fn or ops.paged_attention
+    x = params["embed"][tokens]                              # [B, D]
+    # per-step index work, shared by every layer
+    bt = block_table.to(torch.int32)
+    pos = seq_lens.to(torch.int32)                           # next position
+    kv_lens = pos + 1
+    dest = T.token_dest(bt, pos, None, *T._pool_geometry(k_pages))
+    cross_lens = (_full_lens(x, cross_k.shape[2]) if enc_valid_len is None
+                  else enc_valid_len)
+    for l in range(cfg.n_layers):
+        lp = T.layer_params(params["dec_blocks"], l)
+        q, k, v = T._qkv(cfg, lp["self"], rms_norm(x, lp["ln1"], cfg.norm_eps))
+        q = rope(q[:, None], pos[:, None], cfg.rope_theta)   # [B,1,H,hd]
+        k = rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        kpg, vpg = k_pages[l], v_pages[l]
+        T._scatter(kpg, vpg, k, v, dest)
+        o = attn_fn(q, kpg, vpg, bt, kv_lens, pos, scale=_scale(cfg), window=None,
+                    softcap=None)
+        x = x + T._o_proj(cfg, lp["self"], o[:, 0], None)
+        x = x + _cross_attention(cfg, lp["cross"],
+                                 rms_norm(x, lp["lnx"], cfg.norm_eps)[:, None],
+                                 cross_k[l], cross_v[l], cross_lens)[:, 0]
+        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.mlp_act)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return T.unembed(params, cfg, x), (k_pages, v_pages)

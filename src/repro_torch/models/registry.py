@@ -1,11 +1,14 @@
-"""Model registry: maps an architecture to its module.
+"""Model registry: maps each architecture family to its module.
 
-The port serves the transformer family, dense, MoE and VLM, with paged
-KV (``cache_kind="paged"``), and the zamba2 hybrid (``"paged+state"``:
-paged KV for the shared attention plus conv/SSM states; served at model
-level through ``hybrid.prefill``/``decode``, as the reference's engine
-refuses it too).  The reference registry's encdec and ssm (rwkv6)
-families come with later slices.
+Families expose ``init_params``, ``prefill`` and ``decode`` (+ ``mixed``
+for the transformer family and rwkv6; the model-level families also the
+forward-only ``train_logits``).  ``cache_kind`` says what a family's serving path keeps:
+  paged        — transformer (dense/moe/vlm): paged KV
+  paged+cross  — encdec: paged self-KV + dense cross-KV
+  paged+state  — hybrid: paged KV (shared attn) + SSM/conv states
+  state        — ssm (rwkv6): recurrent state slots only
+The ``Engine`` serves ``paged`` only, as the reference's does; the other
+three are served at model level through their modules' steps.
 """
 from dataclasses import dataclass
 from typing import Any
@@ -13,12 +16,12 @@ from typing import Any
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, rwkv, transformer
 
 FAMILY_MODULE = {"dense": transformer, "moe": transformer, "vlm": transformer,
-                 "hybrid": hybrid}
+                 "encdec": encdec, "hybrid": hybrid, "ssm": rwkv}
 CACHE_KIND = {"dense": "paged", "moe": "paged", "vlm": "paged",
-              "hybrid": "paged+state"}
+              "encdec": "paged+cross", "hybrid": "paged+state", "ssm": "state"}
 
 
 @dataclass(frozen=True)
@@ -35,9 +38,5 @@ class Model:
 
 def get_model(arch: str, cfg=None) -> Model:
     cfg = cfg if cfg is not None else get_config(arch)
-    if cfg.family not in FAMILY_MODULE:
-        raise NotImplementedError(
-            f"{arch}: family {cfg.family!r} is not ported yet; the port "
-            f"serves {sorted(FAMILY_MODULE)}")
     return Model(name=arch, cfg=cfg, module=FAMILY_MODULE[cfg.family],
                  cache_kind=CACHE_KIND[cfg.family])

@@ -1,0 +1,111 @@
+"""RWKV6 language model in PyTorch (attention-free; recurrent state
+instead of KV).
+
+The counterpart of the reference's ``models/rwkv.py``, with its names,
+layouts and parameter names.  Serving phases still exist: prefill = the
+chunkwise-parallel WKV scan over the prompt (compute bound), decode = the
+recurrent step (bandwidth bound: it reads the full state and every weight
+per token), and ``mixed`` runs prefill chunks and decode rows in one call,
+the Splitwiser step for the state-cache family.  The reference's engine
+serves only paged caches, so this family is served at model level, as
+the zamba2 hybrid is.
+
+The state is the reference's stacked dict: ``x_tm``/``x_cm`` [L, B, D]
+in the activations' dtype and ``S`` [L, B, H, K, K], f32 once a step has
+run (``init_state`` gives zeros in the params' dtype, as the
+reference's does).  The reference's ``lax.scan`` over layers is a Python
+loop that stacks the new states; no step writes its input state.  The
+WKV scan is plain PyTorch on every device: the reference's is jnp, not a
+Pallas kernel.  There is no tensor parallelism (``tp``/``policy``) and no
+rematerialisation (``remat``, training).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import ssm
+from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.transformer import layer_params, pad_vocab, unembed
+
+
+def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
+                device=None):
+    """Random parameters with the reference's shapes and init scales,
+    drawn from ``generator`` (the numbers differ from JAX's; tests hand
+    both packages the same weights through
+    ``models.convert.params_from_jax``)."""
+    device = resolve_device(device)
+    Vp = pad_vocab(cfg.vocab_size)
+    D = cfg.d_model
+    zeros = lambda: torch.zeros((D,), dtype=dtype, device=device)
+    return {
+        "embed": dense_init(generator, (Vp, D), 1, dtype, device, 0.02),
+        "ln0": zeros(),
+        "blocks": ssm.rwkv6_init(generator, cfg, dtype, device, stack=(cfg.n_layers,)),
+        "ln_f": zeros(),
+        "head": dense_init(generator, (Vp, D), 1, dtype, device, 0.02),
+    }
+
+
+def init_state(cfg, batch, dtype=torch.float32, device=None):
+    """Zero states ``{x_tm, x_cm: [L, B, D], S: [L, B, H, K, K]}``."""
+    device = resolve_device(device)
+    shapes = ssm.rwkv6_state_shapes(cfg, batch)
+    return {k: torch.zeros((cfg.n_layers,) + v, dtype=dtype, device=device)
+            for k, v in shapes.items()}
+
+
+def forward(params, cfg, tokens, state, *, chunk=32, return_all=False):
+    """tokens [B, T]; state stacked [L, ...]. Returns (logits, new_state):
+    f32 logits [B, Vp] at the last token ([B, T, Vp] with
+    ``return_all``)."""
+    x = rms_norm(params["embed"][tokens], params["ln0"], cfg.norm_eps)
+    new = {k: [] for k in state}
+    for l in range(cfg.n_layers):
+        x, s2 = ssm.rwkv6_layer(layer_params(params["blocks"], l), cfg, x,
+                                {k: t[l] for k, t in state.items()}, chunk=chunk)
+        for k, t in s2.items():
+            new[k].append(t)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if not return_all:
+        x = x[:, -1]
+    return unembed(params, cfg, x), {k: torch.stack(t) for k, t in new.items()}
+
+
+def train_logits(params, cfg, batch):
+    """Full-sequence logits [B, T, Vp] from zero states, the forward-only
+    oracle of the serving steps; the reference's (logits, aux loss) pair
+    with aux 0."""
+    tokens = batch["tokens"]
+    state = init_state(cfg, tokens.shape[0], params["embed"].dtype, tokens.device)
+    logits, _ = forward(params, cfg, tokens, state, return_all=True)
+    return logits, torch.zeros((), device=logits.device)
+
+
+def prefill(params, cfg, tokens, *, state=None):
+    """tokens [B, T], from ``state`` (None: zeros). Returns
+    (last_logits [B, Vp], state)."""
+    if state is None:
+        state = init_state(cfg, tokens.shape[0], params["embed"].dtype, tokens.device)
+    return forward(params, cfg, tokens, state)
+
+
+def decode(params, cfg, tokens, state):
+    """tokens [B] -> (logits [B, Vp], state). One recurrent step."""
+    return forward(params, cfg, tokens[:, None], state, chunk=1)
+
+
+def mixed(params, cfg, mb, p_state, d_state):
+    """Splitwiser step for the state-cache family: prefill chunks and
+    decode tokens in one call.  The projection GEMMs are not merged
+    across phases (the token shift and the scan separate the phases
+    before the GEMMs), as in the reference.
+    mb: p_tokens [P, C]; d_tokens [B].
+    Returns (p_logits [P, Vp], d_logits [B, Vp], p_state, d_state).
+    """
+    p_logits, p_state = forward(params, cfg, mb["p_tokens"], p_state,
+                                chunk=min(32, mb["p_tokens"].shape[1]))
+    d_logits, d_state = forward(params, cfg, mb["d_tokens"][:, None], d_state,
+                                chunk=1)
+    return p_logits, d_logits, p_state, d_state

@@ -1,21 +1,27 @@
-"""State-space primitives in PyTorch: the Mamba2 (SSD) block.
+"""State-space primitives in PyTorch: the Mamba2 (SSD) block and the
+RWKV-6 ("Finch") layer.
 
-The counterpart of the Mamba2 half of the reference's ``models/ssm.py``,
-with its names, layouts and parameter names:
+The counterpart of the reference's ``models/ssm.py``, with its names,
+layouts and parameter names.  Mamba2:
   * chunkwise-parallel form (prefill), ``mamba2_block``, whose scan goes
     through ``kernels.ops.ssd_chunk_scan``: the CUDA kernel K4 on the
     card, its plain version for CPU tensors;
   * recurrent form (decode), ``mamba2_decode``: an O(1) state update.
-All decay exponentials are exp(delta log P) with delta log P <= 0.  The
-RWKV-6 half comes with a later slice.
+RWKV-6: token-shift mixing, a data-dependent per-channel decay and the
+chunkwise WKV scan ``rwkv6_wkv_chunk``, plain PyTorch on every device
+(the reference's scan is jnp under ``lax.scan``, not a Pallas kernel);
+decode is the same scan at ``chunk=1``.
+All decay exponentials are exp(delta log P) with delta log P <= 0.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, head_rms_norm, rms_norm
 
 
 # Projections are stored separately (z/x/B/C/dt), as in the reference.
@@ -152,3 +158,142 @@ def mamba2_state_shapes(cfg, batch):
     conv = {"x": (batch, W - 1, d_in), "B": (batch, W - 1, cfg.ssm_state),
             "C": (batch, W - 1, cfg.ssm_state)}
     return conv, (batch, cfg.ssm_heads, Pd, cfg.ssm_state)
+
+
+# ====================================================================== RWKV6
+LORA_R = 32
+
+
+def rwkv6_init(generator, cfg, dtype, device, stack=()):
+    """Random RWKV-6 layer weights with the reference's shapes and init
+    scales, drawn from ``generator`` in the reference's order; ``stack``
+    prepends layer axes."""
+    D = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    H = D // hd
+    F_ = cfg.d_ff
+    s = tuple(stack)
+    out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+
+    def dense(shape, fan_in, scale=1.0):
+        return dense_init(generator, s + shape, fan_in, dtype, device, scale)
+
+    def full(value, *shape):
+        return torch.full(s + shape, value, dtype=dtype, device=device)
+
+    tmix = {name: full(0.5, D) for name in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")}
+    tmix["w0"] = full(-2.0, D)
+    tmix.update({
+        "w_a": dense((D, LORA_R), D), "w_b": dense((LORA_R, D), LORA_R),
+        "wr": dense((D, D), D), "wk": dense((D, D), D), "wv": dense((D, D), D),
+        "wg": dense((D, D), D), "wo": dense((D, D), D, out_scale),
+        "u": full(0.0, H, hd), "ln_x": full(0.0, D),
+    })
+    cmix = {"mu_r": full(0.5, D), "mu_k": full(0.5, D),
+            "wr": dense((D, D), D), "wk": dense((D, F_), D),
+            "wv": dense((F_, D), F_, out_scale)}
+    return {"ln1": full(0.0, D), "ln2": full(0.0, D), "tmix": tmix, "cmix": cmix}
+
+
+def _lerp(x, x_prev, mu):
+    return x + (x_prev - x) * mu
+
+
+def _shifted(x, x_last):
+    """x [B,T,D]; x_last [B,D] (token before this span) -> x_{t-1} per t."""
+    return torch.cat([x_last[:, None], x[:, :-1]], dim=1)
+
+
+def rwkv6_wkv_chunk(r, k, v, lw, u, S0, chunk=32):
+    """Chunkwise WKV with per-channel data-dependent decay, in f32
+    whatever the inputs' dtype.
+
+    r/k/v [B,T,H,K]; lw [B,T,H,K] log-decay (<=0); u [H,K]; S0 [B,H,K,V].
+    T is padded to a multiple of ``chunk`` (zero k and log-decay: the
+    state passes the padding unchanged), which is cut off the output.
+    Returns (o [B,T,H,V] f32, S_out [B,H,K,V] f32).  All exp args are
+    <= 0 (safe).
+    """
+    B, T, H, K = r.shape
+    pad = (-T) % chunk
+    if pad:
+        r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, lw))
+    nchunk = (T + pad) // chunk
+    rc, kc, vc, lwc = (t.reshape(B, nchunk, chunk, H, -1) for t in (r, k, v, lw))
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=r.device), -1)
+    tri = tri[None, :, :, None, None]
+    uf = u.float()
+    S = S0.float()
+    outs = []
+    for c in range(nchunk):
+        rq, kq, vq, lq = (t[:, c].float() for t in (rc, kc, vc, lwc))   # [B,Q,H,K]
+        L = torch.cumsum(lq, dim=1)
+        Lm1 = torch.cat([torch.zeros_like(L[:, :1]), L[:, :-1]], dim=1)
+        # intra: A[t,i] = sum_c r_t k_i exp(Lm1_t - L_i), i < t; diag: r.(u*k)
+        diff = Lm1[:, :, None] - L[:, None]                              # [B,Q(t),Q(i),H,K]
+        E = torch.where(tri, torch.exp(torch.clamp(diff, max=0.0)), 0.0)
+        A = (rq[:, :, None] * kq[:, None] * E).sum(-1)                   # [B,Q(t),Q(i),H]
+        o = torch.einsum("btih,bihv->bthv", A, vq)
+        o = o + (rq * uf * kq).sum(-1)[..., None] * vq
+        # inter: o_t += (r_t * exp(Lm1_t)) @ S
+        o = o + torch.einsum("bthk,bhkv->bthv", rq * torch.exp(Lm1), S)
+        # state: S' = diag(exp(L_last)) S + sum_i exp(L_last - L_i) k_i v_i
+        Llast = L[:, -1]                                                 # [B,H,K]
+        S = torch.exp(Llast)[..., None] * S + torch.einsum(
+            "bihk,bihv->bhkv", kq * torch.exp(Llast[:, None] - L), vq)
+        outs.append(o)
+    o = torch.cat(outs, dim=1)[:, :T]
+    return o, S
+
+
+def rwkv6_tmix(lp, cfg, x, x_last, S0, chunk=32):
+    """Time-mix over a span. x [B,T,D]; x_last [B,D]; S0 [B,H,K,V].
+
+    Returns (out [B,T,D], new_x_last [B,D], S_out f32).
+    """
+    D = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    H = D // hd
+    xp = _shifted(x, x_last)
+    rx, kx, vx, gx, wx = (_lerp(x, xp, lp[m])
+                          for m in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"))
+    shp = (*x.shape[:-1], H, hd)
+    r = (rx @ lp["wr"]).reshape(shp)
+    k = (kx @ lp["wk"]).reshape(shp)
+    v = (vx @ lp["wv"]).reshape(shp)
+    g = F.silu(gx @ lp["wg"])
+    # data-dependent per-channel decay (the Finch hallmark)
+    dw = torch.tanh(wx @ lp["w_a"]) @ lp["w_b"]
+    lw = -torch.exp((lp["w0"] + dw).float()).reshape(shp)
+    o, S_out = rwkv6_wkv_chunk(r, k, v, lw, lp["u"], S0, chunk)
+    # per-head RMS norm (RWKV's GroupNorm over heads)
+    o = head_rms_norm(o.to(x.dtype), lp["ln_x"].reshape(H, hd), cfg.norm_eps)
+    o = o.reshape(*x.shape[:-1], D) * g.to(x.dtype)
+    return o @ lp["wo"], x[:, -1], S_out
+
+
+def rwkv6_cmix(lp, cfg, x, x_last):
+    """Channel-mix. Returns (out [B,T,D], new_x_last)."""
+    xp = _shifted(x, x_last)
+    rx, kx = _lerp(x, xp, lp["mu_r"]), _lerp(x, xp, lp["mu_k"])
+    r = torch.sigmoid(rx @ lp["wr"])
+    kk = torch.square(F.relu(kx @ lp["wk"]))
+    return r * (kk @ lp["wv"]), x[:, -1]
+
+
+def rwkv6_layer(lp, cfg, x, state, chunk=32):
+    """One RWKV6 layer over a span. state = dict(x_tm, x_cm [B,D], S [B,H,K,V])."""
+    o, x_tm, S = rwkv6_tmix(lp["tmix"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
+                            state["x_tm"], state["S"], chunk)
+    x = x + o
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    o2, x_cm = rwkv6_cmix(lp["cmix"], cfg, h, state["x_cm"])
+    x = x + o2
+    return x, {"x_tm": x_tm, "x_cm": x_cm, "S": S}
+
+
+def rwkv6_state_shapes(cfg, batch):
+    D = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    H = D // hd
+    return {"x_tm": (batch, D), "x_cm": (batch, D), "S": (batch, H, hd, hd)}

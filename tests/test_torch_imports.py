@@ -106,3 +106,42 @@ print("clean")
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_rwkv_encdec_and_launcher_load_no_jax_or_reference_module():
+    """A reduced rwkv6 prefill and decode step, a reduced seamless-m4t
+    prefill and paged decode step, and the serving launcher's ``main`` on
+    the CPU, in a fresh interpreter."""
+    code = """
+import sys, torch
+from repro_torch.configs import get_config
+from repro_torch.launch import serve
+from repro_torch.models import encdec, rwkv, transformer
+from repro_torch.models.registry import get_model
+g = torch.Generator().manual_seed(1)
+m = get_model("rwkv6-7b", get_config("rwkv6-7b").reduced())
+p = m.init(torch.Generator().manual_seed(0), device="cpu")
+last, st = rwkv.prefill(p, m.cfg, torch.randint(0, 256, (2, 8), generator=g))
+logits, st = rwkv.decode(p, m.cfg, last.argmax(-1), st)
+assert logits.shape == (2, 256) and bool(torch.isfinite(logits).all())
+m = get_model("seamless-m4t-medium", get_config("seamless-m4t-medium").reduced())
+p = m.init(torch.Generator().manual_seed(0), device="cpu")
+frames = torch.randn(2, 12, m.cfg.d_model, generator=g) * 0.3
+last, (k, v), (xk, xv) = encdec.prefill(p, m.cfg, frames, torch.randint(0, 256, (2, 8), generator=g))
+free = torch.zeros((k.shape[0], 3, 4) + tuple(k.shape[-2:]))
+kpg = torch.cat([transformer.kv_to_pages(k, 4), free], 1)     # pages 4, 5 free, 6 trash
+vpg = torch.cat([transformer.kv_to_pages(v, 4), free], 1)
+bt = torch.tensor([[0, 1, 4], [2, 3, 5]], dtype=torch.int32)
+logits, _ = encdec.decode(p, m.cfg, last.argmax(-1), kpg, vpg, xk, xv, bt, torch.full((2,), 8))
+assert logits.shape == (2, 256) and bool(torch.isfinite(logits).all())
+serve.main(["--reduced", "--device", "cpu", "--n-requests", "2", "--input-tokens", "8",
+            "--output-tokens", "2"])
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
+assert not bad, bad
+print("clean")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "clean"

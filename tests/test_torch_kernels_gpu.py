@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-engine and the zamba2 hybrid on the card against the CPU.
+engine, the zamba2 hybrid, rwkv6 and the seamless-m4t encoder-decoder on
+the card against the CPU.
 
 Every test here needs a CUDA device and skips itself without one.  This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from hybrid_serving import greedy_stream
+from hybrid_serving import encdec_greedy_stream, greedy_stream, rwkv_greedy_stream
 
 from repro_torch.configs import ServeConfig, get_config
 from repro_torch.core.engine import Engine, Request
@@ -21,6 +22,8 @@ from repro_torch.kernels import paged_attention as K1
 from repro_torch.kernels import paged_attention_int8 as K3
 from repro_torch.kernels import ssd_scan as K4
 from repro_torch.kernels.kv_int8 import SCALE_FLOOR, q8_kv
+from repro_torch.models import encdec as PE
+from repro_torch.models import rwkv as PR
 from repro_torch.models.registry import get_model
 
 pytestmark = pytest.mark.gpu
@@ -58,9 +61,11 @@ CHUNK_KWARGS = [dict(), dict(window=70, softcap=25.0)]
 # beyond one pass), d = 16 and 112 (lane groups of 2 and 14 of 16 lanes in
 # bf16, 1 and 7 of 8 for int8 codes), ps = 4, 8 and 16, 40 sequences x 16
 # kv heads (one split on 132 SMs) and one sequence of 4000 keys (32
-# splits), then gemma2's head geometry (d = 256) over 5000 and 1201 keys.
-# DECODE_KWARGS' window of 200 keys crosses a split boundary on every row
-# longer than it and empties the splits before it.
+# splits), then gemma2's head geometry (d = 256) over 5000 and 1201 keys,
+# then seamless-m4t's decoder self-attention (16 q / 16 kv heads of 64,
+# G = 1) past 64-token prompts.  DECODE_KWARGS' window of 200 keys
+# crosses a split boundary on every row longer than it and empties the
+# splits before it.
 PAGED_DECODE_CASES = [(1, 8, 4, 64, 16, (1036, 299), (1037, 300)),
                       (1, 4, 4, 64, 8, (0, 0, 44), (0, 1, 45)),
                       (1, 6, 2, 64, 8, (199, 76), (200, 77)),
@@ -69,7 +74,8 @@ PAGED_DECODE_CASES = [(1, 8, 4, 64, 16, (1036, 299), (1037, 300)),
                       (1, 4, 4, 112, 16, (1039, 599), (1040, 600)),
                       (1, 32, 16, 64, 8, tuple(range(0, 200, 5)), tuple(range(1, 201, 5))),
                       (1, 16, 8, 128, 16, (3999,), (4000,)),
-                      (1, 8, 4, 256, 16, (4999, 1200, 0), (5000, 1201, 1))]
+                      (1, 8, 4, 256, 16, (4999, 1200, 0), (5000, 1201, 1)),
+                      (1, 16, 16, 64, 16, (95, 64, 79), (96, 65, 80))]
 DECODE_KWARGS = [dict(), dict(window=200, softcap=25.0)]
 # B, T, Tk, H, KV, d, first row's kv_len (None: Tk; the others Tk - 5),
 # q/k scale factor.  After the first four, the edges of the bf16 kernel's
@@ -80,14 +86,17 @@ DECODE_KWARGS = [dict(), dict(window=200, softcap=25.0)]
 # jumps between key tiles).  v keeps its scale: at |o| >= 4 one bf16 step
 # (0.031) would exceed the tolerance whatever the kernel computes.  Last,
 # gemma2's head geometry (8 q / 4 kv heads of d = 256: the <256>
-# instantiations), with a ragged T, and with an empty row.
+# instantiations), with a ragged T, and with an empty row.  Then the
+# encoder-decoder's cross-attention shapes: one query row against 1024
+# encoder frames (its decode, G = 1) and T > Tk.
 FLASH_CASES = [(2, 32, 32, 4, 2, 64, None, 1), (1, 64, 64, 8, 8, 128, None, 1),
                (2, 16, 16, 6, 2, 32, None, 1), (2, 37, 37, 16, 8, 128, None, 1),
                (2, 100, 100, 4, 2, 64, None, 1), (1, 1024, 1024, 4, 2, 128, None, 1),
                (2, 70, 70, 4, 4, 112, None, 1), (2, 50, 50, 4, 2, 16, None, 1),
                (2, 45, 45, 12, 4, 64, None, 1), (2, 40, 96, 4, 2, 64, None, 1),
                (3, 80, 80, 4, 2, 64, 0, 1), (2, 300, 300, 8, 2, 112, None, 4),
-               (1, 200, 200, 8, 4, 256, None, 1), (2, 70, 70, 8, 4, 256, 0, 1)]
+               (1, 200, 200, 8, 4, 256, None, 1), (2, 70, 70, 8, 4, 256, 0, 1),
+               (4, 1, 1024, 16, 16, 64, None, 1), (2, 96, 40, 4, 4, 64, None, 1)]
 # B, H, T, P, N, chunk, decay — tests/test_ssd_kernel.py's cases, then
 # zamba2's head geometry with a ragged last chunk, then sizes that are not
 # multiples of the kernel's 16-wide tiles (chunk above 32: both scan
@@ -395,6 +404,46 @@ def test_hybrid_on_card_matches_cpu(cuda):
     card = greedy_stream(_to(params, "cuda"), model.cfg, toks, 8, ps=4)
     assert all(a > b for a, b in zip(counts(), before))
     np.testing.assert_array_equal(card, greedy_stream(params, model.cfg, toks, 8, ps=4))
+
+
+def test_rwkv_on_card_matches_cpu(cuda):
+    """Reduced rwkv6, f32: prefill logits and states within 1e-4 of the
+    CPU's and equal greedy streams (the WKV scan is plain PyTorch on both
+    devices)."""
+    model = get_model("rwkv6-7b", get_config("rwkv6-7b").reduced())
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.RandomState(0).randint(2, 256, size=(3, 20))
+    card = _to(params, "cuda")
+    got, got_st = PR.prefill(card, model.cfg, torch.as_tensor(toks, device="cuda"))
+    want, want_st = PR.prefill(params, model.cfg, torch.as_tensor(toks))
+    assert _err(got.cpu(), want) <= TOL["float32"]
+    assert all(_err(got_st[k].cpu(), want_st[k]) <= TOL["float32"] for k in want_st)
+    np.testing.assert_array_equal(rwkv_greedy_stream(card, model.cfg, toks, 8),
+                                  rwkv_greedy_stream(params, model.cfg, toks, 8))
+
+
+def test_encdec_on_card_matches_cpu(cuda):
+    """Reduced seamless-m4t, f32: prefill logits within 1e-4 of the CPU's
+    (K2 in the encoder, the decoder and cross-attention) and equal greedy
+    streams through K1 decode and K2 cross decode, the second utterance's
+    cross keys masked past 9 of its 16 frames."""
+    model = get_model("seamless-m4t-medium", get_config("seamless-m4t-medium").reduced())
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(0)
+    toks = rng.randint(2, 256, size=(2, 8))
+    frames = torch.from_numpy((rng.standard_normal((2, 16, model.cfg.d_model)) * 0.3)
+                              .astype(np.float32))
+    card = _to(params, "cuda")
+    n1, n2 = K1.launches, K2.launches
+    got = PE.prefill(card, model.cfg, frames.cuda(), torch.as_tensor(toks, device="cuda"))[0]
+    want = PE.prefill(params, model.cfg, frames, torch.as_tensor(toks))[0]
+    assert _err(got.cpu(), want) <= TOL["float32"]
+    evl = np.array([16, 9], np.int32)
+    stream = encdec_greedy_stream(card, model.cfg, frames, toks, 8, ps=4, enc_valid_len=evl)
+    assert K1.launches > n1 and K2.launches > n2
+    np.testing.assert_array_equal(
+        stream, encdec_greedy_stream(params, model.cfg, frames, toks, 8, ps=4,
+                                     enc_valid_len=evl))
 
 
 def _to(tree, device):
