@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port of the Splitwiser engine on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases (what the port's chip check runs)
-    python3 chip_smoke.py --quick    # phases 1-3 at one repeat: build + kernel check
+    python3 chip_smoke.py               # all phases (what the port's chip check runs)
+    python3 chip_smoke.py --quick       # phases 1-3 at one repeat: build + kernel check
+    python3 chip_smoke.py --train-only  # phases 1-2 and 7: build + training
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: device name and count, ``nvidia-smi`` name and power limit;
@@ -70,7 +71,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and seamless 8 decode steps, timed on the host clock and, run again
      from the same state, under ``torch.profiler``: device time by kernel
      class (K1/K3 split into decode, with its combine, and chunk) and the
-     device's busy share.
+     device's busy share;
+  7. training: qwen3-0.6b (full width, 2 layers; chunked and vocab-tiled
+     loss) and olmoe-1b-7b (reduced) on cuda against the CPU, f32: loss,
+     every gradient leaf and the params after 3 steps; the main path,
+     qwen3-0.6b at full width and depth in f32 with remat, B = 4, T =
+     512, 6 ``Trainer`` steps and one asynchronous checkpoint, with K2's
+     training forward (``flash_attention_lse``) launched 2 x 28 a step
+     and no other kernel, its step time, tokens/s, peak memory and a
+     profiled step's device split; in a subprocess under
+     ``torch.use_deterministic_algorithms``, bitwise crash/resume and
+     int8 moments (with a resume through them) on the reduced config;
+     the training launcher in a subprocess.  Phase 3 also holds K2's
+     training forward (o and lse) against its plain version beside the
+     forward-only K2 at the same shapes, and ``flash_attention_ckpt``'s
+     backward on cuda against the CPU's.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 line, the card's ``nvidia-smi`` name and power limit, and
@@ -426,7 +441,8 @@ TC_KERNELS = (  # library, kernel name, C helper of its dynamic shared memory
 def tc_resources(lib, kernel, smem_symbol):
     """Registers, stack and spills of each bf16 tensor-core instantiation
     of ``kernel`` in library ``lib`` (padded head dim DP, without and with
-    softcap) from the ``ptxas -v`` output in ``build.build_log``, with the
+    softcap; K2's also without and with its training forward's ``lse``
+    output) from the ``ptxas -v`` output in ``build.build_log``, with the
     dynamic shared memory a block of it takes.  Fails if a DP = 64 or 128
     one spills (the paths run d = 112 and 128; spills at 256 are
     allowed)."""
@@ -440,8 +456,9 @@ def tc_resources(lib, kernel, smem_symbol):
     out, cur = {}, None
     for line in text.splitlines():
         if "Compiling entry" in line:
-            m = re.search(kernel + r"ILi(\d+)ELb([01])E", line)
-            cur = out.setdefault(f"DP={m[1]}" + (" softcap" if m[2] == "1" else ""),
+            m = re.search(kernel + r"ILi(\d+)ELb([01])E(?:Lb([01])E)?", line)
+            cur = out.setdefault(f"DP={m[1]}" + (" softcap" if m[2] == "1" else "")
+                                 + (" lse" if m[3] == "1" else ""),
                                  dict(dynamic_smem_bytes=smem(int(m[1])))) if m else None
         elif cur is None:
             continue
@@ -451,10 +468,12 @@ def tc_resources(lib, kernel, smem_symbol):
                        spill_load_bytes=int(m[3]))
         elif m := re.search(r"Used (\d+) registers", line):
             cur["registers"] = int(m[1])
-    want = [f"DP={dp}{cap}" for dp in (32, 64, 128, 256) for cap in ("", " softcap")]
+    lse = ("", " lse") if lib == "flash_attention" else ("",)
+    want = [f"DP={dp}{cap}{x}" for dp in (32, 64, 128, 256) for cap in ("", " softcap")
+            for x in lse]
     if sorted(out) != sorted(want):
         fail(f"ptxas log lacks the bf16 instantiations of {kernel}: {sorted(out)}")
-    for key in want[2:6]:                          # DP = 64 and 128
+    for key in (k for k in want if k.split()[0] in ("DP=64", "DP=128")):
         if out[key].get("spill_store_bytes", 1) or out[key].get("spill_load_bytes", 1):
             fail(f"{kernel} {key} spills to local memory: {out[key]}")
     return out
@@ -673,6 +692,119 @@ def seamless_cases(torch, dtype, dname, iters):
     return cases
 
 
+LSE_TOL = 1e-4     # lse is f32 in both dtypes: relative, |a - b| <= 1e-4 max(|b|, 1)
+
+
+def lse_rel_err(a, b):
+    return ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+
+
+def lse_cases(torch, dtype, dname, iters):
+    """K2's training forward (``flash_attention_lse``: o and the
+    log-normalizer) against its plain version, beside the forward-only
+    K2 at the same shape: qwen3-0.6b's training shape (B = 4, T = 512, 16
+    q / 8 kv heads of 128, causal), gemma2-2b's heads (d = 256, softcap
+    50, scale 1/16) with a window of 256 keys at T = 1024, and a ragged
+    non-causal call (seamless-m4t's cross-attention heads, 256 query rows
+    against 1024 keys, valid keys from 300).  o is held to the dtype's
+    tolerance, lse to ``LSE_TOL``.  The library yardstick is SDPA's
+    forward, which returns no lse.  For the qwen3 shape the recompute
+    backward (``layers.flash_ckpt_bwd``, torch ops) is timed too
+    (``bwd_ms``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as K2
+    from repro_torch.models import layers
+    F = torch.nn.functional
+    gem = get_config("gemma2-2b")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cases = []
+    for label, B, T, Tk, H, KV, d, kw, ragged in (
+            ("train lse qwen3 B=4 T=512", 4, 512, 512, 16, 8, 128,
+             dict(scale=1.0 / math.sqrt(128)), False),
+            ("train lse gemma2 B=2 T=1024 d=256 window=256 softcap=50", 2, 1024, 1024, 8, 4,
+             256, dict(scale=gem.attn_scale_override, window=256,
+                       softcap=gem.attn_logit_softcap), False),
+            ("train lse non-causal B=4 T=256 Tk=1024 ragged", 4, 256, 1024, 16, 16, 64,
+             dict(scale=0.125, causal=False), True)):
+        q = torch.randn(B, T, H, d, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, Tk, KV, d, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, Tk, KV, d, generator=g, device="cuda").to(dtype)
+        lens = (torch.linspace(300, Tk, B, device="cuda").round().to(torch.int32) if ragged
+                else torch.full((B,), Tk, dtype=torch.int32, device="cuda"))
+        causal = kw.get("causal", True)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (a.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
+                  for a in (k, v))
+        t, tk = torch.arange(T, device="cuda"), torch.arange(Tk, device="cuda")
+        mask = tk[None, None, :] < lens[:, None, None]
+        if causal:
+            mask = mask & (tk[None, None, :] <= t[None, :, None])
+        if "window" in kw:
+            mask = mask & (tk[None, None, :] > t[None, :, None] - kw["window"])
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
+                                                     scale=kw["scale"])
+        nbytes, flops = flash_work(q, k, lens, kw.get("window"), causal)
+        o, lse = K2.flash_attention_lse(q, k, v, lens, **kw)
+        want_o, want_lse = K2.flash_attention_lse_plain(q, k, v, lens, **kw)
+        extra = dict(lse_rel_err=lse_rel_err(lse, want_lse), lse_tol=LSE_TOL,
+                     library_note="SDPA forward (no lse)")
+        if label.startswith("train lse qwen3"):
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            extra["bwd_ms"] = cuda_time_ms(lambda: layers.flash_ckpt_bwd(
+                q, k, v, lens, o, lse, do, **kw), max(iters // 4, 1))
+            extra["bwd_device_ms"] = device_time_ms(lambda: layers.flash_ckpt_bwd(
+                q, k, v, lens, o, lse, do, **kw), max(iters // 4, 1))[0]
+            del do
+        del o, lse, want_o, want_lse
+        cases.append(measure(
+            torch, "flash_attention", label, dname,
+            lambda: K2.flash_attention_lse(q, k, v, lens, **kw),
+            lambda: K2.flash_attention_lse_plain(q, k, v, lens, **kw),
+            lib, (nbytes + B * H * T * 4, flops), iters, extra, outputs=("o", "lse")))
+        cases.append(measure(
+            torch, "flash_attention", label.replace("train lse", "train forward-only"), dname,
+            lambda: K2.flash_attention(q, k, v, lens, **kw),
+            lambda: K2.flash_attention_plain(q, k, v, lens, **kw),
+            lib, (nbytes, flops), iters))
+        del q, k, v, qt, kt, vt, mask
+    return cases
+
+
+def ckpt_backward_check(torch):
+    """The backward of ``flash_attention_ckpt`` on cuda (K2's training
+    forward, then the recompute in torch ops on the card) against the same
+    ``torch.autograd.Function`` on the CPU (plain forward, the same
+    recompute), f32, on the same inputs: qwen3-0.6b's heads causal (B = 2,
+    T = 512) and gemma2-2b's (d = 256, window 256, softcap 50).  dq, dk
+    and dv must agree within 1e-4 relative to each tensor's max |g|."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    gem = get_config("gemma2-2b")
+    g = torch.Generator().manual_seed(13)
+    out = []
+    for label, B, T, H, KV, d, kw in (
+            ("qwen3 B=2 T=512", 2, 512, 16, 8, 128, dict(scale=1.0 / math.sqrt(128))),
+            ("gemma2 B=1 T=512 d=256 window=256 softcap=50", 1, 512, 8, 4, 256,
+             dict(scale=gem.attn_scale_override, window=256, softcap=gem.attn_logit_softcap))):
+        x = [torch.randn(B, T, h, d, generator=g) for h in (H, KV, KV)]
+        do = torch.randn(B, T, H, d, generator=g)
+        lens = torch.full((B,), T, dtype=torch.int32)
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            q, k, v = (t.detach().to(dev).requires_grad_() for t in x)
+            o = ops.flash_attention_ckpt(q, k, v, lens.to(dev), **kw)
+            o.backward(do.to(dev))
+            grads[dev] = [t.grad.cpu() for t in (q, k, v)]
+        rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(grads["cuda"], grads["cpu"])]
+        r = dict(case=label, dq_rel=rel[0], dk_rel=rel[1], dv_rel=rel[2], tol=1e-4)
+        log("flash_attention_ckpt backward cuda vs cpu " + json.dumps(r))
+        if not max(rel) <= 1e-4:
+            fail(f"flash_attention_ckpt backward differs between cuda and cpu: {r}")
+        out.append(r)
+    return out
+
+
 def phase_kernels(torch, iters):
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_attention as K1
@@ -767,7 +899,9 @@ def phase_kernels(torch, iters):
         del q, k, v, qt, kt, vt
         cases += gemma2_cases(torch, dtype, dname, iters)
         cases += seamless_cases(torch, dtype, dname, iters)
+        cases += lse_cases(torch, dtype, dname, iters)
     edge = stale_checks(torch)
+    ckpt_backward_check(torch)
     for c in cases + edge:
         log("kernel " + json.dumps(c))
     bad = [c for c in cases + edge if not c["max_abs_err"] <= c["tol"]]
@@ -780,6 +914,7 @@ def phase_kernels(torch, iters):
     # would exceed
     bad += [c for c in cases if "splits" in c and not c["row_rel_err"] <= c["tol"]]
     bad += [c for c in edge if not (c["finite"] and c["empty_row_zero"])]
+    bad += [c for c in cases if "lse_rel_err" in c and not c["lse_rel_err"] <= LSE_TOL]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     return cases
@@ -837,6 +972,7 @@ def launch_counts():
     for name in ("paged_attention", "paged_attention_int8"):
         for part in ("decode", "chunk"):
             counters[f"{name}_{part}"] = (mods[name], f"launches_{part}")
+    counters["flash_attention_lse"] = (K2, "launches_lse")     # K2's training forward
     return counters
 
 
@@ -1776,6 +1912,320 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+# ------------------------------------------------------------ phase 7 ---
+TRAIN = dict(global_batch=4, seq_len=512, steps=6)      # the main training path
+
+
+def tree_to(tree, device):
+    """A training state (nested dicts of tensors) on ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def phase_train_cross_device(torch, tmp):
+    """Training on cuda against the CPU, f32, one seeded state and the
+    same batches (B = 2, T = 64): qwen3-0.6b at full width and 2 layers
+    with the chunked and with the vocab-tiled loss, then olmoe-1b-7b
+    (reduced) for its MoE aux loss.  The loss within 1e-5 relative, every
+    gradient leaf within 1e-4 of the leaf's max |g|, and (qwen3) the
+    params after 3 train steps within 1e-4."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_train_data_fn
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import init_state, make_loss_fn, make_train_step, value_and_grad
+    qwen2 = replace(get_config("qwen3-0.6b"), n_layers=2)
+    out = []
+    for arch, cfg, loss_impl, n_steps in (("qwen3-0.6b", qwen2, "chunked", 3),
+                                          ("qwen3-0.6b", qwen2, "vtiled", 3),
+                                          ("olmoe-1b-7b", get_config("olmoe-1b-7b").reduced(),
+                                           "chunked", 1)):
+        model = get_model(arch, cfg)
+        tcfg = TrainConfig(global_batch=2, seq_len=64, warmup_steps=0, total_steps=10,
+                           loss_impl=loss_impl, remat=True, ckpt_dir=str(tmp / "unused"))
+        state = init_state(model, torch.Generator().manual_seed(0), tcfg, device="cpu")
+        data_fn = make_train_data_fn(cfg, tcfg)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            st = tree_to(state, dev)
+            batch = {k: v.to(dev) for k, v in data_fn(0).items()}
+            loss, grads = value_and_grad(make_loss_fn(model, tcfg), st["params"], batch)
+            step = make_train_step(model, tcfg)
+            for i in range(n_steps):
+                st, _ = step(st, {k: v.to(dev) for k, v in data_fn(i).items()})
+            runs[dev] = (loss.item(), [g.cpu() for g in tree_leaves(grads)],
+                         [p.cpu() for p in tree_leaves(st["params"])])
+            del st, grads
+        (lc, gc_, pc), (lp, gp, pp) = runs["cuda"], runs["cpu"]
+        g_rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                    for a, b in zip(gc_, gp))
+        p_err = max((a - b).abs().max().item() for a, b in zip(pc, pp))
+        r = dict(arch=cfg.name, loss_impl=loss_impl, loss_cuda=lc, loss_cpu=lp,
+                 loss_rel=abs(lc - lp) / abs(lp), grad_rel=g_rel, steps=n_steps,
+                 params_max_abs_err=p_err)
+        log("training cross-device " + json.dumps(r))
+        if not (r["loss_rel"] <= 1e-5 and g_rel <= 1e-4 and p_err <= 1e-4):
+            fail(f"training differs between cuda and cpu: {r}")
+        out.append(r)
+        del runs, state
+        gc.collect()
+    return out
+
+
+def profiled_train_step(torch, model, tcfg, state, batch):
+    """One train step of ``state`` on ``batch``, written out so that CUDA
+    events split its device time: the layers' forward, the loss (forward
+    and backward, up to the gradient of the hidden states), the layers'
+    backward (with remat's recompute), and clipping + AdamW; under
+    ``torch.profiler``, K2's kernels and the recompute backward of
+    ``flash_attention_ckpt`` (its ``_FlashCkptBackward`` node) within
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_update, clip_by_global_norm, warmup_cosine
+    from repro_torch.train.losses import lm_loss_from_hidden
+    cfg = model.cfg
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        live = tree_map(lambda p: p.detach().requires_grad_(True), state["params"])
+        ev[0].record()
+        hidden, _ = T.train_hidden(live, cfg, batch, remat=tcfg.remat)
+        ev[1].record()
+        loss, _ = lm_loss_from_hidden(hidden, batch["labels"], live["embed"],
+                                      softcap=cfg.final_logit_softcap, v_real=cfg.vocab_size)
+        ev[2].record()
+        hidden.register_hook(lambda g: ev[3].record())
+        leaves = tree_leaves(live)
+        it = iter(torch.autograd.grad(loss, leaves))
+        ev[4].record()
+        grads, _ = clip_by_global_norm(tree_map(lambda _: next(it), state["params"]),
+                                       tcfg.grad_clip)
+        lr = warmup_cosine(state["opt"]["count"], base_lr=tcfg.lr,
+                           warmup_steps=tcfg.warmup_steps, total_steps=tcfg.total_steps)
+        adamw_update(grads, state["opt"], state["params"], lr=lr, b1=tcfg.b1, b2=tcfg.b2,
+                     weight_decay=tcfg.weight_decay)
+        ev[5].record()
+        torch.cuda.synchronize()
+    span = lambda a, b: ev[a].elapsed_time(ev[b])
+    by_class, n_kernels = device_ms_by_class(torch, prof)
+    bwd_ms = max((e.device_time_total / 1e3 for e in prof.key_averages()
+                  if "_FlashCkptBackward" in e.key), default=0.0)
+    k2_ms, kernels_ms = by_class.get("flash_attention", 0.0), sum(by_class.values())
+    split = dict(step_ms=span(0, 5), layers_forward_ms=span(0, 1),
+                 loss_ms=span(1, 3), layers_backward_ms=span(3, 4),
+                 clip_adamw_ms=span(4, 5), k2_kernels_ms=k2_ms,
+                 flash_backward_ms=bwd_ms, kernels_ms=kernels_ms, kernels=n_kernels,
+                 device_ms_by_class={k: round(v, 3) for k, v in sorted(by_class.items())})
+    split["other_ms"] = (split["step_ms"] - split["loss_ms"] - split["clip_adamw_ms"]
+                         - k2_ms - bwd_ms)
+    split["busy_share"] = kernels_ms / split["step_ms"]
+    return split
+
+
+def phase_train_path(torch, tmp):
+    """The main training path: qwen3-0.6b at full width and depth (28
+    layers), f32 master params, remat, chunked CE, AdamW, B = 4, T = 512,
+    through ``Trainer`` for 6 steps with one asynchronous checkpoint at
+    the end (about 7.2 GB of params and moments).  Launch counters are
+    zeroed just before and read just after: K2's training forward must
+    launch 2 x 28 x 6 times (the forward and remat's recompute), and K1,
+    K3, K4 and the forward-only K2 not at all.  Every loss and gnorm
+    finite, the params changed.  Peak memory is logged with what was
+    allocated when the run started (the state, plus what earlier phases
+    still hold).  Then one more step, profiled
+    (``profiled_train_step``)."""
+    import os
+    from repro_torch.common.tree import tree_bytes, tree_count
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.ckpt.checkpoint import latest_step
+    from repro_torch.data import make_train_data_fn
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import Trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-0.6b")
+    model = get_model("qwen3-0.6b", cfg)
+    B, T, steps = TRAIN["global_batch"], TRAIN["seq_len"], TRAIN["steps"]
+    tcfg = TrainConfig(global_batch=B, seq_len=T, total_steps=steps, ckpt_every=steps,
+                       remat=True, loss_impl="chunked", ckpt_dir=str(tmp / "main"))
+    data_fn = make_train_data_fn(cfg, tcfg)
+    trainer = Trainer(model, tcfg, data_fn, log_every=1, device="cuda")
+    params = trainer.state["params"]
+    before = {k: params[k].clone() for k in ("embed",)}
+    before["wq"] = params["blocks"]["wq"].clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()      # this state and what earlier phases hold
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    m = [v for _, v in trainer.metrics]
+    step_s = [v["step_s"] for v in m]
+    want_lse = 2 * cfg.n_layers * steps
+    ckpt_dir = tmp / "main" / f"step_{steps}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir()) if ckpt_dir.is_dir() else 0
+    changed = any(not torch.equal(before[k], (trainer.state["params"][k] if k == "embed" else
+                                             trainer.state["params"]["blocks"][k]))
+                  for k in before)
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    r = dict(arch=cfg.name, layers=cfg.n_layers, params=tree_count(params), dtype="float32",
+             batch=B, seq=T, steps=steps, losses=[v["loss"] for v in m],
+             gnorms=[v["gnorm"] for v in m], lrs=[v["lr"] for v in m], step_s=step_s,
+             step_s_median_after_first=steady, tokens_per_s=B * T / steady,
+             run_wall_s=wall, checkpoint_s=wall - sum(step_s),
+             checkpoint_snapshot_s=trainer.ckpt.snapshot_s, checkpoint_bytes=ckpt_bytes,
+             max_memory_allocated_bytes=peak, allocated_before_bytes=resident,
+             state_bytes=tree_bytes(trainer.state), launches=counts,
+             k2_lse_launches_expected=want_lse)
+    log("training main path " + json.dumps(r))
+    bad = []
+    if not all(math.isfinite(x) for x in r["losses"] + r["gnorms"]):
+        bad.append("a loss or gnorm is not finite")
+    if not changed:
+        bad.append("the params did not change")
+    if latest_step(str(tmp / "main")) != steps:
+        bad.append(f"no checkpoint of step {steps}")
+    if counts["flash_attention_lse"] != want_lse:
+        bad.append(f"K2 training forward launched {counts['flash_attention_lse']} times, "
+                   f"expected {want_lse}")
+    others = {k: v for k, v in counts.items() if k != "flash_attention_lse" and v}
+    if others:
+        bad.append(f"kernels off the training path launched: {others}")
+    if bad:
+        fail("training main path: " + "; ".join(bad))
+    del before
+    gc.collect()
+    batch = {k: v.to("cuda") for k, v in data_fn(steps).items()}
+    split = profiled_train_step(torch, model, tcfg, trainer.state, batch)
+    log("training step device split " + json.dumps(split))
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.sync()
+    return r, split
+
+
+def train_determinism(torch, tmp):
+    """Run in its own process, with ``CUBLAS_WORKSPACE_CONFIG`` set before
+    CUDA starts: under ``torch.use_deterministic_algorithms(True)``, the
+    reduced qwen3-0.6b of the CPU tests (B = 4, T = 16, remat) trained 6
+    steps uninterrupted against a run that crashes after step 5 and
+    resumes from its step-4 checkpoint: the final params must be bitwise
+    equal.  Then int8 moments: 3 steps against f32 moments (last loss
+    within 0.1, the reference's bound), and a crash after step 2 resumed
+    through the ``Q8`` moments of its checkpoint, bitwise equal to the
+    uninterrupted int8 run.  Prints one JSON line."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_train_data_fn
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import Q8
+    from repro_torch.train.trainer import Trainer
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = get_model("qwen3-0.6b", cfg)
+
+    def run(tcfg, name, crash_at=None):
+        tr = Trainer(model, replace(tcfg, ckpt_dir=str(tmp / name)), data_fn, log_every=1,
+                     device="cuda")
+        start = tr.start_step
+        if crash_at is None:
+            tr.run()
+        else:
+            try:
+                tr.run(crash_at=crash_at)
+            except RuntimeError as e:
+                if "simulated failure" not in str(e):
+                    raise
+            else:
+                fail("the simulated crash did not happen")
+        return tr, start
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.state["params"]),
+                                                     tree_leaves(b.state["params"]),
+                                                     strict=True))
+
+    tcfg = TrainConfig(global_batch=4, seq_len=16, total_steps=6, ckpt_every=4, remat=True)
+    data_fn = make_train_data_fn(cfg, tcfg)
+    ref, _ = run(tcfg, "ref")
+    run(tcfg, "crash", crash_at=5)
+    res, start = run(tcfg, "crash")
+    t8 = replace(tcfg, total_steps=3, ckpt_every=2, int8_moments=True)
+    r8, _ = run(t8, "int8")
+    rf, _ = run(replace(t8, int8_moments=False), "f32")
+    run(t8, "int8_crash", crash_at=2)
+    c8, start8 = run(t8, "int8_crash")
+    out = dict(resume_start=start, bitwise_equal=same(ref, res),
+               int8_loss=r8.history[-1][1], f32_loss=rf.history[-1][1],
+               int8_resume_start=start8,
+               int8_resumed_q8=isinstance(c8.state["opt"]["mu"]["embed"], Q8),
+               int8_bitwise_equal=same(r8, c8),
+               losses=[l for _, l in ref.history])
+    print("determinism " + json.dumps(out), flush=True)
+
+
+def phase_train_subprocesses(torch, tmp):
+    """Bitwise resume and int8 moments on the card (``train_determinism``,
+    in a subprocess of this script so ``CUBLAS_WORKSPACE_CONFIG`` is set
+    before CUDA starts), then the launcher as its users run it:
+    ``python -m repro_torch.launch.train --arch qwen3-0.6b --reduced
+    --steps 4``, which must exit 0 and print its ``done:`` line."""
+    import os
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--train-determinism",
+                          str(tmp / "det")], env=env, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        fail(f"train determinism run exited {out.returncode}: {out.stderr.strip()[-3000:]}")
+    line = next(x for x in out.stdout.splitlines() if x.startswith("determinism "))
+    det = json.loads(line[len("determinism "):])
+    log("training on the card under deterministic algorithms " + json.dumps(det))
+    bad = []
+    if not (det["resume_start"] == 4 and det["bitwise_equal"]):
+        bad.append("the resumed run is not bitwise equal to the uninterrupted one")
+    if not abs(det["int8_loss"] - det["f32_loss"]) < 0.1:
+        bad.append("int8 moments' loss is not within 0.1 of f32 moments'")
+    if not (det["int8_resume_start"] == 2 and det["int8_resumed_q8"]
+            and det["int8_bitwise_equal"]):
+        bad.append("the int8-moment resume is not bitwise equal to the uninterrupted run")
+    if bad:
+        fail("training on the card: " + "; ".join(bad))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b",
+           "--reduced", "--steps", "4", "--ckpt-dir", str(tmp / "launcher")]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    done = [x for x in out.stdout.splitlines() if x.startswith("done:")]
+    if out.returncode != 0 or not done:
+        fail(f"train launcher exited {out.returncode}: {out.stdout[-1000:]} "
+             f"{out.stderr.strip()[-2000:]}")
+    log(f"train launcher ({' '.join(cmd[1:5])} ... --steps 4; {wall:.1f} s with start-up): "
+        + " | ".join(out.stdout.strip().splitlines()))
+    return det
+
+
+def phase_train(torch):
+    """Phase 7, training, in a temporary directory deleted afterwards."""
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        cross = phase_train_cross_device(torch, tmp)
+        main_path, split = phase_train_path(torch, tmp)
+        det = phase_train_subprocesses(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(cross_device=cross, main_path=main_path, split=split, determinism=det)
+
+
 # ------------------------------------------------------------------ main ---
 KERNELS = {
     "paged_attention": dict(
@@ -1808,10 +2258,30 @@ KERNELS = {
 }
 
 
+def train_launches(train, cases):
+    """K2's training forward in the kernels line: its launches on the
+    training main path and its case at that path's shape (f32)."""
+    c = next(c for c in cases if c["case"] == "train lse qwen3 B=4 T=512"
+             and c["dtype"] == "float32")
+    path = f"train {train['main_path']['arch']}"
+    return dict(launches_lse=train["main_path"]["launches"]["flash_attention_lse"],
+                launches_lse_by_path={path: train["main_path"]["launches"]["flash_attention_lse"]},
+                launches_lse_per_step=train["main_path"]["launches"]["flash_attention_lse"]
+                / train["main_path"]["steps"],
+                lse_case=f"{c['case']} float32", lse_ms=c["ms"], lse_device_ms=c["device_ms"],
+                lse_plain_ms=c["plain_ms"], lse_bound_ms=c["bound_ms"],
+                lse_bound_by=c["bound_by"], lse_max_abs_err=c["max_abs_err"],
+                lse_rel_err=c["lse_rel_err"], lse_bwd_ms=c["bwd_ms"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only (phases 1-3, 1 timed repeat)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then the training phase only (phases 1, 2 and 7)")
+    ap.add_argument("--train-determinism", metavar="DIR",
+                    help=argparse.SUPPRESS)   # phase 7's subprocess (train_determinism)
     args = ap.parse_args()
 
     import torch
@@ -1824,6 +2294,9 @@ def main() -> int:
     # every f32 comparison on the card is in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.train_determinism:
+        train_determinism(torch, Path(args.train_determinism))
+        return 0
     t_start = time.perf_counter()
 
     # 1. environment
@@ -1841,6 +2314,11 @@ def main() -> int:
         for line in info["ptxas"].splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 log(f"ptxas {kname}: {line.strip()}")
+
+    if args.train_only:
+        phase_train(torch)
+        log(f"training-only run passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # 3. kernels against their plain versions
     for lib, kernel, smem_symbol in TC_KERNELS:
@@ -1892,6 +2370,11 @@ def main() -> int:
     phase_hybrid_profile(torch, hybrid_setup)
     phase_decode_profile(torch, "rwkv6-7b", rwkv_window)
     phase_decode_profile(torch, "seamless-m4t-medium", seamless_window)
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 7. training
+    train = phase_train(torch)
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -1920,6 +2403,7 @@ def main() -> int:
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], library=meta["library"],
             device_ms=c["device_ms"], library_device_ms=c["library_device_ms"],
+            **(train_launches(train, cases) if kname == "flash_attention" else {}),
             cases=[{k: v for k, v in x.items() if k != "kernel"}
                    for x in cases if x["kernel"] == kname]))
     log(f"total {time.perf_counter() - t_start:.1f} s")

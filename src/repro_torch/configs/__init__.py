@@ -1,3 +1,3 @@
 from repro_torch.configs.base import (SERVE_MODES, ModelConfig, ServeConfig,
-                                      TenantTier)
+                                      TenantTier, TrainConfig)
 from repro_torch.configs.registry import ARCHS, get_config, list_archs

@@ -370,3 +370,23 @@ class ServeConfig:
         """The effective reclaimable-page strip order: ``eviction_policy``
         when set, else the legacy ``prefix_cache_policy`` knob."""
         return self.eviction_policy or self.prefix_cache_policy
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 8
+    seq_len: int = 128
+    lr: float = 3e-4
+    warmup_steps: int = 10
+    total_steps: int = 100
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    microbatch: int = 0          # 0 = no grad accumulation
+    remat: bool = True
+    int8_moments: bool = False   # quantized optimizer state (beyond-paper)
+    loss_impl: str = "chunked"   # chunked | vtiled (fused vocab-tiled CE)
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_every: int = 50
+    seed: int = 0

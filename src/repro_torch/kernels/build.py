@@ -126,3 +126,21 @@ def check_cuda_args(tensors: Dict[str, torch.Tensor], int32: Sequence[str],
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+TRAIN_ROUTE = ("train attention through ops.flash_attention_ckpt (K2 with its "
+               "log-normalizer and the recompute backward)")
+
+
+def refuse_grad(name: str, tensors: Iterable[torch.Tensor], route: str) -> None:
+    """Raise when a CUDA launch of kernel ``name`` would cut autograd: a
+    ctypes launch fills its output outside PyTorch's graph, so under grad
+    mode an input that requires grad would get a constant output and a
+    silently wrong gradient.  ``route`` names what to call instead (or
+    says there is no backward yet).  The wrappers call this on every
+    non-CPU device: the plain versions differentiate."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad and t.device.type != "cpu" for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no autograd backward and an input "
+            f"requires grad; {route}")

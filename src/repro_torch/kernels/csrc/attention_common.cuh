@@ -148,12 +148,16 @@ inline size_t smem_bytes(int d) {
 
 // Attend the block's query rows [row0, row0 + WARPS) of sequence b, kv
 // head kvh over keys [0, kv_len).  Src loads 16 bytes of key position t's
-// K and V rows (FpSrc or Q8Src).
-template <typename T, typename Src>
+// K and V rows (FpSrc or Q8Src).  With WRITE_LSE (K2's training forward;
+// a compile-time flag, so K1 and K3 compile as without it) each row also
+// writes its log-normalizer m + log(max(l, 1e-30)) in the capped-logit
+// scale to lse [B, KV, G, C].
+template <typename T, typename Src, bool WRITE_LSE = false>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             const Src& src, int b, int kvh, int C, int H,
                             int KV, int d, int row0, int q_pos0, int kv_len,
-                            float scale, int causal, int window, float softcap) {
+                            float scale, int causal, int window, float softcap,
+                            float* __restrict__ lse = nullptr) {
   extern __shared__ float smem[];
   float* q_s = smem;                       // [WARPS][d], scaled queries
   float* k_s = q_s + WARPS * d;            // [TILE_K][d + 1]
@@ -230,6 +234,9 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   for (int k = 0; k < DPL; ++k) {
     const int i = lane + 32 * k;
     if (i < d) out[q_off + i] = from_f<T>(acc[k] / denom);
+  }
+  if constexpr (WRITE_LSE) {
+    if (lane == 0) lse[((size_t(b) * KV + kvh) * G + row % G) * C + c] = m + logf(denom);
   }
 }
 

@@ -52,6 +52,14 @@
 // f32 keeps the CUDA-core tile loop of attention_common.cuh (one warp per
 // query row), so the card-vs-CPU parity runs stay in full f32, off TF32.
 //
+// The training forward (flash_attention_lse_{f32,bf16}) is the same code
+// with a compile-time flag (LSE) that also writes each folded row's
+// log-normalizer, lse [B, KV, G, T_q] f32 = m + log(max(l, 1e-30)) in the
+// capped-logit scale (the bf16 kernel's m is in log2 units: m ln 2); a row
+// that sees no key writes -1e30.  The recompute backward
+// (models/layers.py::flash_attention_ckpt) reads it.  The forward-only
+// entry points instantiate the kernels without the flag, as before.
+//
 // Layouts (the model's): q, out [B, T, H, d]; k, v [B, Tk, KV, d];
 // kv_lens [B] int32.
 #include "attention_common.cuh"
@@ -59,45 +67,46 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool LSE = false>
 __global__ void __launch_bounds__(attn::THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ kv_lens,
                        T* __restrict__ out, int T_q, int Tk, int H, int KV,
                        int d, float scale, int causal, int window,
-                       float softcap) {
+                       float softcap, float* __restrict__ lse) {
+  using Src = attn::FpSrc<T, attn::DenseRows>;
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int kv_len = min(kv_lens[b], Tk);
-  const attn::FpSrc<T, attn::DenseRows> src{
-      k, v, {size_t(b) * Tk * KV + kvh, KV}, d};
-  attn::attend_rows<T>(q, out, src, b, kvh, T_q, H, KV, d,
-                       blockIdx.x * attn::WARPS, /*q_pos0=*/0, kv_len, scale,
-                       causal, window, softcap);
+  const Src src{k, v, {size_t(b) * Tk * KV + kvh, KV}, d};
+  attn::attend_rows<T, Src, LSE>(q, out, src, b, kvh, T_q, H, KV, d,
+                                 blockIdx.x * attn::WARPS, /*q_pos0=*/0, kv_len,
+                                 scale, causal, window, softcap, lse);
 }
 
-template <typename T>
+template <typename T, bool LSE>
 int run(const void* q, const void* k, const void* v, const void* kv_lens,
-        void* out, int B, int T_q, int Tk, int H, int KV, int d, float scale,
-        int causal, int window, float softcap, void* stream) {
+        void* out, float* lse, int B, int T_q, int Tk, int H, int KV, int d,
+        float scale, int causal, int window, float softcap, void* stream) {
   const int rows = T_q * (H / KV);
   const dim3 grid((rows + attn::WARPS - 1) / attn::WARPS, KV, B);
-  return attn::launch(flash_attention_kernel<T>, grid, d, stream,
+  return attn::launch(flash_attention_kernel<T, LSE>, grid, d, stream,
                       static_cast<const T*>(q), static_cast<const T*>(k),
                       static_cast<const T*>(v),
                       static_cast<const int*>(kv_lens), static_cast<T*>(out),
-                      T_q, Tk, H, KV, d, scale, causal, window, softcap);
+                      T_q, Tk, H, KV, d, scale, causal, window, softcap, lse);
 }
 
 // ------------------------------------------------ bf16, tensor cores ---
 // tc:: helpers (cp.async, ldmatrix, mma.sync, the softmax step) are in
 // tc_common.cuh, shared with the paged tile loop of K1/K3.
 
-template <int DP, bool CAPPED>
+template <int DP, bool CAPPED, bool LSE = false>
 __global__ void __launch_bounds__(tc::THREADS, DP <= 128 ? 2 : 1)
 flash_attention_kernel_tc(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
                           const tc::bf16* __restrict__ v, const int* __restrict__ kv_lens,
                           tc::bf16* __restrict__ out, int T_q, int Tk, int H, int KV,
-                          int d, float scale, int causal, int window, float softcap) {
+                          int d, float scale, int causal, int window, float softcap,
+                          float* __restrict__ lse) {
   using namespace tc;
   constexpr int S = DP + 8;            // shared row stride, elements
   constexpr int KSTEPS = DP / 16;
@@ -123,6 +132,11 @@ flash_attention_kernel_tc(const tc::bf16* __restrict__ q, const tc::bf16* __rest
     const int c = r / G;
     return ((size_t(b) * T_q + c) * H + kvh * G + (r - c * G)) * size_t(d);
   };
+  // row r's log-normalizer slot in lse [B, KV, G, T_q]
+  auto lse_off = [&](int r) {
+    const int c = r / G;
+    return ((size_t(b) * KV + kvh) * G + (r - c * G)) * size_t(T_q) + c;
+  };
 
   // keys any row of the block sees, and keys every row sees
   const int c_lo = r0 / G, c_hi = (min(r0 + BLOCK_M, n_rows) - 1) / G;
@@ -140,6 +154,9 @@ flash_attention_kernel_tc(const tc::bf16* __restrict__ q, const tc::bf16* __rest
       for (int j = lr; j < BLOCK_M; j += RPP)
         if (r0 + j < n_rows)
           *reinterpret_cast<uint4*>(out + q_off(r0 + j) + lc * 8) = make_uint4(0, 0, 0, 0);
+    if constexpr (LSE) {
+      if (tid < BLOCK_M && r0 + tid < n_rows) lse[lse_off(r0 + tid)] = NEG_INF;
+    }
     return;
   }
 
@@ -268,6 +285,13 @@ flash_attention_kernel_tc(const tc::bf16* __restrict__ q, const tc::bf16* __rest
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float denom = fmaxf(sum, 1e-30f);
+    if constexpr (LSE) {
+      // m is in log2 units; a row that saw no key keeps the mask value,
+      // as the plain version's m + log(1e-30) rounds back to -1e30
+      const int r = r0 + warp * 16 + g + 8 * h;
+      if ((lane & 3) == 0 && r < n_rows)
+        lse[lse_off(r)] = m[h] == NEG_INF ? NEG_INF : m[h] * LN2 + logf(denom);
+    }
     bf16* row = q_s + (warp * 16 + g + 8 * h) * S + t2;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n)
@@ -288,13 +312,13 @@ flash_attention_kernel_tc(const tc::bf16* __restrict__ q, const tc::bf16* __rest
   }
 }
 
-template <int DP>
+template <int DP, bool LSE>
 int run_tc(const void* q, const void* k, const void* v, const void* kv_lens, void* out,
-           int B, int T_q, int Tk, int H, int KV, int d, float scale, int causal,
-           int window, float softcap, void* stream) {
+           float* lse, int B, int T_q, int Tk, int H, int KV, int d, float scale,
+           int causal, int window, float softcap, void* stream) {
   constexpr size_t smem = tc::smem_bytes<DP>();
-  const auto kernel = softcap > 0.f ? flash_attention_kernel_tc<DP, true>
-                                    : flash_attention_kernel_tc<DP, false>;
+  const auto kernel = softcap > 0.f ? flash_attention_kernel_tc<DP, true, LSE>
+                                    : flash_attention_kernel_tc<DP, false, LSE>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -305,8 +329,23 @@ int run_tc(const void* q, const void* k, const void* v, const void* kv_lens, voi
   kernel<<<grid, tc::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const int*>(kv_lens),
-      static_cast<tc::bf16*>(out), T_q, Tk, H, KV, d, scale, causal, window, softcap);
+      static_cast<tc::bf16*>(out), T_q, Tk, H, KV, d, scale, causal, window, softcap,
+      lse);
   return int(cudaGetLastError());
+}
+
+template <bool LSE>
+int run_bf16(const void* q, const void* k, const void* v, const void* kv_lens, void* out,
+             float* lse, int B, int T_q, int Tk, int H, int KV, int d, float scale,
+             int causal, int window, float softcap, void* stream) {
+  auto* fn = &run_tc<256, LSE>;
+  switch (tc::padded_dim(d)) {
+    case 32: fn = &run_tc<32, LSE>; break;
+    case 64: fn = &run_tc<64, LSE>; break;
+    case 128: fn = &run_tc<128, LSE>; break;
+  }
+  return fn(q, k, v, kv_lens, out, lse, B, T_q, Tk, H, KV, d, scale, causal, window,
+            softcap, stream);
 }
 
 }  // namespace
@@ -315,22 +354,35 @@ extern "C" int flash_attention_f32(
     const void* q, const void* k, const void* v, const void* kv_lens,
     void* out, int B, int T_q, int Tk, int H, int KV, int d, float scale,
     int causal, int window, float softcap, void* stream) {
-  return run<float>(q, k, v, kv_lens, out, B, T_q, Tk, H, KV, d, scale,
-                    causal, window, softcap, stream);
+  return run<float, false>(q, k, v, kv_lens, out, nullptr, B, T_q, Tk, H, KV, d,
+                           scale, causal, window, softcap, stream);
 }
 
 extern "C" int flash_attention_bf16(
     const void* q, const void* k, const void* v, const void* kv_lens,
     void* out, int B, int T_q, int Tk, int H, int KV, int d, float scale,
     int causal, int window, float softcap, void* stream) {
-  auto* fn = &run_tc<256>;
-  switch (tc::padded_dim(d)) {
-    case 32: fn = &run_tc<32>; break;
-    case 64: fn = &run_tc<64>; break;
-    case 128: fn = &run_tc<128>; break;
-  }
-  return fn(q, k, v, kv_lens, out, B, T_q, Tk, H, KV, d, scale, causal, window,
-             softcap, stream);
+  return run_bf16<false>(q, k, v, kv_lens, out, nullptr, B, T_q, Tk, H, KV, d, scale,
+                         causal, window, softcap, stream);
+}
+
+// The training forward: the same, plus each folded row's log-normalizer
+// lse [B, KV, G, T_q] f32 (m + log(max(l, 1e-30)) in the capped-logit
+// scale, the reference's layout), which the recompute backward reads.
+extern "C" int flash_attention_lse_f32(
+    const void* q, const void* k, const void* v, const void* kv_lens,
+    void* out, void* lse, int B, int T_q, int Tk, int H, int KV, int d, float scale,
+    int causal, int window, float softcap, void* stream) {
+  return run<float, true>(q, k, v, kv_lens, out, static_cast<float*>(lse), B, T_q, Tk,
+                          H, KV, d, scale, causal, window, softcap, stream);
+}
+
+extern "C" int flash_attention_lse_bf16(
+    const void* q, const void* k, const void* v, const void* kv_lens,
+    void* out, void* lse, int B, int T_q, int Tk, int H, int KV, int d, float scale,
+    int causal, int window, float softcap, void* stream) {
+  return run_bf16<true>(q, k, v, kv_lens, out, static_cast<float*>(lse), B, T_q, Tk, H,
+                        KV, d, scale, causal, window, softcap, stream);
 }
 
 // Dynamic shared memory, in bytes, of one block of a bf16 call at head

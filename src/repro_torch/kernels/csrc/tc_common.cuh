@@ -22,6 +22,7 @@ constexpr int BLOCK_M = 16 * WARPS;  // folded query rows per block
 constexpr int BLOCK_N = 64;          // keys per tile
 constexpr float NEG_INF = -1e30f;    // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Q, then two stages of K and V, each row DP + 8 elements.
 template <int DP>

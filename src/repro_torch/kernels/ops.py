@@ -10,6 +10,15 @@ layer — and call the kernel wrappers.  The reference padded ``d`` to the
 128-lane TPU width; the CUDA kernels take ``d`` as it is.
 ``ssd_chunk_scan`` has no counterpart there: the reference's Mamba2 block
 ran its jnp oracle, and the port's runs the scan kernel (K4) through it.
+
+Training attention goes through ``flash_attention_ckpt``: K2's forward
+with its log-normalizer inside a ``torch.autograd.Function`` whose
+backward recomputes the logits per key block
+(``models/layers.py::flash_attention_ckpt``).  The other entry points
+launch kernels that have no backward: on the card they raise when grad
+mode is on and an input requires grad (``build.refuse_grad``), rather
+than return a tensor cut from autograd; serving runs under
+``torch.inference_mode``, so it never meets the guard.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import paged_attention as _paged_mod
 from repro_torch.kernels import paged_attention_int8 as _paged_i8_mod
 from repro_torch.kernels import ssd_scan as _ssd_mod
+from repro_torch.models import layers
 from repro_torch.models.layers import NO_WINDOW
 
 
@@ -56,6 +66,16 @@ def flash_attention(q, k, v, kv_lens, *, scale, causal=True, window=None,
         q.contiguous(), k.contiguous(), v.contiguous(),
         kv_lens.to(torch.int32).contiguous(), scale=scale, causal=causal,
         window=_window(window), softcap=softcap)
+
+
+def flash_attention_ckpt(q, k, v, kv_lens, *, scale, causal=True, window=None,
+                         softcap=None):
+    """:func:`flash_attention` with a backward: q [B, T, H_p, d]; k/v
+    [B, Tk, KV_p, d]. Returns [B, T, H_p, d], differentiable in q, k, v."""
+    return layers.flash_attention_ckpt(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        kv_lens.to(torch.int32).contiguous(), scale=scale, causal=causal,
+        window=_window(window), attn_softcap=softcap)
 
 
 def ssd_chunk_scan(x, la, Bc, Cc, h0=None, *, chunk=64):

@@ -152,6 +152,8 @@ def paged_attention(q, k_pages, v_pages, block_table, kv_lens, q_pos, *,
         return paged_attention_plain(q, k_pages, v_pages, block_table,
                                      kv_lens, q_pos, scale=scale,
                                      window=window, softcap=softcap)
+    build.refuse_grad("paged_attention", (q, k_pages, v_pages),
+                      "it serves decode and chunks only: " + build.TRAIN_ROUTE)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, got {q.device}")
     build.check_cuda_args(

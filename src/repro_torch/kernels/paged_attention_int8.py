@@ -127,6 +127,8 @@ def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales, block_table,
         return paged_attention_int8_plain(
             q, k_pages, k_scales, v_pages, v_scales, block_table, kv_lens,
             q_pos, scale=scale, window=window, softcap=softcap)
+    build.refuse_grad("paged_attention_int8", (q, k_pages, k_scales, v_pages, v_scales),
+                      "it serves int8 pages only: " + build.TRAIN_ROUTE)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_int8 runs on cpu or cuda, got {q.device}")
     build.check_cuda_args(

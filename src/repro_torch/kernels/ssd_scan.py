@@ -106,6 +106,8 @@ def ssd_chunk_scan(x, la, Bc, Cc, h0=None, *, chunk: int = 64):
     _check(x, la, Bc, Cc, h0, chunk)
     if x.device.type == "cpu":
         return ssd_chunk_scan_plain(x, la, Bc, Cc, h0, chunk=chunk)
+    build.refuse_grad("ssd_chunk_scan", (x, la, Bc, Cc, h0),
+                      "no backward yet: train the hybrid on the CPU")
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_scan runs on cpu or cuda, got {x.device}")
     B, T, H, P = x.shape

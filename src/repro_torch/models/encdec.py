@@ -90,9 +90,12 @@ def _full_lens(x, n):
     return torch.full((x.shape[0],), n, dtype=torch.int32, device=x.device)
 
 
-def encode(params, cfg, frames, *, enc_valid_len=None):
+def encode(params, cfg, frames, *, enc_valid_len=None, attend=None):
     """frames [B, S_enc, D] (stub frontend output) -> [B, S_enc, D].
-    ``enc_valid_len`` [B]: keys at or past it are masked (None: all)."""
+    ``enc_valid_len`` [B]: keys at or past it are masked (None: all).
+    ``attend``: ``ops.flash_attention`` (None) or, training,
+    ``ops.flash_attention_ckpt``."""
+    attend = attend or ops.flash_attention
     B, S, _ = frames.shape
     pos = torch.arange(S, device=frames.device)[None].expand(B, S)
     kv_lens = _full_lens(frames, S) if enc_valid_len is None else enc_valid_len
@@ -103,7 +106,7 @@ def encode(params, cfg, frames, *, enc_valid_len=None):
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
         # non-causal, no window: K2's index positions mask only by kv_lens
-        o = ops.flash_attention(q, k, v, kv_lens, scale=_scale(cfg), causal=False)
+        o = attend(q, k, v, kv_lens, scale=_scale(cfg), causal=False)
         x = x + T._o_proj(cfg, lp["attn"], o, None)
         x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.mlp_act)
     return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
@@ -120,19 +123,23 @@ def build_cross_kv(params, cfg, enc_out):
             torch.einsum("bsd,ldhk->lbshk", enc_out, cross["wv"]).contiguous())
 
 
-def _cross_attention(cfg, ap, hx, xk, xv, kv_lens):
+def _cross_attention(cfg, ap, hx, xk, xv, kv_lens, attend=None):
     """hx [B, T, D] against one layer's cross K/V [B, S_enc, KV, hd];
     non-causal, no window: K2's index positions mask only by kv_lens."""
+    attend = attend or ops.flash_attention
     D = hx.shape[-1]
     qx = (hx @ ap["wq"].reshape(D, -1)).reshape(*hx.shape[:-1], -1, cfg.head_dim)
-    o = ops.flash_attention(qx, xk, xv, kv_lens, scale=_scale(cfg), causal=False)
+    o = attend(qx, xk, xv, kv_lens, scale=_scale(cfg), causal=False)
     return T._o_proj(cfg, ap, o, None)
 
 
-def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False):
+def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False,
+                 attend=None):
     """The decoder over whole prompts from position 0. tokens [B, T];
-    cross_kv from ``build_cross_kv``.  Returns (hidden [B, T, D], (k, v)
-    self-KV each [Ld, B, T, KV, hd] or None)."""
+    cross_kv from ``build_cross_kv``; ``attend`` as in :func:`encode`.
+    Returns (hidden [B, T, D], (k, v) self-KV each [Ld, B, T, KV, hd] or
+    None)."""
+    attend = attend or ops.flash_attention
     xk, xv = cross_kv
     x = params["embed"][tokens]
     B, Tn, _ = x.shape
@@ -146,10 +153,10 @@ def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False):
         k = rope(k, pos, cfg.rope_theta)
         # causal, queries and keys both at positions 0..T-1: K2's index
         # positions are these positions
-        o = ops.flash_attention(q, k, v, self_lens, scale=_scale(cfg), causal=True)
+        o = attend(q, k, v, self_lens, scale=_scale(cfg), causal=True)
         x = x + T._o_proj(cfg, lp["self"], o, None)
         x = x + _cross_attention(cfg, lp["cross"], rms_norm(x, lp["lnx"], cfg.norm_eps),
-                                 xk[l], xv[l], cross_lens)
+                                 xk[l], xv[l], cross_lens, attend)
         x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.mlp_act)
         if collect_kv:
             ks.append(k)
@@ -158,13 +165,19 @@ def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False):
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kv
 
 
-def train_logits(params, cfg, batch):
+def train_logits(params, cfg, batch, *, remat=False):
     """batch: frames [B, S_enc, D], tokens [B, T_dec].  Full-sequence
-    logits [B, T_dec, Vp], the forward-only oracle of the serving steps;
-    the reference's (logits, aux loss) pair with aux 0."""
-    enc_out = encode(params, cfg, batch["frames"])
+    logits [B, T_dec, Vp] (also the full-sequence oracle of the serving
+    steps); the reference's (logits, aux loss) pair with aux 0.
+    Differentiable in ``params``: every attention (the encoder's, the
+    decoder's causal self-attention, the cross-attention) goes through
+    ``ops.flash_attention_ckpt``.  ``remat`` is accepted and ignored, as
+    in the reference."""
+    del remat
+    ckpt = ops.flash_attention_ckpt
+    enc_out = encode(params, cfg, batch["frames"], attend=ckpt)
     hidden, _ = _decoder_seq(params, cfg, batch["tokens"],
-                             build_cross_kv(params, cfg, enc_out))
+                             build_cross_kv(params, cfg, enc_out), attend=ckpt)
     return T.unembed(params, cfg, hidden), torch.zeros((), device=hidden.device)
 
 

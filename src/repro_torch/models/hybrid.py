@@ -14,11 +14,14 @@ a Python loop over those axes.
 Kernels, through ``kernels.ops``: the SSD scan (K4) in every Mamba2 block
 of a prefill, flash attention (K2) in the shared block of a prefill,
 paged attention (K1) in the shared block of a decode step; their plain
-versions for CPU tensors.  There is no tensor parallelism (the
-reference's ``tp``/``policy``): at tp = 1 the padded head layout is the
-identity, so no head is masked or replicated.  Page pools
-``[n_attn, N, ps, KV_p, hd]`` and the conv/SSM states are updated in
-place by ``decode``.
+versions for CPU tensors. ``train_logits`` is differentiable: the shared
+block attends through ``ops.flash_attention_ckpt``; the scan has no
+backward on the card yet (K4 refuses inputs that require grad there), so
+the hybrid trains on the CPU, where the plain scan differentiates. There
+is no tensor parallelism (the reference's ``tp``/``policy``): at tp = 1
+the padded head layout is the identity, so no head is masked or
+replicated. Page pools ``[n_attn, N, ps, KV_p, hd]`` and the conv/SSM
+states are updated in place by ``decode``.
 """
 from __future__ import annotations
 
@@ -115,25 +118,31 @@ def _attn_out(cfg, shared, x, o):
 
 
 def _shared_block_seq(cfg, shared, lora_i, x, x0, positions, *,
-                      collect_kv=False):
-    """Full-seq shared attention block. x/x0 [B,T,D]; positions [B,T]."""
+                      collect_kv=False, attend=None):
+    """Full-seq shared attention block. x/x0 [B,T,D]; positions [B,T];
+    ``attend``: ``ops.flash_attention`` (None) or, training,
+    ``ops.flash_attention_ckpt``."""
     h2 = rms_norm(torch.cat([x, x0], dim=-1), shared["ln1"], cfg.norm_eps)
     q, k, v = _shared_qkv(cfg, shared, lora_i, h2)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     kv_lens = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
                          device=x.device)
-    o = ops.flash_attention(q, k, v, kv_lens, scale=1.0 / math.sqrt(cfg.head_dim),
-                            causal=True)
+    attend = attend or ops.flash_attention
+    o = attend(q, k, v, kv_lens, scale=1.0 / math.sqrt(cfg.head_dim), causal=True)
     return _attn_out(cfg, shared, x, o), ((k, v) if collect_kv else None)
 
 
-def forward_seq(params, cfg, tokens, *, collect_kv=False, chunk=64):
+def forward_seq(params, cfg, tokens, *, collect_kv=False, chunk=64,
+                train=False, remat=False):
     """Full-sequence forward (prefill / the full-sequence oracle) from
     zero conv and SSM states.
 
     Returns (hidden [B,T,D], (k, v) each [n_attn, B, T, KV_p, hd] or
     None, (conv_states, ssm_states)), the states stacked [n_mamba, ...].
+    With ``train`` only the hidden is returned (no KV, states None),
+    attention goes through ``ops.flash_attention_ckpt``, and ``remat``
+    recomputes each Mamba2 block and shared block in the backward.
     """
     n_attn, n_mamba, n_grouped, _, n_per_group = group_structure(cfg)
     x = T.embed(params, cfg, tokens)
@@ -147,34 +156,54 @@ def forward_seq(params, cfg, tokens, *, collect_kv=False, chunk=64):
                 for k, v in cs_shape.items()}
     ssm_out = torch.empty((n_mamba,) + ss_shape, dtype=torch.float32, device=x.device)
 
-    def mamba(i, x):
-        lp = T.layer_params(params["mamba"], i)
-        x, c2, ssm_out[i] = ssm.mamba2_block(lp, cfg, x, conv0, None, chunk=chunk)
-        for k, t in c2.items():
-            conv_out[k][i] = t
-        return x
+    if train:
+        mambas = T.layer_list(params["mamba"], n_mamba)
+        loras = T.layer_list(params["lora"], n_attn)
+
+        def mamba(i, x):
+            return T.maybe_remat(lambda x: ssm.mamba2_block(
+                mambas[i], cfg, x, conv0, None, chunk=chunk)[0], x, remat)
+
+        def shared(g, x):
+            return T.maybe_remat(lambda x: _shared_block_seq(
+                cfg, params["shared"], loras[g], x, x0, positions,
+                attend=ops.flash_attention_ckpt)[0], x, remat)
+    else:
+        def mamba(i, x):
+            lp = T.layer_params(params["mamba"], i)
+            x, c2, ssm_out[i] = ssm.mamba2_block(lp, cfg, x, conv0, None, chunk=chunk)
+            for k, t in c2.items():
+                conv_out[k][i] = t
+            return x
+
+        def shared(g, x):
+            x, kv = _shared_block_seq(cfg, params["shared"],
+                                      T.layer_params(params["lora"], g), x, x0,
+                                      positions, collect_kv=collect_kv)
+            if collect_kv:
+                ks.append(kv[0])
+                vs.append(kv[1])
+            return x
 
     ks, vs = [], []
     for g in range(n_attn):
         for j in range(n_per_group):
             x = mamba(g * n_per_group + j, x)
-        x, kv = _shared_block_seq(cfg, params["shared"],
-                                  T.layer_params(params["lora"], g), x, x0,
-                                  positions, collect_kv=collect_kv)
-        if collect_kv:
-            ks.append(kv[0])
-            vs.append(kv[1])
+        x = shared(g, x)
     for i in range(n_grouped, n_mamba):
         x = mamba(i, x)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if train:
+        return x, None, None
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return x, kv, (conv_out, ssm_out)
 
 
-def train_logits(params, cfg, batch):
-    """Full-sequence logits [B, T, Vp], the forward-only oracle of the
-    serving steps; the reference's (logits, aux loss) pair with aux 0."""
-    hidden, _, _ = forward_seq(params, cfg, batch["tokens"])
+def train_logits(params, cfg, batch, *, remat=False):
+    """Full-sequence logits [B, T, Vp] (also the full-sequence oracle of
+    the serving steps); the reference's (logits, aux loss) pair with aux
+    0.  Differentiable in ``params`` (see the module docstring)."""
+    hidden, _, _ = forward_seq(params, cfg, batch["tokens"], train=True, remat=remat)
     return T.unembed(params, cfg, hidden), torch.zeros((), device=hidden.device)
 
 

@@ -66,15 +66,17 @@ def flash_attention(
     block_kv: int = 512,
     k_scale=None,           # [B, Tk, KV, 1] f32 dequant scales (int8 KV pages)
     v_scale=None,
+    _return_lse: bool = False,
 ):
-    """Online-softmax attention over KV blocks, forward only.
+    """Online-softmax attention over KV blocks.
 
     GQA folds query heads into groups of the KV heads: H must be a
     multiple of KV.  Rows with no visible key return zeros
     (``acc / max(l, 1e-30)``).  With ``k_scale``/``v_scale``, ``k``/``v``
     are int8 codes, dequantized inside the block loop (``code.f32 *
-    scale``) as the reference does.  The reference's log-normalizer
-    output belongs to the training slice.
+    scale``) as the reference does.  With ``_return_lse``, also returns
+    the log-normalizer [B, KV, G, Tq] f32 (for ``flash_attention_ckpt``'s
+    backward).
     """
     B, Tq, H, d = q.shape
     Tk, KV = k.shape[1], k.shape[2]
@@ -121,7 +123,98 @@ def flash_attention(
         acc = acc * corr[..., None] + torch.einsum("bKgqk,bkKd->bKgqd", p, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]           # [B, KV, G, Tq, d]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, d).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, d).to(q.dtype)
+    if _return_lse:
+        return out, m + torch.log(torch.clamp(l, min=1e-30))    # [B, KV, G, Tq]
+    return out
+
+
+# -------------------------------------- flash attention with a recompute --
+# The training attention.  Differentiating through the block loop above
+# would keep every block's logits for the backward; this forward keeps
+# only (o, lse) and the backward recomputes the logits per block, as the
+# reference's custom_vjp does.  Queries and keys sit at their indices
+# (positions 0..T-1 and 0..Tk-1), as in K2.
+def flash_attention_ckpt(q, k, v, kv_lens, *, scale, causal=True, window=None,
+                         attn_softcap=None, block_kv=512):
+    """q [B, T, H, d]; k/v [B, Tk, KV, d]; kv_lens [B] int (keys at or
+    past it masked).  Returns o [B, T, H, d]; differentiable in q, k, v.
+
+    The forward is ``kernels/flash_attention.py::flash_attention_lse``: K2
+    on the card, its plain version for CPU tensors; the backward is
+    :func:`flash_ckpt_bwd`, torch ops on either device."""
+    return _FlashCkpt.apply(q, k, v, kv_lens, scale, causal, window,
+                            attn_softcap, block_kv)
+
+
+class _FlashCkpt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, scale, causal, window, attn_softcap,
+                block_kv):
+        from repro_torch.kernels import flash_attention as K2   # imports this module
+        o, lse = K2.flash_attention_lse(q, k, v, kv_lens, scale=scale, causal=causal,
+                                        window=window, softcap=attn_softcap)
+        ctx.save_for_backward(q, k, v, kv_lens, o, lse)
+        ctx.kw = dict(scale=scale, causal=causal, window=window,
+                      attn_softcap=attn_softcap, block_kv=block_kv)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_lens, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_ckpt_bwd(q, k, v, kv_lens, o, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_ckpt_bwd(q, k, v, kv_lens, out, lse, do, *, scale, causal=True,
+                   window=None, attn_softcap=None, block_kv=512):
+    """The recompute backward of ``flash_attention_ckpt``: a port of the
+    reference's ``_flash_ckpt_bwd``.  Per block of ``block_kv`` keys it
+    recomputes the capped logits and p = exp(logits - lse), then
+    ds = p (do.v - delta) (1 - tanh^2 under a softcap), with
+    delta = sum(o * do); dq sums over blocks, dk/dv are written per block.
+    Math in f32; returns (dq, dk, dv) in the inputs' dtypes."""
+    B, Tq, H, d = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    pad = (-Tk) % block_kv
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kv_pos = F.pad(torch.arange(Tk, device=q.device), (0, pad), value=POS_SENTINEL)
+    q_pos = torch.arange(Tq, device=q.device)[None, None, None, :, None]
+    lens = kv_lens.long()[:, None, None, None, None]
+
+    qg = q.reshape(B, Tq, KV, G, d).float() * scale
+    dog = do.reshape(B, Tq, KV, G, d).float()
+    delta = (out.reshape(B, Tq, KV, G, d).float() * dog).sum(-1).permute(0, 2, 3, 1)
+    dq = torch.zeros_like(qg)
+    dk = torch.empty((B, Tk + pad, KV, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for i in range((Tk + pad) // block_kv):
+        sl = slice(i * block_kv, (i + 1) * block_kv)
+        kb, vb = kp[:, sl].float(), vp[:, sl].float()          # [B, blk, KV, d]
+        logits = torch.einsum("bqKgd,bkKd->bKgqk", qg, kb)
+        dcap = None
+        if attn_softcap is not None:
+            t = torch.tanh(logits / attn_softcap)
+            logits = t * attn_softcap
+            dcap = 1.0 - t.square()                            # d capped / d logits
+        pb = kv_pos[sl]                                        # [blk]
+        mask = (pb < POS_SENTINEL) & (pb < lens)               # [B,1,1,1,blk]
+        if causal:
+            mask = mask & (pb <= q_pos)
+        if window is not None:
+            mask = mask & (pb > q_pos - window)
+        p = torch.where(mask, torch.exp(logits - lse[..., None]), 0.0)
+        dp = torch.einsum("bqKgd,bkKd->bKgqk", dog, vb)
+        ds = p * (dp - delta[..., None])
+        if dcap is not None:
+            ds = ds * dcap
+        dq += torch.einsum("bKgqk,bkKd->bqKgd", ds, kb)
+        dk[:, sl] = torch.einsum("bKgqk,bqKgd->bkKd", ds, qg)
+        dv[:, sl] = torch.einsum("bKgqk,bqKgd->bkKd", p, dog)
+    dq = (dq * scale).reshape(B, Tq, H, d).to(q.dtype)
+    return dq, dk[:, :Tk].to(k.dtype), dv[:, :Tk].to(v.dtype)
 
 
 # ----------------------------------------------- paged attention (ref) -----

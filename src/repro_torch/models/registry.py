@@ -1,8 +1,7 @@
 """Model registry: maps each architecture family to its module.
 
-Families expose ``init_params``, ``prefill`` and ``decode`` (+ ``mixed``
-for the transformer family and rwkv6; the model-level families also the
-forward-only ``train_logits``).  ``cache_kind`` says what a family's serving path keeps:
+Families expose ``init_params``, ``train_logits``, ``prefill`` and
+``decode`` (+ ``mixed`` for the transformer family and rwkv6).  ``cache_kind`` says what a family's serving path keeps:
   paged        — transformer (dense/moe/vlm): paged KV
   paged+cross  — encdec: paged self-KV + dense cross-KV
   paged+state  — hybrid: paged KV (shared attn) + SSM/conv states
@@ -34,6 +33,9 @@ class Model:
     def init(self, generator: torch.Generator, dtype=None, device=None):
         return self.module.init_params(self.cfg, generator,
                                        dtype or torch.float32, device)
+
+    def train_logits(self, params, batch, **kw):
+        return self.module.train_logits(params, self.cfg, batch, **kw)
 
 
 def get_model(arch: str, cfg=None) -> Model:

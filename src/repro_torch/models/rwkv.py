@@ -16,8 +16,9 @@ run (``init_state`` gives zeros in the params' dtype, as the
 reference's does).  The reference's ``lax.scan`` over layers is a Python
 loop that stacks the new states; no step writes its input state.  The
 WKV scan is plain PyTorch on every device: the reference's is jnp, not a
-Pallas kernel.  There is no tensor parallelism (``tp``/``policy``) and no
-rematerialisation (``remat``, training).
+Pallas kernel.  There is no tensor parallelism (``tp``/``policy``).
+``train_logits`` is differentiable; with ``remat`` each layer is
+recomputed in the backward (``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.layers import dense_init, rms_norm
-from repro_torch.models.transformer import layer_params, pad_vocab, unembed
+from repro_torch.models.transformer import layer_list, maybe_remat, pad_vocab, unembed
 
 
 def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
@@ -56,15 +57,19 @@ def init_state(cfg, batch, dtype=torch.float32, device=None):
             for k, v in shapes.items()}
 
 
-def forward(params, cfg, tokens, state, *, chunk=32, return_all=False):
+def forward(params, cfg, tokens, state, *, chunk=32, return_all=False,
+            remat=False):
     """tokens [B, T]; state stacked [L, ...]. Returns (logits, new_state):
     f32 logits [B, Vp] at the last token ([B, T, Vp] with
-    ``return_all``)."""
+    ``return_all``).  ``remat``: each layer is a checkpoint region
+    (training)."""
     x = rms_norm(params["embed"][tokens], params["ln0"], cfg.norm_eps)
     new = {k: [] for k in state}
+    lps = layer_list(params["blocks"], cfg.n_layers)
     for l in range(cfg.n_layers):
-        x, s2 = ssm.rwkv6_layer(layer_params(params["blocks"], l), cfg, x,
-                                {k: t[l] for k, t in state.items()}, chunk=chunk)
+        x, s2 = maybe_remat(lambda x, l=l: ssm.rwkv6_layer(      # l bound now: the
+            lps[l], cfg, x, {k: t[l] for k, t in state.items()},  # backward reruns it
+            chunk=chunk), x, remat)
         for k, t in s2.items():
             new[k].append(t)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -73,13 +78,13 @@ def forward(params, cfg, tokens, state, *, chunk=32, return_all=False):
     return unembed(params, cfg, x), {k: torch.stack(t) for k, t in new.items()}
 
 
-def train_logits(params, cfg, batch):
-    """Full-sequence logits [B, T, Vp] from zero states, the forward-only
-    oracle of the serving steps; the reference's (logits, aux loss) pair
-    with aux 0."""
+def train_logits(params, cfg, batch, *, remat=False):
+    """Full-sequence logits [B, T, Vp] from zero states (also the
+    full-sequence oracle of the serving steps); the reference's (logits,
+    aux loss) pair with aux 0."""
     tokens = batch["tokens"]
     state = init_state(cfg, tokens.shape[0], params["embed"].dtype, tokens.device)
-    logits, _ = forward(params, cfg, tokens, state, return_all=True)
+    logits, _ = forward(params, cfg, tokens, state, return_all=True, remat=remat)
     return logits, torch.zeros((), device=logits.device)
 
 

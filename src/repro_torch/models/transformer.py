@@ -1,6 +1,7 @@
 """Decoder-only transformer (dense / MoE / VLM families) in PyTorch.
 
-The serving steps of the reference ``models/transformer.py``:
+The steps of the reference ``models/transformer.py``:
+  - train_hidden / train_logits (full-sequence causal, differentiable)
   - prefill / forward_hidden   (batched prompt -> KV + last logits)
   - decode                     (one token/seq over paged KV)
   - mixed                      (Splitwiser: prefill chunks + decode tokens
@@ -25,15 +26,22 @@ norms (``ln1b``/``ln2b``), ``sqrt(d_model)`` embedding scale, final-logit
 and attention softcaps and local/global windows; the MoE FFN
 (``models/moe.py``, olmoe and grok-1); the VLM's projected patch prefix
 (``vision_prefix``, internvl2), which ``prefill`` takes as ``patches``.
-Training is a later slice.  ``models/registry.py`` decides which
-families this module serves.
+``models/registry.py`` decides which families this module serves.
+
+Training (``train_hidden``) runs the same layer body with attention
+through ``ops.flash_attention_ckpt`` (K2's forward with its
+log-normalizer, a recompute backward) and carries the MoE aux loss; with
+``remat`` each layer is a ``torch.utils.checkpoint`` region, recomputed
+in the backward (K2 then launches twice a layer and step).
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -151,6 +159,22 @@ def layer_params(blocks, l: int):
             for k, v in blocks.items()}
 
 
+def layer_list(blocks, n: int):
+    """Every layer's weights out of the stacked ``blocks`` at once
+    (``unbind``): under autograd one backward node per stacked tensor
+    stacks the layers' gradients, where ``layer_params`` would add a
+    full-size gradient per layer."""
+    parts = {k: (layer_list(v, n) if isinstance(v, dict) else v.unbind(0))
+             for k, v in blocks.items()}
+    return [{k: p[l] for k, p in parts.items()} for l in range(n)]
+
+
+def maybe_remat(fn, x, remat: bool):
+    """``fn(x)``, as a ``torch.utils.checkpoint`` region when ``remat``:
+    its activations are recomputed in the backward instead of kept."""
+    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+
+
 # ------------------------------------------------------------- embedding ---
 def embed(params, cfg, tokens):
     x = params["embed"][tokens]
@@ -224,31 +248,51 @@ def _o_proj(cfg, lp, o, head_mask):
 
 
 def _ffn(cfg, lp, x2d):
-    """x2d [T, D] -> y2d [T, D]: the MLP, or the MoE over all T tokens at
-    once (expert capacity depends on T, as in the reference).  The MoE's
-    aux loss belongs to training and is dropped."""
+    """x2d [T, D] -> (y2d [T, D], aux): the MLP (aux None), or the MoE
+    over all T tokens at once (expert capacity depends on T, as in the
+    reference) with its load-balancing aux loss."""
     if cfg.is_moe:
         act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
         return moe_apply(lp["moe"], x2d, n_experts=cfg.n_experts,
                          top_k=cfg.top_k, act=act,
-                         capacity_factor=cfg.moe_capacity_factor)[0]
-    return mlp_apply(lp["mlp"], x2d, cfg.mlp_act)
+                         capacity_factor=cfg.moe_capacity_factor)
+    return mlp_apply(lp["mlp"], x2d, cfg.mlp_act), None
 
 
-def _residuals(cfg, lp, x, attn_out):
+def _residuals(cfg, lp, x, attn_out, return_aux=False):
     """The rest of a block after attention: x [..., D] plus the (post-
-    normed) attention output, then plus the (post-normed) FFN."""
+    normed) attention output, then plus the (post-normed) FFN.  With
+    ``return_aux``, (x, the FFN's aux loss or None); serving drops it."""
     if cfg.post_attn_norm:
         attn_out = rms_norm(attn_out, lp["ln1b"], cfg.norm_eps)
     x = x + attn_out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y = _ffn(cfg, lp, h2.reshape(-1, h2.shape[-1])).reshape(h2.shape)
+    y, aux = _ffn(cfg, lp, h2.reshape(-1, h2.shape[-1]))
+    y = y.reshape(h2.shape)
     if cfg.post_attn_norm:
         y = rms_norm(y, lp["ln2b"], cfg.norm_eps)
-    return x + y
+    return (x + y, aux) if return_aux else x + y
 
 
 # ------------------------------------------------------- full-seq forward --
+def _seq_block(cfg, lp, window, positions, kv_lens, head_mask, x, *,
+               attend=None, kv_fake_quant=None):
+    """One layer on full sequences. x [B, T, D].  ``attend`` has
+    ``ops.flash_attention``'s signature (None: that;
+    ``ops.flash_attention_ckpt`` for training).  Returns (x, FFN aux or
+    None, k, v)."""
+    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    ka, va = ((k, v) if kv_fake_quant is None
+              else (kv_fake_quant(k), kv_fake_quant(v)))
+    attend = attend or ops.flash_attention
+    o = attend(q, ka, va, kv_lens, scale=_attn_scale(cfg), causal=True,
+               window=window, softcap=cfg.attn_logit_softcap)
+    x, aux = _residuals(cfg, lp, x, _o_proj(cfg, lp, o, head_mask), return_aux=True)
+    return x, aux, k, v
+
+
 def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
                    kv_fake_quant=None):
     """Run the layer stack on full sequences. x [B, T, D]; positions
@@ -269,21 +313,50 @@ def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
     kv_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
     ks, vs = [], []
     for l in range(cfg.n_layers):
-        lp = layer_params(params["blocks"], l)
-        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        ka, va = ((k, v) if kv_fake_quant is None
-                  else (kv_fake_quant(k), kv_fake_quant(v)))
-        o = ops.flash_attention(q, ka, va, kv_lens, scale=_attn_scale(cfg),
-                                causal=True, window=int(windows[l]),
-                                softcap=cfg.attn_logit_softcap)
-        x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o, head_mask))
+        x, _, k, v = _seq_block(cfg, layer_params(params["blocks"], l),
+                                int(windows[l]), positions, kv_lens, head_mask, x,
+                                kv_fake_quant=kv_fake_quant)
         if collect_kv:
             ks.append(k)
             vs.append(v)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kv
+
+
+def _train_block(cfg, lp, window, positions, kv_lens, head_mask, x):
+    x, aux, _, _ = _seq_block(cfg, lp, window, positions, kv_lens, head_mask, x,
+                              attend=ops.flash_attention_ckpt)
+    return x, aux
+
+
+def train_hidden(params, cfg, batch, *, remat=False):
+    """batch: tokens [B, T] (+ patches [B, Np, d_vision] for vlm, a
+    prefix of Np positions).  Returns (hidden [B, T_tot, D], aux: the
+    MoE aux losses summed over layers, an f32 scalar (0 for dense)).
+    Differentiable in ``params``; attention through
+    ``ops.flash_attention_ckpt``; ``remat`` recomputes each layer in the
+    backward (the reference's ``jax.checkpoint`` of its scan body)."""
+    x = embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([vision_prefix(params, cfg, batch["patches"]), x], dim=1)
+    B, Tn, _ = x.shape
+    positions = torch.arange(Tn, device=x.device)[None].expand(B, Tn)
+    kv_lens = torch.full((B,), Tn, dtype=torch.int32, device=x.device)
+    head_mask = _head_mask(cfg, x.device, x.dtype)
+    windows = layer_windows(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for l, lp in enumerate(layer_list(params["blocks"], cfg.n_layers)):
+        x, a = maybe_remat(partial(_train_block, cfg, lp, int(windows[l]), positions,
+                                   kv_lens, head_mask), x, remat)
+        if a is not None:
+            aux = aux + a
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
+
+
+def train_logits(params, cfg, batch, *, remat=False):
+    """(f32 logits [B, T_tot, Vp], aux) of :func:`train_hidden`."""
+    hidden, aux = train_hidden(params, cfg, batch, remat=remat)
+    return unembed(params, cfg, hidden), aux
 
 
 def prefill(params, cfg, tokens, *, patches=None, kv_fake_quant=None):

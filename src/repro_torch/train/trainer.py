@@ -1,0 +1,173 @@
+"""Training step + fault-tolerant Trainer loop, counterparts of the
+reference's ``train/trainer.py``.
+
+``make_train_step`` builds the step for any registered arch:
+  - transformer family -> chunked (or vocab-tiled) CE from hidden (no
+    [B, T, V] logits);
+  - other families     -> full-logit CE;
+  - gradient accumulation over microbatches, in f32;
+  - global-norm clipping, warmup-cosine LR, AdamW (optionally int8 moments);
+  - MoE router aux-loss added with cfg.router_aux_coef.
+
+It runs eagerly: gradients come from ``torch.autograd.grad`` over the
+parameter leaves, attention's through K2's recompute backward
+(``ops.flash_attention_ckpt``).  ``Trainer`` adds checkpoint/restart
+fault tolerance: async snapshots every ``ckpt_every`` steps,
+resume-from-latest, and deterministic data order, so a killed-and-resumed
+run is bitwise identical to an uninterrupted one as long as every op of
+the step is deterministic (on the card: ``torch.use_deterministic_algorithms``).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.ckpt.checkpoint import AsyncCheckpointer, latest_step, load
+from repro_torch.common.tree import tree_leaves, tree_map, tree_zip_map
+from repro_torch.configs.base import TrainConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm, warmup_cosine
+from repro_torch.train.losses import (IGNORE, lm_loss, lm_loss_from_hidden,
+                                      lm_loss_from_hidden_vtiled)
+
+
+def make_loss_fn(model, tcfg: TrainConfig):
+    """loss_fn(params, batch) -> (loss, n_tokens)."""
+    cfg = model.cfg
+
+    def loss_fn(params, batch):
+        if cfg.family in ("dense", "moe", "vlm"):
+            hidden, aux = T.train_hidden(params, cfg, batch, remat=tcfg.remat)
+            table = params["head"] if "head" in params else params["embed"]
+            labels = batch["labels"]
+            if cfg.family == "vlm":   # hidden includes the vision prefix
+                npfx = hidden.shape[1] - labels.shape[1]
+                labels = F.pad(labels, (npfx, 0), value=IGNORE)
+            impl = (lm_loss_from_hidden_vtiled if tcfg.loss_impl == "vtiled"
+                    else lm_loss_from_hidden)
+            loss, n = impl(hidden, labels, table, softcap=cfg.final_logit_softcap,
+                           v_real=cfg.vocab_size)
+        else:
+            logits, aux = model.module.train_logits(params, cfg, batch, remat=tcfg.remat)
+            loss, n = lm_loss(logits, batch["labels"], v_real=cfg.vocab_size)
+        if cfg.is_moe:
+            loss = loss + cfg.router_aux_coef * aux / cfg.n_layers
+        return loss, n
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params, batch):
+    """(loss, grads): grads a tree like ``params`` (zeros for a leaf the
+    loss does not reach)."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = loss_fn(live, batch)
+    leaves = tree_leaves(live)
+    grads = iter([torch.zeros_like(p) if g is None else g for p, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))])
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def make_train_step(model, tcfg: TrainConfig):
+    """train_step(state, batch) -> (new_state, {"loss", "gnorm", "lr"}):
+    a pure function of its inputs (the state is not modified)."""
+    loss_fn = make_loss_fn(model, tcfg)
+
+    def compute_grads(params, batch):
+        B = batch["tokens"].shape[0]
+        if tcfg.microbatch and tcfg.microbatch < B:
+            m = tcfg.microbatch
+            n_micro = B // m
+            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                 device=p.device), params)
+            ltot = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+            for i in range(n_micro):
+                micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+                l, g = value_and_grad(loss_fn, params, micro)
+                acc = tree_zip_map(torch.add, acc, g)
+                ltot = ltot + l
+            return ltot / n_micro, tree_map(lambda a: a / n_micro, acc)
+        return value_and_grad(loss_fn, params, batch)
+
+    def train_step(state, batch):
+        params, opt = state["params"], state["opt"]
+        loss, grads = compute_grads(params, batch)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        lr = warmup_cosine(opt["count"], base_lr=tcfg.lr,
+                           warmup_steps=tcfg.warmup_steps,
+                           total_steps=tcfg.total_steps)
+        new_params, new_opt = adamw_update(
+            grads, opt, params, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
+            weight_decay=tcfg.weight_decay)
+        return ({"params": new_params, "opt": new_opt},
+                {"loss": loss, "gnorm": gnorm, "lr": lr})
+
+    return train_step
+
+
+def init_state(model, generator: torch.Generator, tcfg: TrainConfig,
+               dtype=torch.float32, device=None):
+    """{"params": model.init(generator, dtype, device), "opt": AdamW state}."""
+    params = model.init(generator, dtype, resolve_device(device))
+    return {"params": params, "opt": adamw_init(params, tcfg.int8_moments)}
+
+
+@dataclass
+class Trainer:
+    """Fault-tolerant training loop (checkpoint / restart / resume).
+
+    Starts from the latest checkpoint in ``tcfg.ckpt_dir`` if there is
+    one, else from ``init_state`` with a generator on ``device`` seeded
+    with ``tcfg.seed``.  ``data_fn(step)`` must be deterministic; its
+    batches are moved to ``device``."""
+    model: object
+    tcfg: TrainConfig
+    data_fn: Callable[[int], dict]      # step -> batch (deterministic!)
+    log_every: int = 10
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self._step_fn = make_train_step(self.model, self.tcfg)
+        self.ckpt = AsyncCheckpointer(self.tcfg.ckpt_dir)
+        start = latest_step(self.tcfg.ckpt_dir)
+        if start is not None:
+            self.state = load(self.tcfg.ckpt_dir, start, self.device)
+            self.start_step = start
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+            self.state = init_state(self.model, gen, self.tcfg, device=self.device)
+            self.start_step = 0
+        self.history = []       # (step, loss) every log_every steps and at the end
+        # (step, {"loss", "gnorm", "lr", "step_s"}) at the same steps; step_s
+        # is the host wall of the step up to its metrics on the host
+        self.metrics = []
+
+    def run(self, n_steps: Optional[int] = None, crash_at: Optional[int] = None):
+        """Run to tcfg.total_steps (or n_steps more). crash_at simulates a
+        node failure after that global step commits (for FT tests)."""
+        end = self.tcfg.total_steps if n_steps is None else self.start_step + n_steps
+        step = self.start_step
+        while step < end:
+            t0 = time.perf_counter()
+            batch = {k: v.to(self.device) for k, v in self.data_fn(step).items()}
+            self.state, m = self._step_fn(self.state, batch)
+            step += 1
+            if step % self.log_every == 0 or step == end:
+                vals = {k: float(v) for k, v in m.items()}
+                vals["step_s"] = time.perf_counter() - t0
+                self.history.append((step, vals["loss"]))
+                self.metrics.append((step, vals))
+            if step % self.tcfg.ckpt_every == 0 or step == end:
+                self.ckpt.save(step, self.state)
+            if crash_at is not None and step >= crash_at:
+                self.ckpt.wait()
+                raise RuntimeError(f"simulated failure at step {step}")
+        self.ckpt.wait()
+        self.start_step = step
+        return self.history

@@ -145,3 +145,28 @@ print("clean")
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
+def test_training_loads_no_jax_or_reference_module(tmp_path):
+    """The training launcher's ``main`` (Trainer, losses, AdamW with int8
+    moments, checkpoints) on the CPU, then a resume from its checkpoint,
+    in a fresh interpreter: still nothing of JAX or the reference."""
+    code = f"""
+import sys
+from repro_torch.launch import train
+args = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--steps", "2",
+        "--batch", "2", "--seq", "16", "--int8-moments", "--ckpt-every", "1",
+        "--ckpt-dir", {str(tmp_path / "ckpt")!r}]
+train.main(args)
+train.main(args[:6] + ["3"] + args[7:])          # 3 steps: resumes at 2
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
+assert not bad, bad
+print("clean")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "clean"
+    assert "start_step=2" in out.stdout and sum(x.startswith("done:") for x in lines) == 2

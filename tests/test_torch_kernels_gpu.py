@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
 engine, the zamba2 hybrid, rwkv6 and the seamless-m4t encoder-decoder on
-the card against the CPU.
+the card against the CPU; K2's training forward (o and lse), the
+recompute backward of ``flash_attention_ckpt`` on the card against the
+CPU, and the guards of the kernels that have no backward.
 
 Every test here needs a CUDA device and skips itself without one.  This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -18,6 +20,7 @@ from repro_torch.configs import ServeConfig, get_config
 from repro_torch.core.engine import Engine, Request
 from repro_torch.core.sampler import SamplingParams
 from repro_torch.kernels import flash_attention as K2
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as K1
 from repro_torch.kernels import paged_attention_int8 as K3
 from repro_torch.kernels import ssd_scan as K4
@@ -346,6 +349,77 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         assert _err(out, K2.flash_attention_plain(q, k, v, lens, scale=0.2, **kw)) <= TOL[dtype]
         if case[6] == 0:                        # an empty row writes exact zeros
             assert bool((out[0] == 0).all())
+
+
+def _lse_rel(a, b):
+    return ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_lse_kernel_matches_plain(cuda, case, dtype):
+    """K2's training forward: o to the dtype's tolerance, lse (f32 in
+    both dtypes) to 1e-4 relative; an empty row gives o = 0 and lse =
+    -1e30, as the plain version does."""
+    dt = getattr(torch, dtype)
+    q, k, v, lens = (x.to("cuda", dt if x.is_floating_point() else None)
+                     for x in flash_inputs(case))
+    for kw in (dict(), dict(window=8, softcap=25.0), dict(causal=False)):
+        n = K2.launches_lse
+        o, lse = K2.flash_attention_lse(q, k, v, lens, scale=0.2, **kw)
+        torch.cuda.synchronize()
+        assert K2.launches_lse == n + 1
+        want_o, want_lse = K2.flash_attention_lse_plain(q, k, v, lens, scale=0.2, **kw)
+        assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+        assert _err(o, want_o) <= TOL[dtype]
+        assert _lse_rel(lse, want_lse) <= 1e-4
+        if case[6] == 0:
+            assert bool((o[0] == 0).all()) and bool((lse[0] == -1e30).all())
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (0, 3, 7, 8, 10, 12, 15)])
+def test_flash_ckpt_backward_on_card_matches_cpu(cuda, case):
+    """``flash_attention_ckpt``'s backward on the card (K2's training
+    forward, the recompute in torch ops) against the CPU's (plain
+    forward), f32: dq, dk, dv within 1e-4 of each tensor's max |g|."""
+    q, k, v, lens = flash_inputs(case)
+    do = torch.from_numpy(np.random.RandomState(1).standard_normal(q.shape).astype(np.float32))
+    for kw in (dict(), dict(window=8, softcap=25.0), dict(causal=False)):
+        grads = []
+        for dev in ("cuda", "cpu"):
+            x = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+            ops.flash_attention_ckpt(*x, lens.to(dev), scale=0.2, **kw).backward(do.to(dev))
+            grads.append([t.grad.cpu() for t in x])
+        for a, b in zip(*grads):
+            assert (a - b).abs().max() <= 1e-4 * max(b.abs().max().item(), 1e-30)
+
+
+def test_kernels_without_backward_refuse_grad_on_card(cuda):
+    """K1, K3, K4 and the forward-only K2 raise on inputs that require
+    grad under grad mode (never a tensor cut from autograd); under
+    ``torch.no_grad`` they launch.  The training route differentiates."""
+    paged = _paged(0, 2, 1, 4, 2, 64, 8, 16, 4, torch.float32)
+    int8 = _paged_int8(0, 2, 1, 4, 2, 64, 8, 16, 4, torch.float32)
+    x, la, Bc, Cc, _ = (t if t is None else t.to("cuda") for t in ssd_inputs(SSD_CASES[0], "zero"))
+    q, k, v, lens = (t.to("cuda") for t in flash_inputs(FLASH_CASES[0]))
+    calls = {
+        "paged_attention": lambda q: K1.paged_attention(q, *paged[1:], scale=0.2),
+        "paged_attention_int8": lambda q: K3.paged_attention_int8(q, *int8[1:], scale=0.2),
+        "ssd_chunk_scan": lambda x: K4.ssd_chunk_scan(x, la, Bc, Cc, chunk=8),
+        "flash_attention": lambda q: K2.flash_attention(q, k, v, lens, scale=0.2),
+        "flash_attention_lse": lambda q: K2.flash_attention_lse(q, k, v, lens, scale=0.2),
+    }
+    firsts = {"paged_attention": paged[0], "paged_attention_int8": int8[0],
+              "ssd_chunk_scan": x, "flash_attention": q, "flash_attention_lse": q}
+    for name, call in calls.items():
+        live = firsts[name].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no autograd"):
+            call(live)
+        with torch.no_grad():
+            call(live)
+    qg = q.clone().requires_grad_()
+    ops.flash_attention_ckpt(qg, k, v, lens, scale=0.2).sum().backward()
+    assert qg.grad is not None and bool(torch.isfinite(qg.grad).all())
 
 
 def ssd_inputs(case, h0):
