@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # all phases (what the port's chip check runs)
     python3 chip_smoke.py --quick       # phases 1-3 at one repeat: build + kernel check
     python3 chip_smoke.py --train-only  # phases 1-2 and 7: build + training
+    python3 chip_smoke.py --roofline-only  # phases 1-2 and 8: build + roofline
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: device name and count, ``nvidia-smi`` name and power limit;
@@ -85,7 +86,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the training launcher in a subprocess.  Phase 3 also holds K2's
      training forward (o and lse) against its plain version beside the
      forward-only K2 at the same shapes, and ``flash_attention_ckpt``'s
-     backward on cuda against the CPU's.
+     backward on cuda against the CPU's;
+  8. the cost model and the dry run held to the card (``repro_torch.launch.
+     {costs,roofline,steps}``, peaks from ``common/hw.py::H100_SXM``): the
+     15 rows of the paper's Figs. 2-4 on opt-125m at full size in bf16
+     (prefill of 128-2048 tokens, decode at 128-2048 context, decode of
+     1-40 sequences at 512), each with its traced FLOPs and bytes, its
+     intensity against the H100's ridge, its device time and the achieved
+     shares of the peaks (K2 and K1's decode must launch); then
+     qwen3-0.6b's dry-run cells (train 8 x 512, prefill 4 x 2048, decode
+     8 x 1024, mixed 2 x 64 + 8 at 1024 with fp and int8 pages) on seeded
+     args, one run each: estimated against measured peak memory and
+     max(t_compute, t_memory) against device time, logged; fatal on a
+     non-finite output or a kernel of the cell not launched (K2's training
+     forward, K2, K1 decode and chunk, K3 under int8 pages).  The cost
+     counts run in worker processes beside the card's runs.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 line, the card's ``nvidia-smi`` name and power limit, and
@@ -95,6 +110,7 @@ reference package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -104,9 +120,7 @@ import time
 from dataclasses import replace
 from pathlib import Path
 
-HBM_BYTES_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 SLEEP_CYCLES_S = 2.0e9         # above the H100's 1.98 GHz boost clock: a sleep lasts at least its time
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 / f32 non-tensor
 # kernel vs plain version: f32 differs only in summation order; bf16 adds
 # the rounding of the output to 8 mantissa bits
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -177,9 +191,17 @@ def device_time_ms(fn, iters: int, warmup: int = 3):
     return start.elapsed_time(end) / iters, host_s * 1e3
 
 
+def card_spec():
+    """The card's data-sheet peaks: ``repro_torch/common/hw.py::H100_SXM``
+    (HBM bytes/s, dense bf16 FLOP/s on the tensor cores, f32 outside them)."""
+    from repro_torch.common.hw import H100_SXM
+    return H100_SXM
+
+
 def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    hw = card_spec()
+    t_bytes = nbytes / hw.hbm_bw * 1e3
+    t_ops = flops / {"bfloat16": hw.peak_flops_bf16, "float32": hw.peak_flops_f32}[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1561,7 +1583,7 @@ def phase_profile(torch, windows, warm_steps=8, window=16):
             wall_ms = (time.perf_counter() - t0) * 1e3
             kinds = eng.metrics.step_kinds[warm_steps:warm_steps + window]
             eng = engine_at_window(setup, serve_kw, make_requests, mode)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(window):
                     eng.step()
                 torch.cuda.synchronize()
@@ -1574,7 +1596,9 @@ def phase_profile(torch, windows, warm_steps=8, window=16):
 
 
 def device_ms_by_class(torch, prof):
-    """(device ms by kernel class, kernel count) of one profiled run."""
+    """(device ms by kernel class, kernel count) of one profiled run.  It
+    reads kernel events only, so phase 6 profiles CUDA activity alone
+    (tracing the CPU's ops too doubles the time ``key_averages`` takes)."""
     by_class, n_kernels = {}, 0
     for e in prof.key_averages():
         us = e.self_device_time_total
@@ -1610,7 +1634,7 @@ def phase_hybrid_profile(torch, setup, steps=8):
     r = hybrid_serve(torch, params, model.cfg, toks, steps, HYBRID["page_size"])
     runs = {}
     for n in (0, steps):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             hybrid_serve(torch, params, model.cfg, toks, n, HYBRID["page_size"])
         runs[n] = device_ms_by_class(torch, prof)
     (pre, n_pre), (both, n_both) = runs[0], runs[steps]
@@ -1899,7 +1923,7 @@ def phase_decode_profile(torch, label, window, steps=8):
     window(steps)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         window(steps)
         torch.cuda.synchronize()
     out = window_summary(wall_ms, *device_ms_by_class(torch, prof))
@@ -2226,6 +2250,258 @@ def phase_train(torch):
     return dict(cross_device=cross, main_path=main_path, split=split, determinism=det)
 
 
+# ------------------------------------------------------------ phase 8 ---
+INTENSITY_PAGE = 16          # benchmarks/phase_intensity.py's page size
+# phase 8b: qwen3-0.6b's dry-run cells, cut as the reference's own test
+# cuts them (tests/test_sharding_and_dryrun.py), prefill to 4 x 2048
+ROOFLINE_ARCH = "qwen3-0.6b"
+ROOFLINE_CELLS = {   # label: (shape name, cut shape, mixed scheme, kernels that must launch)
+    "train": ("train_4k", dict(kind="train", seq=512, batch=8), None,
+              ("flash_attention_lse",)),
+    "prefill": ("prefill_32k", dict(kind="prefill", seq=2048, batch=4), None,
+                ("flash_attention",)),
+    "decode": ("decode_32k", dict(kind="decode", seq=1024, batch=8), None,
+               ("paged_attention_decode",)),
+    "mixed fp": ("mixed_32k", dict(kind="mixed", seq=1024, batch=8, chunk=64, streams=2),
+                 "baseline", ("paged_attention_decode", "paged_attention_chunk")),
+    "mixed kv8": ("mixed_32k", dict(kind="mixed", seq=1024, batch=8, chunk=64, streams=2),
+                  "kv8", ("paged_attention_int8_decode", "paged_attention_int8_chunk")),
+}
+
+
+def intensity_rows():
+    """The 15 rows of ``benchmarks/phase_intensity.py`` (the paper's Figs.
+    2-4 on opt-125m): (figure, x, kind, batch, tokens or context, pool
+    pages)."""
+    ps = INTENSITY_PAGE
+    return ([("fig2_prefill_intensity", s, "prefill", 1, s, 0)
+             for s in (128, 256, 512, 1024, 2048)]
+            + [("fig3_decode_intensity", c, "decode", 1, c, c // ps + 4)
+               for c in (128, 256, 512, 1024, 2048)]
+            + [("fig4_decode_batch_intensity", b, "decode", b, 512, (512 // ps + 2) * 40 + 4)
+               for b in (1, 5, 10, 20, 40)])
+
+
+def intensity_args(torch, cfg, row, g, device):
+    """A row's step arguments, seeded from ``g``: prompt tokens, or one
+    decode token per sequence over bf16 pages, each sequence ``ctx``
+    tokens deep in its own pages."""
+    _, _, kind, b, n, n_pages = row
+    toks = torch.randint(2, cfg.vocab_size, (b, n) if kind == "prefill" else (b,),
+                         generator=g, device=device, dtype=torch.int32)
+    if kind == "prefill":
+        return (toks,)
+    ps, pmax = INTENSITY_PAGE, n // INTENSITY_PAGE + 1
+    pool = (cfg.n_layers, n_pages, ps, cfg.n_kv_heads, cfg.head_dim)
+    kpg, vpg = (torch.randn(pool, generator=g, device=device).to(torch.bfloat16)
+                for _ in range(2))
+    table = torch.randperm(n_pages - 1, generator=g, device=device)[: b * pmax]
+    return (toks, kpg, vpg, table.reshape(b, pmax).to(torch.int32),
+            torch.full((b,), n, dtype=torch.int32, device=device))
+
+
+def intensity_step(cfg, kind):
+    from repro_torch.models import transformer as T
+    if kind == "prefill":
+        return lambda params, toks: T.prefill(params, cfg, toks)[0]
+    return lambda params, *a: T.decode(params, cfg, *a)[0]
+
+
+@contextlib.contextmanager
+def cut_shapes(steps, cuts):
+    """``launch/steps.py``'s SHAPES with ``cuts`` in place, restored on exit."""
+    saved = dict(steps.SHAPES)
+    steps.SHAPES.update(cuts)
+    try:
+        yield
+    finally:
+        steps.SHAPES.clear()
+        steps.SHAPES.update(saved)
+
+
+def roofline_cell(label):
+    """The ``launch/steps.py`` cell of ``ROOFLINE_CELLS[label]`` (call
+    under its ``cut_shapes``)."""
+    from repro_torch.launch import steps
+    shape, _, scheme, _ = ROOFLINE_CELLS[label]
+    if scheme is not None:
+        return steps.build_mixed(ROOFLINE_ARCH, shape, scheme=scheme)
+    cell, why = steps.build_cell(ROOFLINE_ARCH, shape)
+    if cell is None:
+        raise RuntimeError(why)
+    return cell
+
+
+_trace_cache = {}
+
+
+def trace_job(src, job):
+    """One cost count of phase 8, in a worker process (fake CPU tensors,
+    no card): ("row", intensity row) -> ``traced_costs`` of the row's
+    step; ("cell", label) -> the roofline row of the cut dry-run cell."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.costs import fake_mode, traced_costs
+    from repro_torch.launch.roofline import analyze
+    from repro_torch.models.registry import get_model
+    kind, what = job
+    if kind == "row":
+        if "opt" not in _trace_cache:
+            mode = fake_mode()
+            with mode:
+                model = get_model("opt-125m")
+                params = model.init(torch.Generator().manual_seed(0), torch.bfloat16, "cpu")
+            _trace_cache["opt"] = model.cfg, mode, params
+        cfg, mode, params = _trace_cache["opt"]
+        with mode:
+            args = intensity_args(torch, cfg, what, torch.Generator().manual_seed(1), "cpu")
+        return traced_costs(intensity_step(cfg, what[2]), params, *args)
+    shape, cut, _, _ = ROOFLINE_CELLS[what]
+    with cut_shapes(steps, {shape: cut}):
+        rl = analyze(roofline_cell(what), arch=ROOFLINE_ARCH, shape=shape)
+    return dict(rl.row(), peak_bytes=rl.peak_mem_per_dev)
+
+
+def all_finite(torch, tree):
+    from torch.utils._pytree import tree_leaves
+    return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor) and t.is_floating_point())
+
+
+def step_times(torch, fn, repeats=3):
+    """Times of one call of a whole step: ``device_ms`` and ``host_ms``,
+    the least of ``repeats`` readings of ``device_time_ms`` at one call
+    each; then one call under ``torch.profiler``: ``kernel_ms``, the sum
+    of its kernels' device times, and ``kernels``, their count.  A step
+    that launches more kernels than the launch queue holds (about a
+    thousand) blocks the host behind the device sleep, and the rest of
+    its ``device_ms`` runs at the host's pace; ``kernel_ms`` is the
+    device's own work at any launch count."""
+    from torch.profiler import ProfilerActivity, profile
+    dev_ms, host_ms = min(device_time_ms(fn, iters=1, warmup=1) for _ in range(repeats))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_class, n_kernels = device_ms_by_class(torch, prof)
+    kernel_ms = sum(by_class.values()) if n_kernels else "not measured"
+    return dict(device_ms=dev_ms, host_ms=host_ms, kernel_ms=kernel_ms, kernels=n_kernels)
+
+
+def phase_roofline(torch):
+    """Phase 8: the cost model and the dry run held to the card.  (a) The
+    15 rows of the paper's Figs. 2-4 on opt-125m at full size, bf16, page
+    size 16: each row's ``traced_costs``, its intensity against the
+    H100's ridge, the step on the card (``device_time_ms``) and the
+    achieved FLOP/s and bytes/s as shares of the data-sheet peaks; K2
+    and K1's decode must launch, every output be finite.  (b) qwen3-0.6b
+    through each kind of dry-run cell at a cut shape, seeded args on the
+    card, one run each: the estimated peak against
+    ``max_memory_allocated`` (less what was allocated before the cell's
+    args: earlier phases' models) and max(t_compute, t_memory) against the
+    measured device ms and a profiled call's summed kernel ms
+    (``step_times``; gaps logged, not fatal); fatal on a non-finite
+    output or a kernel of the cell that did not launch.  The cost counts
+    run in worker processes (fake tensors, no card) beside the card's
+    runs."""
+    import multiprocessing as mp
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import steps
+    hw = card_spec()
+    ridge = hw.peak_flops_bf16 / hw.hbm_bw
+    src = str(Path(__file__).resolve().parent / "src")
+    rows = intensity_rows()
+    jobs = [("cell", label) for label in ROOFLINE_CELLS] + [("row", r) for r in rows]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=max(1, min(6, (os.cpu_count() or 2) - 2)),
+                             mp_context=mp.get_context("spawn")) as pool:
+        futures = {job: pool.submit(trace_job, src, job) for job in jobs}
+
+        # (a) the paper's Figs. 2-4 on the card
+        model, params = init_model(torch, "opt-125m")
+        cfg = model.cfg
+        g = torch.Generator(device="cuda").manual_seed(8)
+        measured = []
+        zero_launches()
+        for row in rows:
+            step = intensity_step(cfg, row[2])
+            args = intensity_args(torch, cfg, row, g, "cuda")
+            if not all_finite(torch, step(params, *args)):
+                fail(f"phase 8: non-finite logits in {row[:2]}")
+            measured.append(step_times(torch, lambda: step(params, *args)))
+        launches = read_launches()
+        if not launches["flash_attention"] or not launches["paged_attention_decode"]:
+            fail(f"phase 8: K2 or K1's decode not launched by the intensity rows: {launches}")
+        del model, params, args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the dry run's cells at cut shapes on the card
+        cells = {}
+        for label, (shape, cut, _, want) in ROOFLINE_CELLS.items():
+            with cut_shapes(steps, {shape: cut}):
+                cell = roofline_cell(label)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()      # what earlier phases still hold
+            args = cell["make_args"](torch.Generator(device="cuda").manual_seed(9), "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            out = cell["fn"](*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+            launches = read_launches()
+            if not all_finite(torch, out):
+                fail(f"phase 8: non-finite output in the {label} cell")
+            missing = [k for k in want if not launches[k]]
+            if missing:
+                fail(f"phase 8: {missing} not launched by the {label} cell: {launches}")
+            del out
+            cells[label] = dict(note=cell["note"], peak_bytes=peak, held_bytes=held,
+                                **step_times(torch, lambda: cell["fn"](*args)),
+                                launches={k: launches[k] for k in want})
+            del cell, args
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_card = time.perf_counter() - t0
+        est = {job: f.result() for job, f in futures.items()}
+
+    out_rows = []
+    for row, m in zip(rows, measured):
+        c = est[("row", row)]
+        ai = c["flops"] / c["bytes"]
+        t_bound = max(c["flops"] / hw.peak_flops_bf16, c["bytes"] / hw.hbm_bw) * 1e3
+        r = dict(bench=row[0], x=row[1], flops=c["flops"], bytes=c["bytes"],
+                 arith_intensity=ai, ridge=ridge, compute_bound=ai > ridge, **m,
+                 bound_ms=t_bound,
+                 flops_share=c["flops"] / (m["device_ms"] / 1e3) / hw.peak_flops_bf16,
+                 bytes_share=c["bytes"] / (m["device_ms"] / 1e3) / hw.hbm_bw)
+        out_rows.append(r)
+        log(f"phase 8 {r['bench']} x={r['x']}: flops {c['flops']:.4e} bytes {c['bytes']:.4e} "
+            f"AI {ai:.2f} (ridge {ridge:.1f}, {'compute' if ai > ridge else 'memory'}-bound) "
+            f"device {m['device_ms']:.4f} ms (bound {t_bound:.4f}; kernels {m['kernels']}, "
+            f"{m['kernel_ms']} ms) host {m['host_ms']:.4f} ms; {r['flops_share']:.4f} of "
+            f"peak FLOP/s, {r['bytes_share']:.4f} of peak bytes/s")
+    for label, m in cells.items():
+        e = est[("cell", label)]
+        t_est = max(e["t_compute_s"], e["t_memory_s"]) * 1e3
+        m.update(flops=e["flops_per_dev"], bytes=e["bytes_per_dev"], bottleneck=e["bottleneck"],
+                 est_peak_bytes=e["peak_bytes"], est_ms=t_est, model_flops=e["model_flops"],
+                 peak_ratio=m["peak_bytes"] / e["peak_bytes"], time_ratio=m["device_ms"] / t_est)
+        log(f"phase 8 cell {ROOFLINE_ARCH} {label} ({m['note']}): peak estimated "
+            f"{e['peak_bytes'] / 2**30:.3f} GiB, measured {m['peak_bytes'] / 2**30:.3f} GiB "
+            f"(x{m['peak_ratio']:.3f}; above {m['held_bytes'] / 2**30:.3f} GiB held); "
+            f"max(t_compute, t_memory) {t_est:.4f} ms "
+            f"({e['bottleneck']}-bound), device {m['device_ms']:.4f} ms "
+            f"(x{m['time_ratio']:.2f}; kernels {m['kernels']}, {m['kernel_ms']} ms), "
+            f"host {m['host_ms']:.4f} ms; launches {m['launches']}")
+    log("roofline " + json.dumps(dict(intensity=out_rows, cells=cells)))
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s ({t_card:.1f} s until the card's runs ended)")
+    return dict(intensity=out_rows, cells=cells)
+
+
 # ------------------------------------------------------------------ main ---
 KERNELS = {
     "paged_attention": dict(
@@ -2280,6 +2556,8 @@ def main() -> int:
                     help="build and check the kernels only (phases 1-3, 1 timed repeat)")
     ap.add_argument("--train-only", action="store_true",
                     help="build, then the training phase only (phases 1, 2 and 7)")
+    ap.add_argument("--roofline-only", action="store_true",
+                    help="build, then the roofline phase only (phases 1, 2 and 8)")
     ap.add_argument("--train-determinism", metavar="DIR",
                     help=argparse.SUPPRESS)   # phase 7's subprocess (train_determinism)
     args = ap.parse_args()
@@ -2318,6 +2596,10 @@ def main() -> int:
     if args.train_only:
         phase_train(torch)
         log(f"training-only run passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.roofline_only:
+        phase_roofline(torch)
+        log(f"roofline-only run passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
     # 3. kernels against their plain versions
@@ -2375,6 +2657,10 @@ def main() -> int:
     # 7. training
     train = phase_train(torch)
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 8. the cost model and the dry run on the card
+    phase_roofline(torch)
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, meta in KERNELS.items():

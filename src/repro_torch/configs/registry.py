@@ -23,6 +23,9 @@ ARCHS = {
     "opt-125m": opt_125m.CONFIG,   # the paper's own model
 }
 
+# The ten assigned architectures (dry-run / roofline cells).
+ASSIGNED = [a for a in ARCHS if a != "opt-125m"]
+
 
 def get_config(arch: str):
     if arch not in ARCHS:

@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.costs import kernel_region
+
 NEG_INF = -1e30
 POS_SENTINEL = 2**30      # kv position of block padding (never attended)
 NO_WINDOW = 2**30         # attention window of a global layer
@@ -51,6 +53,7 @@ def softcap(logits, cap):
 
 
 # ---------------------------------------------- flash attention (plain) ----
+@kernel_region
 def flash_attention(
     q,                      # [B, Tq, H, d]
     k,                      # [B, Tk, KV, d]
@@ -166,6 +169,7 @@ class _FlashCkpt(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+@kernel_region
 def flash_ckpt_bwd(q, k, v, kv_lens, out, lse, do, *, scale, causal=True,
                    window=None, attn_softcap=None, block_kv=512):
     """The recompute backward of ``flash_attention_ckpt``: a port of the

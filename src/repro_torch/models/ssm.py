@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.launch.costs import kernel_region
 from repro_torch.models.layers import dense_init, head_rms_norm, rms_norm
 
 
@@ -79,6 +80,7 @@ def _causal_conv(xbc, conv_state, w, b):
     return F.silu(y), new_state
 
 
+@kernel_region
 def mamba2_chunk_scan(xh, Bc, Cc, la, h0, chunk=64):
     """SSD chunkwise scan.
 
@@ -204,6 +206,7 @@ def _shifted(x, x_last):
     return torch.cat([x_last[:, None], x[:, :-1]], dim=1)
 
 
+@kernel_region
 def rwkv6_wkv_chunk(r, k, v, lw, u, S0, chunk=32):
     """Chunkwise WKV with per-channel data-dependent decay, in f32
     whatever the inputs' dtype.

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.costs import kernel_region
+
 IGNORE = -100
 NEG_INF = -1e30
 
@@ -69,61 +71,77 @@ def _tiles(table, vtile):
     return table.reshape(Vp // vtile, vtile, D)
 
 
+@kernel_region
+def _vtiled_ce_fwd(hidden2d, labels1d, table, softcap, v_real, vtile):
+    """(per-token lse - label logit [N], lse [N]) of hidden2d [N, D]
+    against table [Vp, D], one vocabulary tile at a time with an online
+    logsumexp."""
+    N, _ = hidden2d.shape
+    h = hidden2d.float()
+    m = torch.full((N,), NEG_INF, dtype=torch.float32, device=h.device)
+    s = torch.zeros((N,), dtype=torch.float32, device=h.device)
+    lab = torch.zeros((N,), dtype=torch.float32, device=h.device)
+    iota = torch.arange(vtile, device=h.device)
+    for ti, tbl in enumerate(_tiles(table, vtile)):
+        logits = _logits(h, tbl)
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        ids = ti * vtile + iota
+        logits = torch.where(ids < v_real, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1))
+        s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
+        lab = lab + torch.where(ids == labels1d[:, None], logits, 0.0).sum(-1)
+        m = m_new
+    lse = m + torch.log(torch.clamp(s, min=1e-30))
+    return lse - lab, lse
+
+
+@kernel_region
+def _vtiled_ce_bwd(hidden2d, labels1d, table, lse, g, softcap, v_real, vtile):
+    """(d hidden2d, d table) of the per-token loss for its cotangent g
+    [N], recomputing each tile's logits."""
+    h = hidden2d.float()
+    gf = g.float()
+    dh = torch.zeros_like(h)
+    dtiles = []
+    iota = torch.arange(vtile, device=h.device)
+    for ti, tbl in enumerate(_tiles(table, vtile)):
+        tblf = tbl.float()
+        logits = h @ tblf.t()
+        dcap = None
+        if softcap:
+            t = torch.tanh(logits / softcap)
+            logits = t * softcap
+            dcap = 1.0 - t.square()                   # d capped / d logits
+        ids = ti * vtile + iota
+        p = torch.where(ids < v_real, torch.exp(logits - lse[:, None]), 0.0)
+        onehot = (ids == labels1d[:, None]).float()
+        dlogits = gf[:, None] * (p - onehot)          # [N, vtile]
+        if dcap is not None:
+            dlogits = dlogits * dcap
+        dh = dh + dlogits @ tblf
+        dtiles.append((dlogits.t() @ h).to(table.dtype))
+    return dh.to(hidden2d.dtype), torch.cat(dtiles).reshape(table.shape)
+
+
 class _VtiledCE(torch.autograd.Function):
     """Per-token (lse - label logit) [N] of hidden2d [N, D] against table
     [Vp, D], one vocabulary tile at a time; the backward recomputes each
-    tile's logits (``_vtiled_ce_bwd`` of the reference)."""
+    tile's logits (``_vtiled_ce_bwd`` of the reference).  Both loops are
+    kernel regions for ``launch/costs.py``, as the reference's scans are."""
 
     @staticmethod
     def forward(ctx, hidden2d, labels1d, table, softcap, v_real, vtile):
-        N, _ = hidden2d.shape
-        h = hidden2d.float()
-        m = torch.full((N,), NEG_INF, dtype=torch.float32, device=h.device)
-        s = torch.zeros((N,), dtype=torch.float32, device=h.device)
-        lab = torch.zeros((N,), dtype=torch.float32, device=h.device)
-        iota = torch.arange(vtile, device=h.device)
-        for ti, tbl in enumerate(_tiles(table, vtile)):
-            logits = _logits(h, tbl)
-            if softcap:
-                logits = torch.tanh(logits / softcap) * softcap
-            ids = ti * vtile + iota
-            logits = torch.where(ids < v_real, logits, NEG_INF)
-            m_new = torch.maximum(m, logits.amax(-1))
-            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
-            lab = lab + torch.where(ids == labels1d[:, None], logits, 0.0).sum(-1)
-            m = m_new
-        lse = m + torch.log(torch.clamp(s, min=1e-30))
+        out, lse = _vtiled_ce_fwd(hidden2d, labels1d, table, softcap, v_real, vtile)
         ctx.save_for_backward(hidden2d, labels1d, table, lse)
         ctx.kw = (softcap, v_real, vtile)
-        return lse - lab
+        return out
 
     @staticmethod
     def backward(ctx, g):
         hidden2d, labels1d, table, lse = ctx.saved_tensors
-        softcap, v_real, vtile = ctx.kw
-        h = hidden2d.float()
-        gf = g.float()
-        dh = torch.zeros_like(h)
-        dtiles = []
-        iota = torch.arange(vtile, device=h.device)
-        for ti, tbl in enumerate(_tiles(table, vtile)):
-            tblf = tbl.float()
-            logits = h @ tblf.t()
-            dcap = None
-            if softcap:
-                t = torch.tanh(logits / softcap)
-                logits = t * softcap
-                dcap = 1.0 - t.square()                   # d capped / d logits
-            ids = ti * vtile + iota
-            p = torch.where(ids < v_real, torch.exp(logits - lse[:, None]), 0.0)
-            onehot = (ids == labels1d[:, None]).float()
-            dlogits = gf[:, None] * (p - onehot)          # [N, vtile]
-            if dcap is not None:
-                dlogits = dlogits * dcap
-            dh = dh + dlogits @ tblf
-            dtiles.append((dlogits.t() @ h).to(table.dtype))
-        return (dh.to(hidden2d.dtype), None, torch.cat(dtiles).reshape(table.shape),
-                None, None, None)
+        dh, dtable = _vtiled_ce_bwd(hidden2d, labels1d, table, lse, g, *ctx.kw)
+        return dh, None, dtable, None, None, None
 
 
 def lm_loss_from_hidden_vtiled(hidden, labels, table, *, softcap=None,

@@ -170,3 +170,30 @@ print("clean")
     lines = out.stdout.strip().splitlines()
     assert lines[-1] == "clean"
     assert "start_step=2" in out.stdout and sum(x.startswith("done:") for x in lines) == 2
+
+
+def test_cost_model_and_dry_run_load_no_jax_or_reference_module():
+    """The six modules of the analysis layer (hardware spec, cost model,
+    roofline, cell builders, dry run, Splitwise baseline), in a fresh
+    interpreter: nothing of JAX or the reference is loaded, and importing
+    the dry run sets no environment variable (the reference's sets
+    XLA_FLAGS)."""
+    code = """
+import os, sys
+env = dict(os.environ)
+import repro_torch.launch.dryrun
+from repro_torch.common import hw
+from repro_torch.launch import costs, roofline, splitwise, steps
+assert dict(os.environ) == env
+import torch
+c = costs.traced_costs(lambda a, b: a @ b, torch.zeros(8, 32), torch.zeros(32, 16))
+assert c["flops"] == 2 * 8 * 32 * 16, c
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
+assert not bad, bad
+print("clean")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
