@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick       # phases 1-3 at one repeat: build + kernel check
     python3 chip_smoke.py --train-only  # phases 1-2 and 7: build + training
     python3 chip_smoke.py --roofline-only  # phases 1-2 and 8: build + roofline
+    python3 chip_smoke.py --sampling-only  # phases 1-2 and 9: build + sampled decoding
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: device name and count, ``nvidia-smi`` name and power limit;
@@ -100,7 +101,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      max(t_compute, t_memory) against device time, logged; fatal on a
      non-finite output or a kernel of the cell not launched (K2's training
      forward, K2, K1 decode and chunk, K3 under int8 pages).  The cost
-     counts run in worker processes beside the card's runs.
+     counts run in worker processes beside the card's runs;
+  9. sampled decoding: qwen3-0.6b at full width and 2 layers in f32 with
+     fp pages, 16 requests of 64-512 prompt tokens and 32 new tokens, a
+     third greedy, a third at temperature 0.8 with top-k 40, a third at
+     temperature 1.0 with top-p 0.9, each with its own seed.  Fatal: the
+     four modes give equal streams; each sampled request served alone
+     gives its batched stream; a pool small enough to preempt gives the
+     same streams (with preemptions); the greedy rows equal an all-greedy
+     run; every request finishes by length with finite logits; K1's
+     decode and chunk loops and K2 launch where phase 5 requires them.
+     Logged: the share of tokens the cuda streams share with the CPU
+     engine's on the same weights (a near-tie may flip), ``sample_tokens``
+     at B = 16 and V = 151,936 on cuda logits (host ms, device ms, the
+     host ms of its CPU noise ``_gumbel_rows``), and a decode step's wall
+     with all rows greedy against all rows sampled.  Last, the port's lint
+     (``python -m repro_torch.analysis.lint src/repro_torch``) in a
+     subprocess must exit 0.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 line, the card's ``nvidia-smi`` name and power limit, and
@@ -2502,6 +2519,234 @@ def phase_roofline(torch):
     return dict(intensity=out_rows, cells=cells)
 
 
+# ------------------------------------------------------------ phase 9 ---
+# sampled decoding: qwen3-0.6b at full width and 2 layers in f32 (in bf16
+# the modes' GEMM rounding differs), pages sized to hold 512 + 32 tokens
+SAMPLED_SERVE = dict(max_batch=16, page_size=16, n_pages=640, max_pages_per_seq=36,
+                     max_seq_len=576, prefill_chunk=128, n_streams=2, chunk_tokens=256,
+                     **ANALYSIS_OFF)
+SAMPLED_TIGHT_PAGES = 96       # a pool this small preempts the 16 requests
+SAMPLED_POLICIES = ({}, dict(temperature=0.8, top_k=40), dict(temperature=1.0, top_p=0.9))
+
+
+def sampled_requests(vocab, policies=SAMPLED_POLICIES, rids=None):
+    """Phase 9's traffic: 16 requests of 64-512 prompt tokens and 32 new
+    tokens each, request i with ``policies[i % len(policies)]`` and its
+    own seed 1000 + i.  By default a third are greedy, a third sample at
+    temperature 0.8 with top-k 40 and a third at temperature 1.0 with
+    top-p 0.9.  ``rids`` keeps only those requests."""
+    import numpy as np
+    from repro_torch.core.engine import Request
+    from repro_torch.core.sampler import SamplingParams
+    rng = np.random.RandomState(11)
+    out = []
+    for i in range(16):
+        prompt = [int(t) for t in rng.randint(2, vocab, size=rng.randint(64, 513))]
+        if rids is None or i in rids:
+            out.append(Request(rid=i, prompt=prompt, sampling=SamplingParams(
+                max_new_tokens=32, seed=1000 + i, **policies[i % len(policies)])))
+    return out
+
+
+def sampled_run(torch, setup, serve_kw, mode, reqs, dev):
+    """Serve ``reqs`` on ``dev``: (streams by rid, summary, launches).
+    Every request must finish by length (and every logit be finite)."""
+    from repro_torch.configs import ServeConfig
+    gc.collect()
+    eng = make_engine_cls()(*setup, ServeConfig(mode=mode, **serve_kw), device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    zero_launches()
+    s = eng.run(reqs, max_steps=20000).summary()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    outs = eng.poll()
+    if len(outs) != len(reqs) or any(o.finish_reason != "length" for o in outs) \
+            or any(len(r.out_tokens) != r.max_new_tokens for r in reqs):
+        fail(f"phase 9 {mode} on {dev}: not every request finished by length: "
+             f"{[(o.rid, o.finish_reason, len(o.tokens)) for o in outs]}")
+    return {r.rid: r.out_tokens for r in reqs}, s, launches
+
+
+def first_difference(a, b):
+    """(rid, token index, a's token, b's token) where two stream maps first
+    differ, or None."""
+    for rid in sorted(a):
+        for j, (x, y) in enumerate(zip(a[rid], b[rid])):
+            if x != y:
+                return rid, j, x, y
+    return None
+
+
+def sampled_checks(torch, setup, make):
+    """Phase 9's fatal checks on cuda; ``make(policies, rids)`` builds the
+    traffic (``sampled_requests``).  Returns the streams of the first mode,
+    the kernels' launches and the engine steps per mode."""
+    from repro_torch.configs import SERVE_MODES
+    dev, serve_kw, tight_pages = "cuda", SAMPLED_SERVE, SAMPLED_TIGHT_PAGES
+    per_mode, launches, steps = {}, {}, {}
+    for mode in SERVE_MODES:                         # 1. modes agree
+        per_mode[mode], s, launches[mode] = sampled_run(torch, setup, serve_kw, mode,
+                                                        make(), dev)
+        steps[mode] = s["n_steps"]
+        want = (["paged_attention_decode"]
+                + (["flash_attention"] if mode == "sequential" else [])
+                + (["paged_attention_chunk"] if mode in CHUNKING_MODES else []))
+        missing = [k for k in want if launches[mode][k] == 0]
+        if missing:                                  # 6. the kernels ran
+            fail(f"phase 9 {mode}: {missing} not launched: {launches[mode]}")
+    base = per_mode[SERVE_MODES[0]]
+    for mode in SERVE_MODES[1:]:
+        diff = first_difference(base, per_mode[mode])
+        if diff:
+            fail(f"phase 9: sampled streams differ between {SERVE_MODES[0]} and {mode} "
+                 f"at (rid, index, a, b) = {diff}")
+    sampled = [r.rid for r in make() if r.sampling.temperature > 0]
+    for rid in sampled:                              # 2. alone = in the batch
+        alone, _, _ = sampled_run(torch, setup, serve_kw, "sequential", make(rids={rid}), dev)
+        if alone[rid] != base[rid]:
+            fail(f"phase 9: request {rid} alone differs from its batched stream at "
+                 f"{first_difference({rid: alone[rid]}, {rid: base[rid]})}")
+    tight, s, _ = sampled_run(torch, setup, dict(serve_kw, n_pages=tight_pages),  # 3.
+                              "chunked", make(), dev)
+    if s["n_preemptions"] == 0:
+        fail(f"phase 9: the {tight_pages}-page pool did not preempt: {s}")
+    if tight != base:
+        fail(f"phase 9: streams under preemption differ at {first_difference(base, tight)}")
+    greedy, _, _ = sampled_run(torch, setup, serve_kw, "sequential", make(({},)), dev)
+    greedy_rids = [r.rid for r in make() if r.sampling.temperature == 0]   # 4.
+    if any(greedy[rid] != base[rid] for rid in greedy_rids):
+        fail("phase 9: greedy rows of the mixed batch differ from the all-greedy run")
+    log(f"phase 9 on {dev}: {len(base)} streams ({len(sampled)} sampled) equal in "
+        f"{list(SERVE_MODES)} (steps {json.dumps(steps)}); each sampled request alone equals "
+        f"its batched stream; {tight_pages}-page pool: {s['n_preemptions']} preemptions, "
+        f"{s['n_steps']} steps, streams equal; {len(greedy_rids)} greedy rows equal the "
+        "all-greedy run; every request finished by length, every logit finite")
+    return base, launches, steps
+
+
+def sampler_timing(torch):
+    """``sample_tokens`` on cuda logits [16, 151,936] (qwen3-0.6b's
+    vocabulary), every row sampled (top-k 40 on the odd rows, top-p 0.9
+    on the even ones): host ms a call (to its tokens on the card), device
+    ms a call from ``torch.profiler`` (kernels and copies), and the host ms
+    of ``_gumbel_rows`` alone (the CPU noise); medians of 10 calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.sampler import _gumbel_rows, sample_tokens
+    B, V, reps = 16, 151_936, 10
+    g = torch.Generator(device="cuda").manual_seed(3)
+    logits = torch.randn(B, V, device="cuda", generator=g) * 3
+    rows = torch.arange(B)
+    args = (torch.full((B,), 0.8), torch.where(rows % 2 == 1, 40, 0).to(torch.int32),
+            torch.where(rows % 2 == 0, 0.9, 1.0), torch.full((B,), 7), rows, torch.zeros(B, dtype=torch.int64))
+
+    def call():
+        return sample_tokens(logits, *args)
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[reps // 2]
+
+    host = host_ms(call)
+    noise = host_ms(lambda: _gumbel_rows(*args[3:], V))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    dev_us = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[e.key] = dev_us.get(e.key, 0.0) + e.self_device_time_total
+    device = sum(dev_us.values()) / 1e3 / reps
+    copy = sum(v for k, v in dev_us.items() if "memcpy" in k.lower()) / 1e3 / reps
+    return dict(B=B, V=V, host_ms=host, device_ms=device if device else "not measured",
+                device_copy_ms=copy, gumbel_rows_host_ms=noise,
+                gumbel_rows_share_of_host=noise / host,
+                device_top=sorted(((round(v / 1e3 / reps, 4), k) for k, v in dev_us.items()),
+                                  reverse=True)[:6])
+
+
+def decode_step_walls(torch, setup, reqs):
+    """Median host wall (ms) of 8 sequential decode steps over the full
+    batch ``reqs`` on cuda (after its prefill), each step synchronized."""
+    from repro_torch.configs import ServeConfig
+    n = 8
+    gc.collect()
+    eng = make_engine_cls()(*setup, ServeConfig(mode="sequential", **SAMPLED_SERVE),
+                            device="cuda")
+    for r in reqs:
+        eng.submit(r)
+    walls = []
+    while len(walls) < n and not eng.idle():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if eng.metrics.step_kinds[-1] == "decode" and all(eng.slots):
+            walls.append((time.perf_counter() - t0) * 1e3)
+    if len(walls) < n:
+        fail(f"phase 9: only {len(walls)} full decode steps")
+    return sorted(walls)[n // 2]
+
+
+def phase_sampling(torch):
+    """Phase 9: sampled decoding on the card (module docstring).  Returns
+    the path's launches and engine steps for the kernels line."""
+    import os
+    from repro_torch.configs import SERVE_MODES, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = replace(get_config("qwen3-0.6b"), n_layers=2)
+    model = get_model("qwen3-0.6b", cfg)
+    cpu_params = T.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    setup = (model, to_device(cpu_params, "cuda"))
+
+    def make(policies=SAMPLED_POLICIES, rids=None):
+        return sampled_requests(cfg.vocab_size, policies, rids)
+
+    base, launches, steps = sampled_checks(torch, setup, make)
+    total = {k: sum(launches[m][k] for m in SERVE_MODES) for k in launches[SERVE_MODES[0]]}
+    log("phase 9 launches per mode " + json.dumps(launches))
+    # logged, not fatal: logits differ by ~1e-5 between devices, so a
+    # near-tie may flip a sampled token
+    cpu, _, _ = sampled_run(torch, (model, cpu_params), SAMPLED_SERVE, "sequential", make(),
+                            "cpu")
+    sampled = [r.rid for r in make() if r.sampling.temperature > 0]
+    log("phase 9 cuda vs cpu agreement, share of token positions: " + json.dumps(dict(
+        sampled=agreement([base[r] for r in sampled], [cpu[r] for r in sampled]),
+        greedy=agreement([base[r] for r in base if r not in sampled],
+                         [cpu[r] for r in base if r not in sampled]),
+        first_difference=first_difference(base, cpu))))
+    timing = sampler_timing(torch)
+    walls = {kind: decode_step_walls(torch, setup, make(policies))
+             for kind, policies in (("all_greedy", ({},)), ("all_sampled", SAMPLED_POLICIES[1:]))}
+    log("phase 9 sampler on the card " + json.dumps(dict(
+        sample_tokens=timing, decode_step_wall_ms=dict(B=16, **walls))))
+    # the lint, as a CI job on this machine runs it
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(src), os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint", str(src / "repro_torch")],
+                         env=env, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"phase 9: the lint exited {out.returncode}: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+    log(f"phase 9 lint (python -m repro_torch.analysis.lint src/repro_torch): exit 0, "
+        f"{out.stdout.strip().splitlines()[-1]}")
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=total, steps=sum(steps.values()))
+
+
 # ------------------------------------------------------------------ main ---
 KERNELS = {
     "paged_attention": dict(
@@ -2558,6 +2803,8 @@ def main() -> int:
                     help="build, then the training phase only (phases 1, 2 and 7)")
     ap.add_argument("--roofline-only", action="store_true",
                     help="build, then the roofline phase only (phases 1, 2 and 8)")
+    ap.add_argument("--sampling-only", action="store_true",
+                    help="build, then the sampled-decoding phase only (phases 1, 2 and 9)")
     ap.add_argument("--train-determinism", metavar="DIR",
                     help=argparse.SUPPRESS)   # phase 7's subprocess (train_determinism)
     args = ap.parse_args()
@@ -2600,6 +2847,10 @@ def main() -> int:
     if args.roofline_only:
         phase_roofline(torch)
         log(f"roofline-only run passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.sampling_only:
+        phase_sampling(torch)
+        log(f"sampling-only run passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
     # 3. kernels against their plain versions
@@ -2661,6 +2912,10 @@ def main() -> int:
     # 8. the cost model and the dry run on the card
     phase_roofline(torch)
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 9. sampled decoding
+    paths["qwen3 f32 sampled"] = phase_sampling(torch)
+    log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, meta in KERNELS.items():

@@ -3,12 +3,13 @@
 # allocator/trie/scheduler contract after engine steps, call-site hooks
 # (hooks.py) that attribute violations to the exact mutating call at
 # sanitize_level="call", and a cross-mode differential harness
-# (differential.py), and a dispatch sentinel (dispatch.py) that proves
-# the step callables keep one argument signature per static shape.
-# Copies of the reference's modules of the same names; its lint is not
-# ported yet.
+# (differential.py), a dispatch sentinel (dispatch.py) that proves
+# the step callables keep one argument signature per static shape, and an
+# AST lint (lint.py) whose hot-path rules match PyTorch.  Counterparts of
+# the reference's modules of the same names.
 #
-# Module-level imports stay stdlib-only.
+# Module-level imports stay stdlib-only: the lint runs where neither
+# torch nor numpy is installed (a CI lint job, a pre-commit hook).
 from repro_torch.analysis.differential import (diff_fingerprints,
                                                run_cross_mode,
                                                state_fingerprint)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the reference
-package (its analysis layer included), and neither does chip_smoke.py."""
+package (its analysis layer and lint included), and neither does
+chip_smoke.py."""
 import os
 import re
 import subprocess
@@ -15,7 +16,7 @@ IMPORT_RE = re.compile(
 def test_port_sources_import_no_jax_or_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    assert {"invariants.py", "hooks.py", "differential.py"} <= {
+    assert {"invariants.py", "hooks.py", "differential.py", "lint.py"} <= {
         f.name for f in files if f.parent.name == "analysis"}
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if IMPORT_RE.search(f.read_text())]

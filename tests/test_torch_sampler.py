@@ -2,13 +2,16 @@
 are deterministic per (seed, rid, pos) and independent of the batch.
 
 Sampled token *values* are not compared with the reference: JAX draws
-from threefry, which PyTorch cannot reproduce.
+from threefry, which PyTorch cannot reproduce.  JAX and the reference are
+imported inside the one test that compares with them, so the ``gpu``
+case loads on a machine without them:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_sampler.py
 """
-import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
-from repro.core.sampler import greedy_tokens as j_greedy
 from repro_torch.core.sampler import greedy_tokens, sample_tokens
 
 
@@ -16,19 +19,21 @@ def _logits(seed, B=4, V=50):
     return np.random.RandomState(seed).standard_normal((B, V)).astype(np.float32)
 
 
-def _sample(logits, temp, top_k, top_p, seed, rid, pos):
+def _sample(logits, temp, top_k, top_p, seed, rid, pos, device="cpu"):
     B = logits.shape[0]
 
     def col(x, dt):
         return torch.tensor(np.broadcast_to(np.asarray(x), (B,)).copy(), dtype=dt)
 
-    return sample_tokens(torch.from_numpy(logits), col(temp, torch.float32),
+    return sample_tokens(torch.from_numpy(logits).to(device), col(temp, torch.float32),
                          col(top_k, torch.int32), col(top_p, torch.float32),
                          col(seed, torch.int64), col(rid, torch.int64),
-                         col(pos, torch.int64)).numpy()
+                         col(pos, torch.int64)).cpu().numpy()
 
 
 def test_greedy_equals_reference_argmax_including_ties():
+    import jax.numpy as jnp
+    from repro.core.sampler import greedy_tokens as j_greedy
     lg = _logits(0, B=6)
     lg[1, [3, 17, 40]] = 9.0                    # a three-way tie: first wins
     lg[2, :] = 0.0                              # all equal: index 0
@@ -89,3 +94,36 @@ def test_sampled_streams_are_mode_independent():
         Engine(model, params, serve, device="cpu").run(reqs)
         streams.append([r.out_tokens for r in reqs])
     assert streams[0] == streams[1] == streams[2]
+
+
+def _untied_logits(seed, B, V):
+    """Logits [B, V] on a grid of 1/16 with distinct values per row: no
+    two candidates of a row tie, and the scaled and masked values are
+    computed exactly on either device."""
+    rng = np.random.RandomState(seed)
+    return np.stack([rng.permutation(V) for _ in range(B)]).astype(np.float32) / 16.0
+
+
+@pytest.mark.gpu
+def test_sample_tokens_on_cuda_logits():
+    """On the card: greedy rows are the argmax, a row's token does not
+    depend on the batch around it, and the tokens equal the same call on
+    the CPU copy of the logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, V = 12, 4096
+    lg = _untied_logits(5, B, V)
+    rid, pos = np.arange(B) + 3, np.arange(B) % 5
+    temp = np.where(np.arange(B) % 3 == 0, 0.0, 1.0).astype(np.float32)
+    top_k = np.where(np.arange(B) % 3 == 1, 40, 0)
+    top_p = np.where(np.arange(B) % 3 == 2, 0.9, 1.0).astype(np.float32)
+    on_card = _sample(lg, temp, top_k, top_p, 11, rid, pos, device="cuda")
+    greedy = np.arange(B) % 3 == 0
+    np.testing.assert_array_equal(on_card[greedy], lg[greedy].argmax(-1))
+    np.testing.assert_array_equal(on_card, _sample(lg, temp, top_k, top_p, 11, rid, pos))
+    for i in range(B):                           # alone, or reversed in the batch
+        assert _sample(lg[i:i + 1], temp[i:i + 1], top_k[i:i + 1], top_p[i:i + 1], 11,
+                       rid[i:i + 1], pos[i:i + 1], device="cuda")[0] == on_card[i]
+    rev = _sample(lg[::-1].copy(), temp[::-1], top_k[::-1], top_p[::-1], 11, rid[::-1],
+                  pos[::-1], device="cuda")
+    np.testing.assert_array_equal(rev[::-1], on_card)
