@@ -15,7 +15,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      in f32 and bf16, with times of the kernel, the plain version and a
      library yardstick (``scaled_dot_product_attention`` on gathered K/V —
      for the int8 kernel after one dequantize call — never called by the
-     port; none for the SSD scan, which no single PyTorch call computes),
+     port; none for the SSD scan and its backward, which no single
+     PyTorch call computes),
      and the card's bound for the same work, and the kernel's and the
      library's device time (``device_ms``: the calls queued behind a
      device sleep, so the host's cost per call does not pace them);
@@ -31,7 +32,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      attention of 64 and of 1 query row against 1024 frames, K1 decode at
      G = 1, d = 64), and the scan with a ragged T and a nonzero h0 (its y
      and h_final errors logged apart: y held to the dtype's tolerance,
-     h_final to 1e-4 in both dtypes).  First it logs the ``ptxas -v`` registers and spills
+     h_final to 1e-4 in both dtypes); K4's backward kernel at the hybrid's
+     training shape (B = 4, T = 1024) and at a ragged T = 1000 with h0 and
+     a gradient on h_final, each gradient (dx, dla, dB, dC, dh0) logged
+     apart and held to the dtype's tolerance relative to its own max |g|.
+     First it logs the ``ptxas -v`` registers and spills
      and the dynamic shared memory of each instantiation of the bf16
      tensor-core kernels (K2's and the chunk loops of K1 and K3), and
      fails if a head-dim 64 or 128 one spills; then the same for every
@@ -74,20 +79,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      from the same state, under ``torch.profiler``: device time by kernel
      class (K1/K3 split into decode, with its combine, and chunk) and the
      device's busy share;
-  7. training: qwen3-0.6b (full width, 2 layers; chunked and vocab-tiled
-     loss) and olmoe-1b-7b (reduced) on cuda against the CPU, f32: loss,
-     every gradient leaf and the params after 3 steps; the main path,
-     qwen3-0.6b at full width and depth in f32 with remat, B = 4, T =
-     512, 6 ``Trainer`` steps and one asynchronous checkpoint, with K2's
-     training forward (``flash_attention_lse``) launched 2 x 28 a step
-     and no other kernel, its step time, tokens/s, peak memory and a
+  7. training: every family on cuda against the CPU, f32 (qwen3-0.6b at
+     full width and 2 layers with the chunked and the vocab-tiled loss,
+     zamba2-7b at full width and 7 layer-units over T = 160, the others
+     reduced): the loss and every gradient leaf at each step, and the
+     params after the steps; the main path, qwen3-0.6b at full width and
+     depth in f32 with remat, B = 4, T = 512, 6 ``Trainer`` steps and one
+     asynchronous checkpoint, with K2's training forward
+     (``flash_attention_lse``) launched 2 x 28 a step and no other
+     kernel; the hybrid's path, zamba2-7b at full width and 13
+     layer-units in f32 with remat, B = 4, T = 1024, 6 ``Trainer`` steps
+     and a checkpoint, with K4's forward launched 2 x 11 a step, its
+     backward kernel 11 and K2's training forward 2 x 2, and no other
+     kernel; for each path its step time, tokens/s, peak memory and a
      profiled step's device split; in a subprocess under
      ``torch.use_deterministic_algorithms``, bitwise crash/resume and
      int8 moments (with a resume through them) on the reduced config;
      the training launcher in a subprocess.  Phase 3 also holds K2's
      training forward (o and lse) against its plain version beside the
-     forward-only K2 at the same shapes, and ``flash_attention_ckpt``'s
-     backward on cuda against the CPU's;
+     forward-only K2 at the same shapes (the hybrid's d = 112 included),
+     K4's backward kernel against its plain version, and
+     ``flash_attention_ckpt``'s backward on cuda against the CPU's;
   8. the cost model and the dry run held to the card (``repro_torch.launch.
      {costs,roofline,steps}``, peaks from ``common/hw.py::H100_SXM``): the
      15 rows of the paper's Figs. 2-4 on opt-125m at full size in bf16
@@ -470,6 +482,73 @@ def ssd_work(x, Bc, h0, chunk):
     return nbytes, 2.0 * B * H * macs
 
 
+def ssd_bwd_work(x, Bc, h0, dh_final, chunk):
+    """(bytes, flops) of one backward of the scan: x, la, B, C, dy (and
+    h0, dh_final when given) read once, dx, dla, dB, dC (and dh0) written
+    once; the multiply-adds over real steps only, and only those whose
+    result is used — the causal triangles of C.B^T and dy.x^T and of the
+    three products with them (dx, dB, dC); the state leaving each chunk
+    but the last (the forward's state update); h^T.dy where the state
+    entering the chunk is not zero (not on the first chunk when h0 = 0);
+    dh.B and x^T.dh where the carried dh is not zero (not on the last
+    chunk when dh_final = None); and dh's update where the dh entering
+    the chunk is used (not on the first chunk when h0 = None: dh0 is not
+    returned)."""
+    B, T, H, P = x.shape
+    N = Bc.shape[-1]
+    isz = x.element_size()
+    state = B * H * P * N * 4
+    nbytes = (3 * x.numel() + 4 * Bc.numel()) * isz + 2 * B * T * H * 4 \
+        + state * ((2 if h0 is not None else 0) + (dh_final is not None))
+    macs = 0
+    for t0 in range(0, T, chunk):
+        q = min(chunk, T - t0)
+        last = t0 + chunk >= T
+        h_in = t0 > 0 or h0 is not None
+        macs += q * (q + 1) // 2 * (3 * N + 2 * P) + q * P * N * (
+            (not last) + h_in + 2 * (not last or dh_final is not None) + h_in)
+    return nbytes, 2.0 * B * H * macs
+
+
+SSD_BWD_OUTPUTS = ("dx", "dla", "dB", "dC", "dh0")
+
+
+def ssd_bwd_cases(torch, dtype, dname, iters):
+    """K4's backward kernel (``ssd_chunk_scan_bwd``) against its plain
+    version on the same inputs: at the hybrid's training shape (B = 4, T =
+    1024, 112 heads, P = N = 64, chunk 64, h0 = 0, no gradient on the final
+    state) and at a ragged T = 1000 with h0 and dh_final given.  Each
+    gradient's max abs difference over its own max |g| is logged apart
+    (``<name>_rel_err``) and held to the dtype's tolerance (bf16: the
+    inputs' and dx's rounding); ``max_abs_err`` is the largest abs
+    difference.  No single PyTorch call computes the scan's backward."""
+    from repro_torch.kernels import ssd_scan as K4
+    cases = []
+    for label, T, given in (("train B=4 T=1024 H=112", 1024, False),
+                            ("ragged T=1000 h0!=0 dh_final!=0", 1000, True)):
+        x, la, Bc, Cc, h = ssd_case(torch, 4, T, 112, 64, 64, dtype, given, seed=8)
+        g = torch.Generator(device="cuda").manual_seed(9)
+        dy = (torch.randn(x.shape, generator=g, device="cuda") * 0.25).to(dtype)
+        dh = torch.randn(h.shape, generator=g, device="cuda") * 0.25 if given else None
+        names = SSD_BWD_OUTPUTS[:5 if given else 4]
+        run = lambda: K4.ssd_chunk_scan_bwd(x, la, Bc, Cc, h, dy, dh, chunk=64)[:len(names)]
+        plain = lambda: K4.ssd_chunk_scan_bwd_plain(x, la, Bc, Cc, h, dy, dh,
+                                                    chunk=64)[:len(names)]
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        rel = {f"{n}_rel_err": max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+               for n, a, b in zip(names, got, want)}
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        del got, want
+        c = measure(torch, "ssd_scan_bwd", label, dname, run, plain, None,
+                    ssd_bwd_work(x, Bc, h, dh, 64), iters, dict(rel, finite=finite),
+                    outputs=names)
+        c["max_abs_err"] = max(c[f"{n}_err"] for n in names)
+        cases.append(c)
+        del x, la, Bc, Cc, h, dy, dh
+    return cases
+
+
 TC_KERNELS = (  # library, kernel name, C helper of its dynamic shared memory
     ("flash_attention", "flash_attention_kernel_tc", "flash_attention_bf16_smem_bytes"),
     ("paged_attention", "paged_attention_kernel_tc", "paged_attention_bf16_smem_bytes"),
@@ -745,7 +824,9 @@ def lse_cases(torch, dtype, dname, iters):
     q / 8 kv heads of 128, causal), gemma2-2b's heads (d = 256, softcap
     50, scale 1/16) with a window of 256 keys at T = 1024, and a ragged
     non-causal call (seamless-m4t's cross-attention heads, 256 query rows
-    against 1024 keys, valid keys from 300).  o is held to the dtype's
+    against 1024 keys, valid keys from 300), and the zamba2 hybrid's
+    shared attention at its training shape (B = 4, T = 1024, 32 heads of
+    112, causal).  o is held to the dtype's
     tolerance, lse to ``LSE_TOL``.  The library yardstick is SDPA's
     forward, which returns no lse.  For the qwen3 shape the recompute
     backward (``layers.flash_ckpt_bwd``, torch ops) is timed too
@@ -764,7 +845,9 @@ def lse_cases(torch, dtype, dname, iters):
              256, dict(scale=gem.attn_scale_override, window=256,
                        softcap=gem.attn_logit_softcap), False),
             ("train lse non-causal B=4 T=256 Tk=1024 ragged", 4, 256, 1024, 16, 16, 64,
-             dict(scale=0.125, causal=False), True)):
+             dict(scale=0.125, causal=False), True),
+            ("train lse hybrid B=4 T=1024 d=112", 4, 1024, 1024, 32, 32, 112,
+             dict(scale=1.0 / math.sqrt(112)), False)):
         q = torch.randn(B, T, H, d, generator=g, device="cuda").to(dtype)
         k = torch.randn(B, Tk, KV, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(B, Tk, KV, d, generator=g, device="cuda").to(dtype)
@@ -865,6 +948,7 @@ def phase_kernels(torch, iters):
                 lambda: K4.ssd_chunk_scan_plain(x, la, Bc, Cc, h, chunk=64),
                 None, ssd_work(x, Bc, h, 64), iters,
                 dict(h_final_tol=TOL["float32"]), outputs=("y", "h_final")))
+        cases += ssd_bwd_cases(torch, dtype, dname, iters)
         # K1/K2 at the hybrid's shared attention: d=112, 32 q and 32 kv
         # heads (G=1); decode rows all at one length, as in its decode
         hy_scale = 1.0 / math.sqrt(112)
@@ -943,7 +1027,12 @@ def phase_kernels(torch, iters):
     ckpt_backward_check(torch)
     for c in cases + edge:
         log("kernel " + json.dumps(c))
-    bad = [c for c in cases + edge if not c["max_abs_err"] <= c["tol"]]
+    bad = [c for c in cases + edge if c["kernel"] != "ssd_scan_bwd"
+           and not c["max_abs_err"] <= c["tol"]]
+    # K4's backward: each gradient to the dtype's tolerance relative to its
+    # own max |g| (the dL sums run over Q * P * N products)
+    bad += [c for c in cases if c["kernel"] == "ssd_scan_bwd" and not (c["finite"] and all(
+        c[f"{n}_rel_err"] <= c["tol"] for n in SSD_BWD_OUTPUTS if f"{n}_rel_err" in c))]
     # K4's state feeds every later step: h_final is held to f32's 1e-4 in
     # both dtypes, y (max_abs_err) to the dtype's tolerance
     bad += [c for c in cases if "h_final_tol" in c and not c["h_final_err"] <= c["h_final_tol"]]
@@ -1012,6 +1101,7 @@ def launch_counts():
         for part in ("decode", "chunk"):
             counters[f"{name}_{part}"] = (mods[name], f"launches_{part}")
     counters["flash_attention_lse"] = (K2, "launches_lse")     # K2's training forward
+    counters["ssd_scan_bwd"] = (K4, "launches_bwd")            # K4's backward
     return counters
 
 
@@ -1557,13 +1647,14 @@ def log_agreement(name, paths):
 # K1/K3 decode (C = 1) is the split-KV kernel and its combine; every
 # other paged call is a chunk (bf16: the tensor-core loop, f32: the
 # CUDA-core loop).  "ssd_scan_kernel" matches K4's f32 kernel and its bf16
-# ssd_scan_kernel_tc.
+# ssd_scan_kernel_tc, not its backward ssd_scan_bwd_kernel.
 KERNEL_CLASSES = (("paged_attention_int8 decode", ("paged_attention_int8_decode",)),
                   ("paged_attention_int8 chunk", ("paged_attention_int8_kernel",)),
                   ("paged_attention decode", ("paged_attention_decode",)),
                   ("paged_attention chunk", ("paged_attention_kernel",)),
                   ("flash_attention", ("flash_attention_kernel",)),
                   ("ssd_scan", ("ssd_scan_kernel",)),
+                  ("ssd_scan_bwd", ("ssd_scan_bwd_kernel",)),
                   ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
 
@@ -1955,6 +2046,39 @@ def _leaves(tree):
 
 # ------------------------------------------------------------ phase 7 ---
 TRAIN = dict(global_batch=4, seq_len=512, steps=6)      # the main training path
+# the hybrid's training path: zamba2-7b at full width, 13 layer-units (2
+# groups of 5 Mamba2 blocks and the shared block, 1 trailing Mamba2 block:
+# 11 Mamba2 blocks, 2 shared-attention invocations, ~1.34 B params, ~21
+# GB of f32 params, grads and AdamW moments)
+HYBRID_TRAIN = dict(n_layers=13, global_batch=4, seq_len=1024, steps=6)
+# phase 7's cross-device training check, every family: arch, config
+# overrides (None: ``.reduced()``), loss, train steps, B, T, and whether
+# the row also holds the params after steps each device took on its own
+# gradients (``make_train_step`` end to end).  The first three rows are
+# the check as it was (state drawn on the CPU); the others run at full
+# width, their params drawn on the card and copied: the CPU's normal draws
+# and its AdamW cost ~10 s per billion params each, so the full-width
+# transformer, rwkv6 and seamless rows (0.3-1 B params at 2 layers) take
+# one step of B = 1 x T = 64.
+CROSS_TRAIN = (
+    ("qwen3-0.6b", dict(n_layers=2), "chunked", 3, 2, 64, True),
+    ("qwen3-0.6b", dict(n_layers=2), "vtiled", 3, 2, 64, True),
+    ("olmoe-1b-7b", None, "chunked", 1, 2, 64, True),
+    ("gemma2-2b", dict(n_layers=2), "chunked", 1, 1, 64, False),
+    ("internvl2-2b", dict(n_layers=2), "chunked", 1, 1, 64, False),
+    ("starcoder2-3b", dict(n_layers=2), "chunked", 1, 1, 64, False),
+    ("phi4-mini-3.8b", dict(n_layers=2), "chunked", 1, 1, 64, False),
+    ("rwkv6-7b", dict(n_layers=2), "chunked", 1, 1, 64, False),
+    ("seamless-m4t-medium", dict(n_layers=2, n_encoder_layers=2), "chunked", 1, 1, 64, False),
+    # 1 group of 5 Mamba2 blocks and the shared block, 1 trailing Mamba2
+    # block; T = 160: three scan chunks of 64, the last ragged
+    ("zamba2-7b", dict(n_layers=7), "chunked", 3, 1, 160, False))
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted key paths of a nested dict's leaves, in ``tree_leaves`` order."""
+    return [n for k, v in tree.items() for n in (
+        leaf_names(v, f"{prefix}{k}.") if isinstance(v, dict) else [prefix + k])]
 
 
 def tree_to(tree, device):
@@ -1963,89 +2087,161 @@ def tree_to(tree, device):
             for k, v in tree.items()}
 
 
+def independent_params_gap(torch, model, tcfg, state, data_fn, n_steps, cpu_params):
+    """Max abs gap between the params after ``n_steps`` of
+    ``make_train_step`` on the card from ``state``, on its own gradients,
+    and ``cpu_params``, the CPU's after the same steps on its own."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.train.trainer import make_train_step
+    step, st = make_train_step(model, tcfg), tree_to(state, "cuda")
+    for i in range(n_steps):
+        st, _ = step(st, {k: v.to("cuda") for k, v in data_fn(i).items()})
+    return max((a - b.to("cuda")).abs().max().item()
+               for a, b in zip(tree_leaves(st["params"]), tree_leaves(cpu_params)))
+
+
 def phase_train_cross_device(torch, tmp):
     """Training on cuda against the CPU, f32, one seeded state and the
-    same batches (B = 2, T = 64): qwen3-0.6b at full width and 2 layers
-    with the chunked and with the vocab-tiled loss, then olmoe-1b-7b
-    (reduced) for its MoE aux loss.  The loss within 1e-5 relative, every
-    gradient leaf within 1e-4 of the leaf's max |g|, and (qwen3) the
-    params after 3 train steps within 1e-4."""
-    from repro_torch.common.tree import tree_leaves
+    same batches, for every family (``CROSS_TRAIN``): qwen3-0.6b at full
+    width and 2 layers with the chunked and with the vocab-tiled loss,
+    olmoe-1b-7b reduced for its MoE aux loss, gemma2-2b, internvl2-2b,
+    starcoder2-3b, phi4-mini-3.8b, rwkv6-7b and seamless-m4t-medium at
+    full width and 2 layers (seamless: 2 + 2), zamba2-7b at full width
+    and 7 layer-units over T = 160 (on cuda K4's forward and backward
+    kernels).  At every train step the loss within 1e-5 relative and
+    every gradient leaf within 1e-4 of the leaf's max |g|; both devices'
+    optimizers (``apply_grads``) then take the CPU's gradients, and after
+    the steps the params agree within 1e-4.  The first three rows also
+    hold, as before, the params after the steps each device took on its
+    own gradients within 1e-4 (``independent_params_gap``; the CPU's
+    side of it is this loop's, which steps on its own gradients).  That
+    check is not asked of the others: AdamW's first steps move a param by
+    about lr * sign(g), so a gradient entry within a few 1e-6 of the
+    leaf's max |g| of zero, inside the gradient tolerance, can take the
+    two devices' params 2 * lr apart.  Each family's wall, the CPU's
+    share of it and the leaf of its largest param gap are logged."""
+    from repro_torch.common.tree import tree_leaves, tree_map
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import make_train_data_fn
     from repro_torch.models.registry import get_model
-    from repro_torch.train.trainer import init_state, make_loss_fn, make_train_step, value_and_grad
-    qwen2 = replace(get_config("qwen3-0.6b"), n_layers=2)
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import apply_grads, init_state, make_loss_fn, value_and_grad
     out = []
-    for arch, cfg, loss_impl, n_steps in (("qwen3-0.6b", qwen2, "chunked", 3),
-                                          ("qwen3-0.6b", qwen2, "vtiled", 3),
-                                          ("olmoe-1b-7b", get_config("olmoe-1b-7b").reduced(),
-                                           "chunked", 1)):
+    for arch, over, loss_impl, n_steps, B, T, independent in CROSS_TRAIN:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        cfg = cfg.reduced() if over is None else replace(cfg, **over)
         model = get_model(arch, cfg)
-        tcfg = TrainConfig(global_batch=2, seq_len=64, warmup_steps=0, total_steps=10,
+        tcfg = TrainConfig(global_batch=B, seq_len=T, warmup_steps=0, total_steps=10,
                            loss_impl=loss_impl, remat=True, ckpt_dir=str(tmp / "unused"))
-        state = init_state(model, torch.Generator().manual_seed(0), tcfg, device="cpu")
+        if independent:
+            state = init_state(model, torch.Generator().manual_seed(0), tcfg, device="cpu")
+            states = {"cuda": tree_to(state, "cuda"), "cpu": state}
+        else:
+            state = None
+            cu = init_state(model, torch.Generator(device="cuda").manual_seed(0), tcfg,
+                            device="cuda")
+            cp = tree_to(cu["params"], "cpu")
+            states = {"cuda": cu,
+                      "cpu": {"params": cp, "opt": adamw_init(cp, tcfg.int8_moments)}}
+        names = leaf_names(states["cpu"]["params"])
+        n_params = sum(p.numel() for p in tree_leaves(states["cpu"]["params"]))
         data_fn = make_train_data_fn(cfg, tcfg)
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            st = tree_to(state, dev)
-            batch = {k: v.to(dev) for k, v in data_fn(0).items()}
-            loss, grads = value_and_grad(make_loss_fn(model, tcfg), st["params"], batch)
-            step = make_train_step(model, tcfg)
-            for i in range(n_steps):
-                st, _ = step(st, {k: v.to(dev) for k, v in data_fn(i).items()})
-            runs[dev] = (loss.item(), [g.cpu() for g in tree_leaves(grads)],
-                         [p.cpu() for p in tree_leaves(st["params"])])
-            del st, grads
-        (lc, gc_, pc), (lp, gp, pp) = runs["cuda"], runs["cpu"]
-        g_rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
-                    for a, b in zip(gc_, gp))
-        p_err = max((a - b).abs().max().item() for a, b in zip(pc, pp))
-        r = dict(arch=cfg.name, loss_impl=loss_impl, loss_cuda=lc, loss_cpu=lp,
-                 loss_rel=abs(lc - lp) / abs(lp), grad_rel=g_rel, steps=n_steps,
-                 params_max_abs_err=p_err)
+        # the CPU's side without remat: the same gradients in less time
+        loss_fns = {"cuda": make_loss_fn(model, tcfg),
+                    "cpu": make_loss_fn(model, replace(tcfg, remat=False))}
+        loss_rel, g_rel, finite, cpu_s = [], [], True, 0.0
+        zero_launches()
+        for i in range(n_steps):
+            batch = data_fn(i)
+            loss, grads = {}, {}
+            for dev in ("cuda", "cpu"):
+                t1 = time.perf_counter()
+                l, g = value_and_grad(loss_fns[dev], states[dev]["params"],
+                                      {k: v.to(dev) for k, v in batch.items()})
+                loss[dev], grads[dev] = l.item(), g
+                cpu_s += (time.perf_counter() - t1) * (dev == "cpu")
+            # the CPU's gradients on the card: compared there, and fed to
+            # the card's optimizer
+            g_cpu = tree_map(lambda g: g.to("cuda"), grads["cpu"])
+            gc_, gp = tree_leaves(grads["cuda"]), tree_leaves(g_cpu)
+            loss_rel.append(abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"]))
+            g_rel.append(max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                             for a, b in zip(gc_, gp)))
+            finite &= all(bool(torch.isfinite(g).all()) for g in gc_ + gp)
+            t1 = time.perf_counter()
+            states["cpu"] = apply_grads(tcfg, states["cpu"], grads["cpu"])[0]
+            cpu_s += time.perf_counter() - t1
+            states["cuda"] = apply_grads(tcfg, states["cuda"], g_cpu)[0]
+            del grads, g_cpu, gc_, gp
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_launches().items() if v}
+        p_errs = [(a - b.to("cuda")).abs().max().item() for a, b in zip(
+            tree_leaves(states["cuda"]["params"]), tree_leaves(states["cpu"]["params"]))]
+        p_err = max(p_errs)
+        # the CPU's optimizer took its own gradients: its params are those
+        # of its own trajectory, the card's is run again on its own
+        ind_err = independent_params_gap(torch, model, tcfg, state, data_fn, n_steps,
+                                         states["cpu"]["params"]) if independent else None
+        del states
+        r = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+                 batch=B, seq=T, loss_impl=loss_impl, loss_cuda=loss["cuda"], loss_cpu=loss["cpu"],
+                 loss_rel=max(loss_rel), grad_rel=max(g_rel), grad_rel_by_step=g_rel,
+                 grads_finite=finite, steps=n_steps, params_max_abs_err=p_err,
+                 params_max_abs_err_leaf=names[p_errs.index(p_err)],
+                 independent_params_max_abs_err=ind_err, launches_cuda=counts,
+                 cpu_grads_adamw_s=cpu_s, wall_s=time.perf_counter() - t0)
         log("training cross-device " + json.dumps(r))
-        if not (r["loss_rel"] <= 1e-5 and g_rel <= 1e-4 and p_err <= 1e-4):
+        if not (r["loss_rel"] <= 1e-5 and r["grad_rel"] <= 1e-4 and p_err <= 1e-4 and finite
+                and (ind_err is None or ind_err <= 1e-4)):
             fail(f"training differs between cuda and cpu: {r}")
+        if cfg.family == "hybrid" and not (counts.get("ssd_scan") and counts.get("ssd_scan_bwd")):
+            fail(f"training cross-device {cfg.name}: K4's kernels not launched: {counts}")
         out.append(r)
-        del runs, state
+        del state, model
         gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
 def profiled_train_step(torch, model, tcfg, state, batch):
     """One train step of ``state`` on ``batch``, written out so that CUDA
-    events split its device time: the layers' forward, the loss (forward
-    and backward, up to the gradient of the hidden states), the layers'
-    backward (with remat's recompute), and clipping + AdamW; under
-    ``torch.profiler``, K2's kernels and the recompute backward of
-    ``flash_attention_ckpt`` (its ``_FlashCkptBackward`` node) within
-    them."""
+    events split its device time: the layers' forward (for the families
+    that train on full logits, the unembedding too), the loss (forward
+    and backward, up to the gradient of the hidden states or logits), the
+    layers' backward (with remat's recompute), and clipping + AdamW;
+    under ``torch.profiler``, the kernel classes (GEMM, K2, K4's forward
+    and backward, other kernels) and the recompute backward of
+    ``flash_attention_ckpt`` (its ``_FlashCkptBackward`` node, whose
+    kernels also sit in the classes)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.common.tree import tree_leaves, tree_map
     from repro_torch.models import transformer as T
-    from repro_torch.optim import adamw_update, clip_by_global_norm, warmup_cosine
-    from repro_torch.train.losses import lm_loss_from_hidden
+    from repro_torch.train.losses import lm_loss, lm_loss_from_hidden
+    from repro_torch.train.trainer import apply_grads
     cfg = model.cfg
+    from_hidden = cfg.family in ("dense", "moe", "vlm")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         live = tree_map(lambda p: p.detach().requires_grad_(True), state["params"])
         ev[0].record()
-        hidden, _ = T.train_hidden(live, cfg, batch, remat=tcfg.remat)
+        if from_hidden:
+            out, _ = T.train_hidden(live, cfg, batch, remat=tcfg.remat)
+        else:
+            out, _ = model.module.train_logits(live, cfg, batch, remat=tcfg.remat)
         ev[1].record()
-        loss, _ = lm_loss_from_hidden(hidden, batch["labels"], live["embed"],
-                                      softcap=cfg.final_logit_softcap, v_real=cfg.vocab_size)
+        if from_hidden:
+            loss, _ = lm_loss_from_hidden(out, batch["labels"], live["embed"],
+                                          softcap=cfg.final_logit_softcap,
+                                          v_real=cfg.vocab_size)
+        else:
+            loss, _ = lm_loss(out, batch["labels"], v_real=cfg.vocab_size)
         ev[2].record()
-        hidden.register_hook(lambda g: ev[3].record())
+        out.register_hook(lambda g: ev[3].record())
         leaves = tree_leaves(live)
         it = iter(torch.autograd.grad(loss, leaves))
         ev[4].record()
-        grads, _ = clip_by_global_norm(tree_map(lambda _: next(it), state["params"]),
-                                       tcfg.grad_clip)
-        lr = warmup_cosine(state["opt"]["count"], base_lr=tcfg.lr,
-                           warmup_steps=tcfg.warmup_steps, total_steps=tcfg.total_steps)
-        adamw_update(grads, state["opt"], state["params"], lr=lr, b1=tcfg.b1, b2=tcfg.b2,
-                     weight_decay=tcfg.weight_decay)
+        apply_grads(tcfg, state, tree_map(lambda _: next(it), state["params"]))
         ev[5].record()
         torch.cuda.synchronize()
     span = lambda a, b: ev[a].elapsed_time(ev[b])
@@ -2057,44 +2253,43 @@ def profiled_train_step(torch, model, tcfg, state, batch):
                  loss_ms=span(1, 3), layers_backward_ms=span(3, 4),
                  clip_adamw_ms=span(4, 5), k2_kernels_ms=k2_ms,
                  flash_backward_ms=bwd_ms, kernels_ms=kernels_ms, kernels=n_kernels,
+                 gemm_ms=by_class.get("gemm", 0.0), ssd_scan_ms=by_class.get("ssd_scan", 0.0),
+                 ssd_scan_bwd_ms=by_class.get("ssd_scan_bwd", 0.0),
                  device_ms_by_class={k: round(v, 3) for k, v in sorted(by_class.items())})
     split["other_ms"] = (split["step_ms"] - split["loss_ms"] - split["clip_adamw_ms"]
                          - k2_ms - bwd_ms)
+    split["other_kernels_ms"] = kernels_ms - sum(split[k] for k in (
+        "gemm_ms", "k2_kernels_ms", "ssd_scan_ms", "ssd_scan_bwd_ms"))
     split["busy_share"] = kernels_ms / split["step_ms"]
     return split
 
 
-def phase_train_path(torch, tmp):
-    """The main training path: qwen3-0.6b at full width and depth (28
-    layers), f32 master params, remat, chunked CE, AdamW, B = 4, T = 512,
-    through ``Trainer`` for 6 steps with one asynchronous checkpoint at
-    the end (about 7.2 GB of params and moments).  Launch counters are
-    zeroed just before and read just after: K2's training forward must
-    launch 2 x 28 x 6 times (the forward and remat's recompute), and K1,
-    K3, K4 and the forward-only K2 not at all.  Every loss and gnorm
-    finite, the params changed.  Peak memory is logged with what was
-    allocated when the run started (the state, plus what earlier phases
-    still hold).  Then one more step, profiled
-    (``profiled_train_step``)."""
+def train_path(torch, tmp, arch, cfg, tcfg, want):
+    """One training path through ``Trainer`` on cuda: ``tcfg.total_steps``
+    steps with one asynchronous checkpoint at the end.  Launch counters
+    are zeroed just before and read just after: each kernel of ``want``
+    must launch exactly that often, every other kernel not at all.  Every
+    loss and gnorm finite, the params changed.  Peak memory is logged
+    with what was allocated when the run started (the state, plus what
+    earlier phases still hold).  Then one more step, profiled
+    (``profiled_train_step``), and the checkpoint is deleted."""
     import os
-    from repro_torch.common.tree import tree_bytes, tree_count
-    from repro_torch.configs import TrainConfig, get_config
+    import shutil
+    from repro_torch.common.tree import tree_bytes, tree_count, tree_leaves
     from repro_torch.ckpt.checkpoint import latest_step
     from repro_torch.data import make_train_data_fn
     from repro_torch.models.registry import get_model
     from repro_torch.train.trainer import Trainer
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("qwen3-0.6b")
-    model = get_model("qwen3-0.6b", cfg)
-    B, T, steps = TRAIN["global_batch"], TRAIN["seq_len"], TRAIN["steps"]
-    tcfg = TrainConfig(global_batch=B, seq_len=T, total_steps=steps, ckpt_every=steps,
-                       remat=True, loss_impl="chunked", ckpt_dir=str(tmp / "main"))
+    model = get_model(arch, cfg)
+    B, T, steps = tcfg.global_batch, tcfg.seq_len, tcfg.total_steps
     data_fn = make_train_data_fn(cfg, tcfg)
     trainer = Trainer(model, tcfg, data_fn, log_every=1, device="cuda")
     params = trainer.state["params"]
-    before = {k: params[k].clone() for k in ("embed",)}
-    before["wq"] = params["blocks"]["wq"].clone()
+    leaves = tree_leaves(params)
+    watched = (0, len(leaves) // 2, len(leaves) - 1)
+    before = [leaves[i].clone() for i in watched]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()      # this state and what earlier phases hold
@@ -2107,12 +2302,10 @@ def phase_train_path(torch, tmp):
     peak = torch.cuda.max_memory_allocated()
     m = [v for _, v in trainer.metrics]
     step_s = [v["step_s"] for v in m]
-    want_lse = 2 * cfg.n_layers * steps
-    ckpt_dir = tmp / "main" / f"step_{steps}"
+    ckpt_dir = Path(tcfg.ckpt_dir) / f"step_{steps}"
     ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir()) if ckpt_dir.is_dir() else 0
-    changed = any(not torch.equal(before[k], (trainer.state["params"][k] if k == "embed" else
-                                             trainer.state["params"]["blocks"][k]))
-                  for k in before)
+    after = tree_leaves(trainer.state["params"])
+    changed = any(not torch.equal(b, after[i]) for b, i in zip(before, watched))
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     r = dict(arch=cfg.name, layers=cfg.n_layers, params=tree_count(params), dtype="float32",
              batch=B, seq=T, steps=steps, losses=[v["loss"] for v in m],
@@ -2121,34 +2314,70 @@ def phase_train_path(torch, tmp):
              run_wall_s=wall, checkpoint_s=wall - sum(step_s),
              checkpoint_snapshot_s=trainer.ckpt.snapshot_s, checkpoint_bytes=ckpt_bytes,
              max_memory_allocated_bytes=peak, allocated_before_bytes=resident,
-             state_bytes=tree_bytes(trainer.state), launches=counts,
-             k2_lse_launches_expected=want_lse)
-    log("training main path " + json.dumps(r))
+             state_bytes=tree_bytes(trainer.state), launches=counts, launches_expected=want)
+    log(f"training {arch} path " + json.dumps(r))
     bad = []
     if not all(math.isfinite(x) for x in r["losses"] + r["gnorms"]):
         bad.append("a loss or gnorm is not finite")
     if not changed:
         bad.append("the params did not change")
-    if latest_step(str(tmp / "main")) != steps:
+    if latest_step(tcfg.ckpt_dir) != steps:
         bad.append(f"no checkpoint of step {steps}")
-    if counts["flash_attention_lse"] != want_lse:
-        bad.append(f"K2 training forward launched {counts['flash_attention_lse']} times, "
-                   f"expected {want_lse}")
-    others = {k: v for k, v in counts.items() if k != "flash_attention_lse" and v}
+    for k, n in want.items():
+        if counts[k] != n:
+            bad.append(f"{k} launched {counts[k]} times, expected {n}")
+    others = {k: v for k, v in counts.items() if k not in want and v}
     if others:
         bad.append(f"kernels off the training path launched: {others}")
     if bad:
-        fail("training main path: " + "; ".join(bad))
-    del before
+        fail(f"training {arch} path: " + "; ".join(bad))
+    del before, after, leaves, params
     gc.collect()
     batch = {k: v.to("cuda") for k, v in data_fn(steps).items()}
     split = profiled_train_step(torch, model, tcfg, trainer.state, batch)
-    log("training step device split " + json.dumps(split))
+    log(f"training {arch} step device split " + json.dumps(split))
     del trainer, batch
     gc.collect()
     torch.cuda.empty_cache()
+    shutil.rmtree(tcfg.ckpt_dir, ignore_errors=True)     # the next path's disk
     os.sync()
     return r, split
+
+
+def phase_train_path(torch, tmp):
+    """The main training path: qwen3-0.6b at full width and depth (28
+    layers), f32 master params, remat, chunked CE, AdamW, B = 4, T = 512,
+    6 steps (about 7.2 GB of params and moments): K2's training forward
+    (``flash_attention_lse``) launches 2 x 28 a step (the forward and
+    remat's recompute) and no other kernel (``train_path``)."""
+    from repro_torch.configs import TrainConfig, get_config
+    cfg = get_config("qwen3-0.6b")
+    steps = TRAIN["steps"]
+    tcfg = TrainConfig(global_batch=TRAIN["global_batch"], seq_len=TRAIN["seq_len"],
+                       total_steps=steps, ckpt_every=steps, remat=True, loss_impl="chunked",
+                       ckpt_dir=str(tmp / "main"))
+    return train_path(torch, tmp, "qwen3-0.6b", cfg, tcfg,
+                      {"flash_attention_lse": 2 * cfg.n_layers * steps})
+
+
+def phase_train_hybrid_path(torch, tmp):
+    """The hybrid's training path: zamba2-7b at full width and 13
+    layer-units (``HYBRID_TRAIN``), f32 master params, remat, full-logit
+    CE, AdamW, B = 4, T = 1024, 6 steps: per step K4's forward launches 2
+    x 11 times (the forward and remat's recompute), its backward kernel 11
+    times and K2's training forward 2 x 2 times (d = 112), and no other
+    kernel (``train_path``)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import hybrid as HY
+    cfg = replace(get_config("zamba2-7b"), n_layers=HYBRID_TRAIN["n_layers"])
+    n_attn, n_mamba = HY.group_structure(cfg)[:2]
+    steps = HYBRID_TRAIN["steps"]
+    tcfg = TrainConfig(global_batch=HYBRID_TRAIN["global_batch"],
+                       seq_len=HYBRID_TRAIN["seq_len"], total_steps=steps, ckpt_every=steps,
+                       remat=True, ckpt_dir=str(tmp / "hybrid"))
+    return train_path(torch, tmp, "zamba2-7b", cfg, tcfg, {
+        "ssd_scan": 2 * n_mamba * steps, "ssd_scan_bwd": n_mamba * steps,
+        "flash_attention_lse": 2 * n_attn * steps})
 
 
 def train_determinism(torch, tmp):
@@ -2261,10 +2490,12 @@ def phase_train(torch):
     try:
         cross = phase_train_cross_device(torch, tmp)
         main_path, split = phase_train_path(torch, tmp)
+        hybrid_path, hybrid_split = phase_train_hybrid_path(torch, tmp)
         det = phase_train_subprocesses(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(cross_device=cross, main_path=main_path, split=split, determinism=det)
+    return dict(cross_device=cross, main_path=main_path, split=split, hybrid_path=hybrid_path,
+                hybrid_split=hybrid_split, determinism=det)
 
 
 # ------------------------------------------------------------ phase 8 ---
@@ -2776,19 +3007,32 @@ KERNELS = {
         replaces_function="src/repro/kernels/ssd_scan.py::ssd_chunk_scan",
         headline=("prefill B=8 T=1024 H=112", "bfloat16"),
         library="none (no single PyTorch call computes the scan)"),
+    # K4's backward: the Pallas kernel has none; the reference trains
+    # through the gradient XLA derives from its jnp scan
+    "ssd_scan_bwd": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan.py:88",
+        replaces_function="the gradient of src/repro/models/ssm.py::mamba2_chunk_scan "
+                          "(the Pallas kernel src/repro/kernels/ssd_scan.py::ssd_chunk_scan "
+                          "has no backward)",
+        headline=("train B=4 T=1024 H=112", "float32"), train_only=True,
+        library="none (no single PyTorch call computes the scan's backward)"),
 }
 
 
-def train_launches(train, cases):
-    """K2's training forward in the kernels line: its launches on the
-    training main path and its case at that path's shape (f32)."""
+def train_launches(train, cases, kname):
+    """Training launches in the kernels line: K2's training forward (its
+    launches on both training paths and its case at the qwen3 path's
+    shape, f32), K4's forward (its launches on the hybrid's path)."""
+    paths = {f"train {train[k]['arch']}": train[k] for k in ("main_path", "hybrid_path")}
+    if kname == "ssd_scan":
+        n = train["hybrid_path"]["launches"]["ssd_scan"]
+        return dict(launches_train=n, launches_train_per_step=n / train["hybrid_path"]["steps"])
+    by_path = {p: v["launches"]["flash_attention_lse"] for p, v in paths.items()}
     c = next(c for c in cases if c["case"] == "train lse qwen3 B=4 T=512"
              and c["dtype"] == "float32")
-    path = f"train {train['main_path']['arch']}"
-    return dict(launches_lse=train["main_path"]["launches"]["flash_attention_lse"],
-                launches_lse_by_path={path: train["main_path"]["launches"]["flash_attention_lse"]},
-                launches_lse_per_step=train["main_path"]["launches"]["flash_attention_lse"]
-                / train["main_path"]["steps"],
+    return dict(launches_lse=sum(by_path.values()), launches_lse_by_path=by_path,
+                launches_lse_per_step={p: by_path[p] / v["steps"] for p, v in paths.items()},
                 lse_case=f"{c['case']} float32", lse_ms=c["ms"], lse_device_ms=c["device_ms"],
                 lse_plain_ms=c["plain_ms"], lse_bound_ms=c["bound_ms"],
                 lse_bound_by=c["bound_by"], lse_max_abs_err=c["max_abs_err"],
@@ -2905,7 +3149,10 @@ def main() -> int:
     phase_decode_profile(torch, "seamless-m4t-medium", seamless_window)
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 7. training
+    # 7. training, with the serving phases' models released first
+    del setup, setups, hybrid_setup, rwkv_window, seamless_window
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train(torch)
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2922,9 +3169,12 @@ def main() -> int:
         label, dtype = meta["headline"]
         c = next(c for c in cases if c["kernel"] == kname and c["case"] == label
                  and c["dtype"] == dtype)
-        by_path = {p: v["launches"][kname] for p, v in paths.items()}
+        # a kernel of training alone counts the hybrid's training path
+        launch_paths = ({f"train {train['hybrid_path']['arch']}": train["hybrid_path"]}
+                        if meta.get("train_only") else paths)
+        by_path = {p: v["launches"][kname] for p, v in launch_paths.items()}
         n = sum(by_path.values())
-        steps = sum(v["steps"] for p, v in paths.items() if by_path[p])
+        steps = sum(v["steps"] for p, v in launch_paths.items() if by_path[p])
         # K1 and K3: decode (C = 1) and chunk (C > 1) launches apart
         parts = {}
         for part in ("decode", "chunk") if "chunk_source" in meta else ():
@@ -2944,7 +3194,8 @@ def main() -> int:
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], library=meta["library"],
             device_ms=c["device_ms"], library_device_ms=c["library_device_ms"],
-            **(train_launches(train, cases) if kname == "flash_attention" else {}),
+            **(train_launches(train, cases, kname)
+               if kname in ("flash_attention", "ssd_scan") else {}),
             cases=[{k: v for k, v in x.items() if k != "kernel"}
                    for x in cases if x["kernel"] == kname]))
     log(f"total {time.perf_counter() - t_start:.1f} s")

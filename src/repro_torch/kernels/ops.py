@@ -14,11 +14,14 @@ ran its jnp oracle, and the port's runs the scan kernel (K4) through it.
 Training attention goes through ``flash_attention_ckpt``: K2's forward
 with its log-normalizer inside a ``torch.autograd.Function`` whose
 backward recomputes the logits per key block
-(``models/layers.py::flash_attention_ckpt``).  The other entry points
-launch kernels that have no backward: on the card they raise when grad
-mode is on and an input requires grad (``build.refuse_grad``), rather
-than return a tensor cut from autograd; serving runs under
-``torch.inference_mode``, so it never meets the guard.
+(``models/layers.py::flash_attention_ckpt``).  ``ssd_chunk_scan``
+differentiates on the card too: under grad mode an input that requires
+grad takes ``ssd_scan.SSDScanFn``, whose backward is K4's backward
+kernel.  The attention entry points here launch kernels that have no
+backward: on the card they raise when grad mode is on and an input
+requires grad (``build.refuse_grad``), rather than return a tensor cut
+from autograd; serving runs under ``torch.inference_mode``, so it never
+meets the guard.
 """
 from __future__ import annotations
 

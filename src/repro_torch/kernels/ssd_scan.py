@@ -21,8 +21,18 @@ f32 kernel and the plain version compute in f32; the bf16 kernel feeds
 the tensor cores bf16 operands (C.B^T o decay and x o decay as hi + lo
 pairs, the state as one bf16 for C.h^T) with f32 sums and an f32 state.
 
-Dispatch: CPU tensors take :func:`ssd_chunk_scan_plain`; CUDA tensors
-launch the kernel or raise.  ``launches`` counts kernel launches.
+The backward is K4's own kernel, ``csrc/ssd_scan_bwd.cu`` (the Pallas
+kernel has none: the reference differentiates its jnp scan), bound by
+:class:`SSDScanFn`; :func:`ssd_chunk_scan_bwd_plain` is its plain
+version, and ``ssd_scan_bwd.cu``'s header gives the recipe.
+
+Dispatch: CPU tensors take :func:`ssd_chunk_scan_plain`, which autograd
+differentiates.  CUDA tensors launch the kernel or raise: under grad
+mode with an input that requires grad through :class:`SSDScanFn` (the
+forward launch, the inputs saved, the backward kernel in the backward),
+otherwise (serving, under ``torch.inference_mode``) the forward alone,
+with nothing saved.  ``launches`` counts forward launches and
+``launches_bwd`` backward ones.
 """
 from __future__ import annotations
 
@@ -34,10 +44,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 launches = 0
+launches_bwd = 0
 MAX_DIM = 64            # the kernel's largest chunk, P and N
 
 _SYMBOLS = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_SYMBOLS = {torch.float32: "ssd_scan_bwd_f32", torch.bfloat16: "ssd_scan_bwd_bf16"}
+_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def ssd_chunk_scan_plain(x, la, Bc, Cc, h0=None, *, chunk: int = 64):
@@ -62,9 +75,12 @@ def ssd_chunk_scan_plain(x, la, Bc, Cc, h0=None, *, chunk: int = 64):
         sl = slice(t0, t0 + chunk)
         xq, bq, cq = xf[:, sl], bf[:, sl], cf[:, sl]
         L = torch.cumsum(lf[:, sl], dim=1)                       # [B,Q,H]
-        # intra-chunk: y[t] = sum_{i<=t} exp(L_t - L_i) (C_t.B_i) x_i
-        M = torch.exp(L[:, :, None, :] - L[:, None, :, :])      # [B,Q(t),Q(i),H]
-        M = torch.where(tri[None, :, :, None], M, 0.0)
+        # intra-chunk: y[t] = sum_{i<=t} exp(L_t - L_i) (C_t.B_i) x_i, the
+        # exponent taken on i <= t only: above the diagonal it can overflow,
+        # and inf there would turn the masked gradient (0 * inf) into NaN
+        low = tri[None, :, :, None]
+        M = torch.where(low, torch.exp(torch.where(
+            low, L[:, :, None, :] - L[:, None, :, :], 0.0)), 0.0)  # [B,Q(t),Q(i),H]
         G = torch.einsum("btn,bin->bti", cq, bq)                # [B,Q,Q]
         y = torch.einsum("bti,btih,bihp->bthp", G, M, xq)
         # inter-chunk: y[t] += exp(L_t) C_t . h
@@ -77,6 +93,65 @@ def ssd_chunk_scan_plain(x, la, Bc, Cc, h0=None, *, chunk: int = 64):
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :T] if ys else xf[:, :0]
     return y.to(x.dtype), h
+
+
+def ssd_chunk_scan_bwd_plain(x, la, Bc, Cc, h0, dy, dh_final, *, chunk: int = 64):
+    """The plain PyTorch version of K4's backward: the gradient of
+    :func:`ssd_chunk_scan_plain` for the output gradients ``dy`` [B, T,
+    H, P] and ``dh_final`` [B, H, P, N] (None: zeros), by the recipe of
+    ``csrc/ssd_scan_bwd.cu`` — the states entering each chunk, then an
+    explicit reverse chunk loop, in f32.  Returns (dx in x's dtype, dla
+    f32, dB and dC in Bc's dtype, dh0 f32 or None when h0 is None)."""
+    B, T, H, P = x.shape
+    N = Bc.shape[-1]
+    pad = (-T) % chunk
+    xf, bf, cf, gy = (F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+                      for t in (x, Bc, Cc, dy))
+    lf = F.pad(la.float(), (0, 0, 0, pad))
+    h = (torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    starts = range(0, T + pad, chunk)
+    states = []                                              # h entering each chunk
+    for t0 in starts:
+        states.append(h)
+        sl = slice(t0, t0 + chunk)
+        L = torch.cumsum(lf[:, sl], dim=1)                   # [B,Q,H]
+        dec = torch.exp(L[:, -1:] - L)
+        h = torch.exp(L[:, -1])[:, :, None, None] * h + torch.einsum(
+            "bihp,bin,bih->bhpn", xf[:, sl], bf[:, sl], dec)
+    dh = (torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+          if dh_final is None else dh_final.float().clone())
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=x.device))[
+        None, :, :, None]                                    # [1,Q(t),Q(s),1]
+    dx, dB, dC, dla = (torch.empty_like(t) for t in (xf, bf, cf, lf))
+    for t0, h in zip(reversed(starts), reversed(states)):
+        sl = slice(t0, t0 + chunk)
+        xq, bq, cq, gq = xf[:, sl], bf[:, sl], cf[:, sl], gy[:, sl]
+        L = torch.cumsum(lf[:, sl], dim=1)                   # [B,Q,H]
+        eL, Llast = torch.exp(L), L[:, -1]
+        dec = torch.exp(Llast[:, None] - L)
+        diff = L[:, :, None, :] - L[:, None, :, :]           # L_t - L_s
+        E = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        G = torch.einsum("btn,bsn->bts", cq, bq)[..., None]  # [B,Q,Q,1]
+        W = torch.einsum("bthp,bshp->btsh", gq, xq)          # [B,Q,Q,H]
+        A, V = E * G, E * W
+        S = A * W
+        U = torch.einsum("bhpn,bsn->bshp", dh, bq)           # dh B_s
+        Z = torch.einsum("bthp,bhpn->bthn", gq, h)           # h^T dy_t
+        dx[:, sl] = torch.einsum("btsh,bthp->bshp", A, gq) + dec[..., None] * U
+        dB[:, sl] = torch.einsum("btsh,btn->bsn", V, cq) + torch.einsum(
+            "bsh,bshp,bhpn->bsn", dec, xq, dh)
+        dC[:, sl] = torch.einsum("btsh,bsn->btn", V, bq) + torch.einsum(
+            "bth,bthn->btn", eL, Z)
+        term_a = dec * (xq * U).sum(-1)                      # dec_t x_t . (dh B_t)
+        dL = (S.sum(2) - S.sum(1) + eL * torch.einsum("btn,bthn->bth", cq, Z)
+              - term_a)
+        dL[:, -1] += term_a.sum(1) + torch.exp(Llast) * (dh * h).sum((-2, -1))
+        dla[:, sl] = torch.flip(torch.cumsum(torch.flip(dL, [1]), 1), [1])
+        dh = torch.exp(Llast)[:, :, None, None] * dh + torch.einsum(
+            "bth,bthp,btn->bhpn", eL, gq, cq)
+    return (dx[:, :T].to(x.dtype), dla[:, :T], dB[:, :T].to(Bc.dtype),
+            dC[:, :T].to(Bc.dtype), None if h0 is None else dh)
 
 
 def _check(x, la, Bc, Cc, h0, chunk):
@@ -101,17 +176,11 @@ def _check(x, la, Bc, Cc, h0, chunk):
         raise ValueError(f"all inputs must be on one device, got {devs}")
 
 
-def ssd_chunk_scan(x, la, Bc, Cc, h0=None, *, chunk: int = 64):
-    """The SSD chunk scan (see the module docstring for layouts)."""
-    _check(x, la, Bc, Cc, h0, chunk)
-    if x.device.type == "cpu":
-        return ssd_chunk_scan_plain(x, la, Bc, Cc, h0, chunk=chunk)
-    build.refuse_grad("ssd_chunk_scan", (x, la, Bc, Cc, h0),
-                      "no backward yet: train the hybrid on the CPU")
+def _check_cuda(x, la, Bc, Cc, h0, chunk):
+    """What the CUDA kernels take, beyond :func:`_check`."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_scan runs on cpu or cuda, got {x.device}")
-    B, T, H, P = x.shape
-    N = Bc.shape[-1]
+    P, N = x.shape[-1], Bc.shape[-1]
     if max(chunk, P, N) > MAX_DIM:
         raise ValueError(f"the CUDA kernel takes chunk, P and N <= {MAX_DIM}, "
                          f"got chunk={chunk} P={P} N={N}")
@@ -120,6 +189,12 @@ def ssd_chunk_scan(x, la, Bc, Cc, h0=None, *, chunk: int = 64):
     for name, t in (("la", la), ("h0", h0)):
         if t is not None and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 on CUDA, got {t.dtype}")
+
+
+def _launch(x, la, Bc, Cc, h0, chunk):
+    """K4's forward on checked CUDA tensors."""
+    B, T, H, P = x.shape
+    N = Bc.shape[-1]
     tensors = dict(x=x, la=la, Bc=Bc, Cc=Cc)
     if h0 is not None:
         tensors["h0"] = h0
@@ -137,3 +212,84 @@ def ssd_chunk_scan(x, la, Bc, Cc, h0=None, *, chunk: int = 64):
     global launches
     launches += 1
     return y, h
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The scan with a backward: :func:`ssd_chunk_scan`'s forward (K4's
+    launch on the card; grad mode is off inside), saving its inputs, and
+    :func:`ssd_chunk_scan_bwd` (the backward kernel on the card).  A CUDA
+    input that requires grad under grad mode goes through it; on CPU
+    tensors it runs the plain versions (the tests use that)."""
+
+    @staticmethod
+    def forward(ctx, x, la, Bc, Cc, h0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, la, Bc, Cc, h0)
+        return ssd_chunk_scan(x, la, Bc, Cc, h0, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, la, Bc, Cc, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh = None if dh_final is None else dh_final.contiguous()
+        dx, dla, dB, dC, dh0 = ssd_chunk_scan_bwd(x, la, Bc, Cc, h0, dy, dh, chunk=ctx.chunk)
+        return dx, dla, dB, dC, dh0, None
+
+
+def ssd_chunk_scan(x, la, Bc, Cc, h0=None, *, chunk: int = 64):
+    """The SSD chunk scan (see the module docstring for layouts)."""
+    _check(x, la, Bc, Cc, h0, chunk)
+    if x.device.type == "cpu":
+        return ssd_chunk_scan_plain(x, la, Bc, Cc, h0, chunk=chunk)
+    _check_cuda(x, la, Bc, Cc, h0, chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, la, Bc, Cc, h0)):
+        return SSDScanFn.apply(x, la, Bc, Cc, h0, chunk)
+    return _launch(x, la, Bc, Cc, h0, chunk)
+
+
+def ssd_chunk_scan_bwd(x, la, Bc, Cc, h0, dy, dh_final, *, chunk: int = 64):
+    """K4's backward: the gradients (dx, dla, dB, dC, dh0) of
+    ``ssd_chunk_scan(x, la, Bc, Cc, h0)`` for the output gradients ``dy``
+    (x's shape and dtype) and ``dh_final`` ([B, H, P, N] f32, or None for
+    zeros), in the dtypes of :func:`ssd_chunk_scan_bwd_plain`, which CPU
+    tensors take.  CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` or raise."""
+    _check(x, la, Bc, Cc, h0, chunk)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must have x's shape {tuple(x.shape)}, got {tuple(dy.shape)}")
+    B, T, H, P = x.shape
+    N = Bc.shape[-1]
+    if dh_final is not None and dh_final.shape != (B, H, P, N):
+        raise ValueError(f"dh_final must be [B, H, P, N] = {(B, H, P, N)}, got "
+                         f"{tuple(dh_final.shape)}")
+    if x.device.type == "cpu":
+        return ssd_chunk_scan_bwd_plain(x, la, Bc, Cc, h0, dy, dh_final, chunk=chunk)
+    _check_cuda(x, la, Bc, Cc, h0, chunk)
+    if dy.dtype != x.dtype or (dh_final is not None and dh_final.dtype != torch.float32):
+        raise TypeError(f"dy must be {x.dtype} and dh_final float32, got {dy.dtype} "
+                        f"and {None if dh_final is None else dh_final.dtype}")
+    tensors = dict(x=x, la=la, Bc=Bc, Cc=Cc, dy=dy)
+    tensors.update((k, t) for k, t in (("h0", h0), ("dh_final", dh_final)) if t is not None)
+    build.check_cuda_args(tensors, (), x.dtype)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    n_chunks = -(-T // chunk)
+    ws = torch.empty(B, H, n_chunks, P, N, **f32)
+    dx = torch.empty_like(x)
+    dla = torch.empty(B, T, H, **f32)
+    dB_part = torch.empty(B, T, H, N, **f32)
+    dC_part = torch.empty(B, T, H, N, **f32)
+    dh0 = None if h0 is None else torch.empty(B, H, P, N, **f32)
+    if B * H:                            # else every output is empty
+        fn = build.kernel_fn("ssd_scan_bwd", _BWD_SYMBOLS[x.dtype], _BWD_ARGTYPES)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        rc = fn(x.data_ptr(), la.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), ptr(h0),
+                dy.data_ptr(), ptr(dh_final), ws.data_ptr(), dx.data_ptr(), dla.data_ptr(),
+                dB_part.data_ptr(), dC_part.data_ptr(), ptr(dh0), B, T, H, P, N, chunk,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ssd_scan_bwd kernel launch failed: CUDA error {rc}")
+        global launches_bwd
+        launches_bwd += 1
+    # B and C are shared by the heads: the kernel writes each head's share
+    return dx, dla, dB_part.sum(2).to(Bc.dtype), dC_part.sum(2).to(Bc.dtype), dh0

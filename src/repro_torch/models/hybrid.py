@@ -14,10 +14,11 @@ a Python loop over those axes.
 Kernels, through ``kernels.ops``: the SSD scan (K4) in every Mamba2 block
 of a prefill, flash attention (K2) in the shared block of a prefill,
 paged attention (K1) in the shared block of a decode step; their plain
-versions for CPU tensors. ``train_logits`` is differentiable: the shared
-block attends through ``ops.flash_attention_ckpt``; the scan has no
-backward on the card yet (K4 refuses inputs that require grad there), so
-the hybrid trains on the CPU, where the plain scan differentiates. There
+versions for CPU tensors. ``train_logits`` is differentiable on both
+devices: the shared block attends through ``ops.flash_attention_ckpt``,
+and on the card each scan's backward is K4's backward kernel
+(``kernels/ssd_scan.py::SSDScanFn``); on the CPU autograd differentiates
+the plain scan. There
 is no tensor parallelism (the reference's ``tp``/``policy``): at tp = 1
 the padded head layout is the identity, so no head is masked or
 replicated. Page pools ``[n_attn, N, ps, KV_p, hd]`` and the conv/SSM

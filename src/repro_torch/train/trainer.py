@@ -95,19 +95,26 @@ def make_train_step(model, tcfg: TrainConfig):
         return value_and_grad(loss_fn, params, batch)
 
     def train_step(state, batch):
-        params, opt = state["params"], state["opt"]
-        loss, grads = compute_grads(params, batch)
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        lr = warmup_cosine(opt["count"], base_lr=tcfg.lr,
-                           warmup_steps=tcfg.warmup_steps,
-                           total_steps=tcfg.total_steps)
-        new_params, new_opt = adamw_update(
-            grads, opt, params, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
-            weight_decay=tcfg.weight_decay)
-        return ({"params": new_params, "opt": new_opt},
-                {"loss": loss, "gnorm": gnorm, "lr": lr})
+        loss, grads = compute_grads(state["params"], batch)
+        new_state, gnorm, lr = apply_grads(tcfg, state, grads)
+        return new_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
 
     return train_step
+
+
+def apply_grads(tcfg: TrainConfig, state, grads):
+    """The optimizer's half of a train step: global-norm clipping, the
+    warmup-cosine lr, AdamW.  Returns (new_state, gnorm, lr); ``state``
+    is not modified."""
+    params, opt = state["params"], state["opt"]
+    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+    lr = warmup_cosine(opt["count"], base_lr=tcfg.lr,
+                       warmup_steps=tcfg.warmup_steps,
+                       total_steps=tcfg.total_steps)
+    new_params, new_opt = adamw_update(
+        grads, opt, params, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
+        weight_decay=tcfg.weight_decay)
+    return {"params": new_params, "opt": new_opt}, gnorm, lr
 
 
 def init_state(model, generator: torch.Generator, tcfg: TrainConfig,

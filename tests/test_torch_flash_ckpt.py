@@ -182,10 +182,12 @@ def test_grad_guard_refuses_tensors_off_the_cpu():
             meta(1, 1, 2, 16, grad=True), meta(4, 4, 2, 16, dtype=torch.int8),
             meta(4, 4, 2, 1), meta(4, 4, 2, 16, dtype=torch.int8), meta(4, 4, 2, 1),
             meta(1, 2, dtype=i32), meta(1, dtype=i32), meta(1, dtype=i32), scale=0.25),
-        "ssd_chunk_scan": lambda: K4.ssd_chunk_scan(
-            meta(1, 8, 2, 4, grad=True), meta(1, 8, 2), meta(1, 8, 4), meta(1, 8, 4),
-            chunk=4),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no autograd"):
             call()
+    # K4 has a backward kernel, so it is not refused under grad: off the
+    # CPU it takes cuda tensors only
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        K4.ssd_chunk_scan(meta(1, 8, 2, 4, grad=True), meta(1, 8, 2), meta(1, 8, 4),
+                          meta(1, 8, 4), chunk=4)

@@ -2,7 +2,8 @@
 engine, the zamba2 hybrid, rwkv6 and the seamless-m4t encoder-decoder on
 the card against the CPU; K2's training forward (o and lse), the
 recompute backward of ``flash_attention_ckpt`` on the card against the
-CPU, and the guards of the kernels that have no backward.
+CPU, K4's backward kernel and the hybrid's training gradient, and the
+guards of the kernels that have no backward.
 
 Every test here needs a CUDA device and skips itself without one.  This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -395,22 +396,21 @@ def test_flash_ckpt_backward_on_card_matches_cpu(cuda, case):
 
 
 def test_kernels_without_backward_refuse_grad_on_card(cuda):
-    """K1, K3, K4 and the forward-only K2 raise on inputs that require
-    grad under grad mode (never a tensor cut from autograd); under
-    ``torch.no_grad`` they launch.  The training route differentiates."""
+    """K1, K3 and the forward-only K2 raise on inputs that require grad
+    under grad mode (never a tensor cut from autograd); under
+    ``torch.no_grad`` they launch.  The training route differentiates.
+    (K4 has a backward kernel: ``test_ssd_scan_fn_on_card_matches_cpu``.)"""
     paged = _paged(0, 2, 1, 4, 2, 64, 8, 16, 4, torch.float32)
     int8 = _paged_int8(0, 2, 1, 4, 2, 64, 8, 16, 4, torch.float32)
-    x, la, Bc, Cc, _ = (t if t is None else t.to("cuda") for t in ssd_inputs(SSD_CASES[0], "zero"))
     q, k, v, lens = (t.to("cuda") for t in flash_inputs(FLASH_CASES[0]))
     calls = {
         "paged_attention": lambda q: K1.paged_attention(q, *paged[1:], scale=0.2),
         "paged_attention_int8": lambda q: K3.paged_attention_int8(q, *int8[1:], scale=0.2),
-        "ssd_chunk_scan": lambda x: K4.ssd_chunk_scan(x, la, Bc, Cc, chunk=8),
         "flash_attention": lambda q: K2.flash_attention(q, k, v, lens, scale=0.2),
         "flash_attention_lse": lambda q: K2.flash_attention_lse(q, k, v, lens, scale=0.2),
     }
     firsts = {"paged_attention": paged[0], "paged_attention_int8": int8[0],
-              "ssd_chunk_scan": x, "flash_attention": q, "flash_attention_lse": q}
+              "flash_attention": q, "flash_attention_lse": q}
     for name, call in calls.items():
         live = firsts[name].clone().requires_grad_()
         with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no autograd"):
@@ -458,13 +458,104 @@ def test_ssd_kernel_matches_plain(cuda, case, dtype, h0):
 
 
 def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
+    """Shapes and dtypes the kernels cannot take raise, under grad too
+    (where the backward kernel would run) and in the backward's wrapper."""
     x = torch.zeros(1, 8, 2, 128, device="cuda")       # P = 128 > 64
     la = torch.zeros(1, 8, 2, device="cuda")
     b = torch.zeros(1, 8, 16, device="cuda")
     with pytest.raises(ValueError, match="<= 64"):
         K4.ssd_chunk_scan(x, la, b, b, chunk=8)
+    with pytest.raises(ValueError, match="<= 64"):
+        K4.ssd_chunk_scan(x.requires_grad_(), la, b, b, chunk=8)
+    with pytest.raises(ValueError, match="<= 64"):
+        K4.ssd_chunk_scan(x[..., :64], la.requires_grad_(), b, b, chunk=128)
+    with pytest.raises(ValueError, match="<= 64"):
+        K4.ssd_chunk_scan_bwd(x.detach(), la.detach(), b, b, None, x.detach(), None, chunk=8)
     with pytest.raises(TypeError, match="float32"):
         K4.ssd_chunk_scan(x[..., :64], la.bfloat16(), b, b, chunk=8)
+    x64 = x[..., :64].detach().contiguous()
+    with pytest.raises(TypeError, match="dy must be"):
+        K4.ssd_chunk_scan_bwd(x64, la.detach(), b, b, None, x64.bfloat16(), None, chunk=8)
+
+
+@pytest.mark.parametrize("h0", ["zero", "random"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_bwd_kernel_matches_plain(cuda, case, dtype, h0):
+    """K4's backward kernel against its plain version on the same inputs
+    (with h0, also a gradient on the final state): each gradient within
+    the dtype's tolerance of its own max |g|, all finite."""
+    dt = getattr(torch, dtype)
+    x, la, Bc, Cc, h = ssd_inputs(case, h0)
+    rng = np.random.RandomState(1)
+    dy = _rand(rng, *x.shape).to("cuda", dt)
+    dh = _rand(rng, *h.shape).to("cuda") if h is not None else None
+    x, Bc, Cc = (a.to("cuda", dt) for a in (x, Bc, Cc))
+    la, h = la.to("cuda"), None if h is None else h.to("cuda")
+    chunk = case[5]
+    n = K4.launches_bwd
+    got = K4.ssd_chunk_scan_bwd(x, la, Bc, Cc, h, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K4.launches_bwd == n + 1             # a CUDA tensor launches, never plain
+    want = K4.ssd_chunk_scan_bwd_plain(x, la, Bc, Cc, h, dy, dh, chunk=chunk)
+    assert [None if g is None else g.dtype for g in got] == [
+        None if g is None else g.dtype for g in want]
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert bool(torch.isfinite(a.float()).all())
+        assert _err(a, b) <= TOL[dtype] * max(b.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("case", [SSD_CASES[i] for i in (0, 3, 4, 10)])
+def test_ssd_scan_fn_on_card_matches_cpu(cuda, case):
+    """The scan under grad on the card (K4's forward, then its backward
+    kernel through ``SSDScanFn``) against autograd of the plain scan on
+    the CPU, f32, with h0 and h_final both in the loss: every gradient
+    within 1e-4 of its max |g|; one forward and one backward launch."""
+    x, la, Bc, Cc, h = ssd_inputs(case, "random")
+    rng = np.random.RandomState(2)
+    dy, dh = _rand(rng, *x.shape), _rand(rng, *h.shape)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (x, la, Bc, Cc, h)]
+        n = (K4.launches, K4.launches_bwd)
+        y, hf = K4.ssd_chunk_scan(*leaves, chunk=case[5])
+        torch.autograd.backward((y, hf), (dy.to(dev), dh.to(dev)))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (K4.launches, K4.launches_bwd) == (n[0] + 1, n[1] + 1)
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _err(a, b) <= 1e-4 * b.abs().max().item()
+
+
+def test_hybrid_train_grad_on_card_matches_cpu(cuda):
+    """One training gradient of the reduced zamba2 hybrid at T = 80 (two
+    scan chunks, the last ragged) on the card (K4's forward and backward
+    kernels, K2's training forward) against the CPU's, f32: the loss
+    within 1e-5 relative, every gradient leaf within 1e-4 of its max |g|."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import TrainConfig
+    from repro_torch.train.trainer import make_loss_fn, value_and_grad
+    model = get_model("zamba2-7b", get_config("zamba2-7b").reduced())
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(np.random.RandomState(0).randint(2, 256, size=(2, 80)))
+    loss_fn = make_loss_fn(model, TrainConfig(remat=True))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        n = K4.launches_bwd
+        loss, grads = value_and_grad(loss_fn, _to(params, dev),
+                                     {"tokens": toks.to(dev), "labels": toks.to(dev)})
+        if dev == "cuda":
+            assert K4.launches_bwd > n
+        runs[dev] = (float(loss), [g.cpu() for g in tree_leaves(grads)])
+    (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gc, gp):
+        assert bool(torch.isfinite(a).all())
+        assert _err(a, b) <= 1e-4 * max(b.abs().max().item(), 1e-30)
 
 
 def test_hybrid_on_card_matches_cpu(cuda):
