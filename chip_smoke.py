@@ -17,8 +17,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      for the int8 kernel after one dequantize call — never called by the
      port; none for the SSD scan and its backward, which no single
      PyTorch call computes),
-     and the card's bound for the same work, and the kernel's and the
-     library's device time (``device_ms``: the calls queued behind a
+     and the card's bound for the same work (K2's f32 cases also its
+     3xTF32 bound, ``bound_3xtf32_ms``: three TF32 products an f32 one at
+     494.7 TFLOP/s), and the kernel's and the library's device time (``device_ms``: the calls queued behind a
      device sleep, so the host's cost per call does not pace them);
      K1/K3 at decode (C = 1: the split-KV kernel, each case logging its
      split count, split length and workspace bytes, and its error held to
@@ -37,8 +38,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      a gradient on h_final, each gradient (dx, dla, dB, dC, dh0) logged
      apart and held to the dtype's tolerance relative to its own max |g|.
      First it logs the ``ptxas -v`` registers and spills
-     and the dynamic shared memory of each instantiation of the bf16
-     tensor-core kernels (K2's and the chunk loops of K1 and K3), and
+     and the dynamic shared memory of each instantiation of the
+     tensor-core kernels (K2's bf16 and f32 ones, with the blocks an SM
+     holds of the f32 one, and the bf16 chunk loops of K1 and K3), and
      fails if a head-dim 64 or 128 one spills; then the same for every
      instantiation of the decode kernels and their combines, failing on
      any spill but f32's at d > 128; then for K4's bf16 tensor-core
@@ -234,6 +236,17 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+PEAK_TF32 = 494.7e12   # H100 SXM dense TF32 on the tensor cores (data sheet), FLOP/s
+
+
+def bound_3xtf32(nbytes: float, flops: float):
+    """(ms, by) of the work in 3xTF32 (K2's f32 kernel): three TF32
+    products for each f32 one, at the tensor cores' TF32 peak."""
+    t_bytes = nbytes / card_spec().hbm_bw * 1e3
+    t_ops = 3 * flops / PEAK_TF32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # ------------------------------------------------------------ phase 3 ---
 def paged_case(torch, B, C, KV, G, d, ps, max_kv, dtype, seed, min_kv=None, pmax=None):
     """Inputs of one K1 call as the main path gives them: kv lens from
@@ -390,6 +403,9 @@ def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=Non
     device_ms, host_ms = device_time_ms(run, iters)
     lib_device_ms = device_time_ms(lib, iters)[0] if lib else None
     b_ms, b_by = bound(*work, dname)
+    if kernel == "flash_attention" and dname == "float32":   # K2's f32 runs 3xTF32
+        extra = dict(extra or {}, **dict(zip(("bound_3xtf32_ms", "bound_3xtf32_by"),
+                                             bound_3xtf32(*work))))
     return dict(kernel=kernel, case=label, dtype=dname, max_abs_err=err, tol=TOL[dname],
                 row_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                 device_ms=device_ms, host_ms=host_ms, library_device_ms=lib_device_ms,
@@ -549,21 +565,28 @@ def ssd_bwd_cases(torch, dtype, dname, iters):
     return cases
 
 
-TC_KERNELS = (  # library, kernel name, C helper of its dynamic shared memory
-    ("flash_attention", "flash_attention_kernel_tc", "flash_attention_bf16_smem_bytes"),
-    ("paged_attention", "paged_attention_kernel_tc", "paged_attention_bf16_smem_bytes"),
-    ("paged_attention_int8", "paged_attention_int8_kernel_tc",
-     "paged_attention_int8_bf16_smem_bytes"))
+TC_KERNELS = (  # library, kernel name, dtype, C helpers of its dynamic shared memory
+    # and (or None) of its blocks an SM
+    ("flash_attention", "flash_attention_kernel_tc", "bf16", "flash_attention_bf16_smem_bytes",
+     None),
+    ("flash_attention", "flash_attention_kernel_f32", "f32", "flash_attention_f32_smem_bytes",
+     "flash_attention_f32_blocks_per_sm"),
+    ("paged_attention", "paged_attention_kernel_tc", "bf16", "paged_attention_bf16_smem_bytes",
+     None),
+    ("paged_attention_int8", "paged_attention_int8_kernel_tc", "bf16",
+     "paged_attention_int8_bf16_smem_bytes", None))
 
 
-def tc_resources(lib, kernel, smem_symbol):
-    """Registers, stack and spills of each bf16 tensor-core instantiation
-    of ``kernel`` in library ``lib`` (padded head dim DP, without and with
+def tc_resources(lib, kernel, dtype, smem_symbol, blocks_symbol):
+    """Registers, stack and spills of each tensor-core instantiation of
+    ``kernel`` in library ``lib`` (padded head dim DP, without and with
     softcap; K2's also without and with its training forward's ``lse``
-    output) from the ``ptxas -v`` output in ``build.build_log``, with the
-    dynamic shared memory a block of it takes.  Fails if a DP = 64 or 128
-    one spills (the paths run d = 112 and 128; spills at 256 are
-    allowed)."""
+    output, and its f32 kernel's forward-only ``SPLIT``, the key split of
+    calls of at most 16 rows) from the ``ptxas -v`` output in
+    ``build.build_log``, with the dynamic shared memory a block of it
+    takes (and, given ``blocks_symbol``, the blocks of it an SM holds).
+    Fails if a DP = 64 or 128 one spills (the paths run d = 112 and 128;
+    spills at 256 are allowed)."""
     import ctypes
     import re
     from repro_torch.kernels import build
@@ -571,13 +594,17 @@ def tc_resources(lib, kernel, smem_symbol):
     if text == "(reused)":
         return "not available: the library was built before this run"
     smem = build.kernel_fn(lib, smem_symbol, [ctypes.c_int])
+    blocks = build.kernel_fn(lib, blocks_symbol, [ctypes.c_int]) if blocks_symbol else None
     out, cur = {}, None
     for line in text.splitlines():
         if "Compiling entry" in line:
-            m = re.search(kernel + r"ILi(\d+)ELb([01])E(?:Lb([01])E)?", line)
+            m = re.search(kernel + r"ILi(\d+)ELb([01])E(?:Lb([01])E)?(?:Lb([01])E)?", line)
             cur = out.setdefault(f"DP={m[1]}" + (" softcap" if m[2] == "1" else "")
-                                 + (" lse" if m[3] == "1" else ""),
-                                 dict(dynamic_smem_bytes=smem(int(m[1])))) if m else None
+                                 + (" lse" if m[3] == "1" else "")
+                                 + (" split" if m[4] == "1" else ""),
+                                 dict(dynamic_smem_bytes=smem(int(m[1])),
+                                      **({"blocks_per_sm": blocks(int(m[1]))} if blocks
+                                         else {}))) if m else None
         elif cur is None:
             continue
         elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -586,11 +613,14 @@ def tc_resources(lib, kernel, smem_symbol):
                        spill_load_bytes=int(m[3]))
         elif m := re.search(r"Used (\d+) registers", line):
             cur["registers"] = int(m[1])
-    lse = ("", " lse") if lib == "flash_attention" else ("",)
+    # K2 adds its training forward; its f32 kernel, the key split of
+    # forward-only calls
+    modes = (("", " lse") + ((" split",) if dtype == "f32" else ())
+             if lib == "flash_attention" else ("",))
     want = [f"DP={dp}{cap}{x}" for dp in (32, 64, 128, 256) for cap in ("", " softcap")
-            for x in lse]
+            for x in modes]
     if sorted(out) != sorted(want):
-        fail(f"ptxas log lacks the bf16 instantiations of {kernel}: {sorted(out)}")
+        fail(f"ptxas log lacks the {dtype} instantiations of {kernel}: {sorted(out)}")
     for key in (k for k in want if k.split()[0] in ("DP=64", "DP=128")):
         if out[key].get("spill_store_bytes", 1) or out[key].get("spill_load_bytes", 1):
             fail(f"{kernel} {key} spills to local memory: {out[key]}")
@@ -2989,6 +3019,7 @@ KERNELS = {
         headline=("decode B=16 C=1", "bfloat16"), library="scaled_dot_product_attention"),
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        f32_source="src/repro_torch/kernels/csrc/tf32_common.cuh",
         replaces="src/repro/kernels/flash_attention.py:95",
         replaces_function="src/repro/kernels/flash_attention.py::flash_attention",
         headline=("prefill B=4 T=1024", "bfloat16"), library="scaled_dot_product_attention"),
@@ -3035,7 +3066,8 @@ def train_launches(train, cases, kname):
                 launches_lse_per_step={p: by_path[p] / v["steps"] for p, v in paths.items()},
                 lse_case=f"{c['case']} float32", lse_ms=c["ms"], lse_device_ms=c["device_ms"],
                 lse_plain_ms=c["plain_ms"], lse_bound_ms=c["bound_ms"],
-                lse_bound_by=c["bound_by"], lse_max_abs_err=c["max_abs_err"],
+                lse_bound_by=c["bound_by"], lse_bound_3xtf32_ms=c["bound_3xtf32_ms"],
+                lse_max_abs_err=c["max_abs_err"],
                 lse_rel_err=c["lse_rel_err"], lse_bwd_ms=c["bwd_ms"])
 
 
@@ -3098,9 +3130,9 @@ def main() -> int:
         return 0
 
     # 3. kernels against their plain versions
-    for lib, kernel, smem_symbol in TC_KERNELS:
-        log(f"{kernel} bf16 tensor-core instantiations (ptxas -v): "
-            + json.dumps(tc_resources(lib, kernel, smem_symbol)))
+    for lib, kernel, dtype, smem_symbol, blocks_symbol in TC_KERNELS:
+        log(f"{kernel} {dtype} tensor-core instantiations (ptxas -v): "
+            + json.dumps(tc_resources(lib, kernel, dtype, smem_symbol, blocks_symbol)))
     for lib, kernel, params in DECODE_KERNELS:
         log(f"{kernel} split-KV decode instantiations (ptxas -v): "
             + json.dumps(decode_resources(lib, kernel, params)))
@@ -3186,8 +3218,8 @@ def main() -> int:
                           f"launches_{part}_per_step": part_n / part_steps})
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
-            **{k: meta[k] for k in ("decode_source", "chunk_source", "tiles_source")
-               if k in meta},
+            **{k: meta[k] for k in ("decode_source", "chunk_source", "tiles_source",
+                                    "f32_source") if k in meta},
             replaces=meta["replaces"], replaces_function=meta["replaces_function"],
             launches=n, launches_by_path=by_path, launches_per_step=n / steps, **parts,
             case=f"{label} {dtype}", max_abs_err=c["max_abs_err"], tol=c["tol"],

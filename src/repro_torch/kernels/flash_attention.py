@@ -7,8 +7,10 @@ Replaces the Pallas TPU kernel
 source is ``csrc/flash_attention.cu``, whose header note says what
 bounds it and how.  bf16 runs on the tensor cores: blocks of 64 folded
 query rows, ``mma.sync`` products with P rounded to bf16, K/V tiles of
-64 keys double-buffered by ``cp.async``.  f32 keeps the CUDA-core tile
-loop shared with K1/K3, in full f32.  Query and key positions are their
+64 keys double-buffered by ``cp.async``.  f32 runs the same geometry on
+the tensor cores in 3xTF32 (each f32 operand split into two TF32 parts,
+three ``mma.sync.m16n8k8`` products, f32-grade results; P kept in f32),
+key tiles of 64 (32 at d > 128).  Query and key positions are their
 indices, as in the Pallas kernel; ``kv_lens`` masks keys at or past each
 row's length.
 

@@ -101,6 +101,21 @@ FLASH_CASES = [(2, 32, 32, 4, 2, 64, None, 1), (1, 64, 64, 8, 8, 128, None, 1),
                (3, 80, 80, 4, 2, 64, 0, 1), (2, 300, 300, 8, 2, 112, None, 4),
                (1, 200, 200, 8, 4, 256, None, 1), (2, 70, 70, 8, 4, 256, 0, 1),
                (4, 1, 1024, 16, 16, 64, None, 1), (2, 96, 40, 4, 4, 64, None, 1)]
+# The same layout at the edges of K2's f32 kernel (3xTF32 on mma.sync
+# m16n8k8; 64 folded rows a block, key tiles of 64 keys at d <= 128 and
+# 32 at d = 256): T not a multiple of 64, G = 3 folding rows across tile
+# edges, one query row against 1024 keys, a row with kv_len = 0, d = 16,
+# 112 and 256, d = 12 and 4 (a half 8-wide step of the head dim, zeroed),
+# Tk > T with ragged lens, and q/k at 4x scale over d = 128 (scores where
+# one TF32 pass misses 1e-4; tests/test_torch_flash_f32_tiles.py shows it).
+FLASH_F32_CASES = [(2, 100, 100, 2, 2, 64, None, 1), (2, 50, 50, 6, 2, 64, None, 1),
+                   (2, 1, 1024, 8, 2, 128, None, 1), (3, 70, 70, 4, 2, 64, 0, 1),
+                   (2, 90, 90, 4, 2, 16, None, 1), (2, 130, 130, 4, 4, 112, None, 1),
+                   (1, 150, 150, 8, 4, 256, None, 1), (2, 40, 40, 4, 2, 12, None, 1),
+                   (2, 33, 33, 2, 1, 4, None, 1), (2, 40, 200, 4, 2, 64, None, 1),
+                   (1, 300, 300, 4, 2, 128, None, 4)]
+F32_KWARGS = [dict(), dict(window=8, softcap=25.0), dict(window=100, softcap=25.0),
+              dict(causal=False)]
 # B, H, T, P, N, chunk, decay — tests/test_ssd_kernel.py's cases, then
 # zamba2's head geometry with a ragged last chunk, then sizes that are not
 # multiples of the kernel's 16-wide tiles (chunk above 32: both scan
@@ -376,6 +391,31 @@ def test_flash_lse_kernel_matches_plain(cuda, case, dtype):
         assert _lse_rel(lse, want_lse) <= 1e-4
         if case[6] == 0:
             assert bool((o[0] == 0).all()) and bool((lse[0] == -1e30).all())
+
+
+@pytest.mark.parametrize("lse", [False, True], ids=["forward", "lse"])
+@pytest.mark.parametrize("case", FLASH_F32_CASES)
+def test_flash_f32_kernel_tile_edges(cuda, case, lse):
+    """K2's f32 tensor-core kernel at its tile edges, forward-only and
+    training forward: o within 1e-4 of the plain version, lse within 1e-4
+    relative; an empty row gives o = 0 and lse = -1e30."""
+    q, k, v, lens = (x.to("cuda") for x in flash_inputs(case))
+    run, plain, counter = ((K2.flash_attention_lse, K2.flash_attention_lse_plain, "launches_lse")
+                           if lse else
+                           (K2.flash_attention, K2.flash_attention_plain, "launches"))
+    for kw in F32_KWARGS:
+        n = getattr(K2, counter)
+        got = run(q, k, v, lens, scale=0.2, **kw)
+        torch.cuda.synchronize()
+        assert getattr(K2, counter) == n + 1
+        want = plain(q, k, v, lens, scale=0.2, **kw)
+        o, want_o = (got[0], want[0]) if lse else (got, want)
+        assert _err(o, want_o) <= TOL["float32"], kw
+        if lse:
+            assert _lse_rel(got[1], want[1]) <= 1e-4, kw
+        if case[6] == 0:
+            assert bool((o[0] == 0).all())
+            assert not lse or bool((got[1][0] == -1e30).all())
 
 
 @pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (0, 3, 7, 8, 10, 12, 15)])
