@@ -2,7 +2,7 @@
 """Run the PyTorch port of the Splitwiser engine on one NVIDIA GPU.
 
     python3 chip_smoke.py               # all phases (what the port's chip check runs)
-    python3 chip_smoke.py --quick       # phases 1-3 at one repeat: build + kernel check
+    python3 chip_smoke.py --quick       # phases 1-3: build + kernel check
     python3 chip_smoke.py --train-only  # phases 1-2 and 7: build + training
     python3 chip_smoke.py --roofline-only  # phases 1-2 and 8: build + roofline
     python3 chip_smoke.py --sampling-only  # phases 1-2 and 9: build + sampled decoding
@@ -17,16 +17,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      for the int8 kernel after one dequantize call — never called by the
      port; none for the SSD scan and its backward, which no single
      PyTorch call computes),
-     and the card's bound for the same work (K2's f32 cases also its
-     3xTF32 bound, ``bound_3xtf32_ms``: three TF32 products an f32 one at
-     494.7 TFLOP/s), and the kernel's and the library's device time (``device_ms``: the calls queued behind a
+     and the card's bound for the same work (K2's f32 cases and K1/K3's f32
+     chunks also their TF32 bound, ``bound_3xtf32_ms``: three TF32 products
+     an f32 one, two for K3's products on int8 codes (``tf32_passes``), at
+     ``common/hw.py::H100_SXM``'s 494.7 TFLOP/s), and the kernel's and the
+     library's device time (``device_ms``: the calls queued behind a
      device sleep, so the host's cost per call does not pace them);
      K1/K3 at decode (C = 1: the split-KV kernel, each case logging its
      split count, split length and workspace bytes, and its error held to
      the tolerance relative to each sequence's max |o| too) for B = 16
      at the main path's 72-page table, 64 and one sequence of 4096 keys,
      and at chunks of C = 128 and 256 (bf16 chunks run their tensor-core
-     tile loop); plus K1/K3 on empty rows and stale page tables at C = 4
+     tile loop, f32 chunks their 3xTF32 tile loop with a key split: each
+     f32 chunk case logs its split count, split length and workspace
+     bytes, and its device time with the split off (S = 1) as
+     ``unsplit_device_ms``, held to the plain version too);
+     plus K1/K3 on empty rows and stale page tables at C = 4
      and at decode (K3 also on all-zero pages; at decode the stale slots
      clamp onto a NaN page), K1/K2 at the hybrid's head geometry and at
      seamless-m4t-medium's (K2 non-causal over a ragged encoder, cross-
@@ -39,9 +45,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      apart and held to the dtype's tolerance relative to its own max |g|.
      First it logs the ``ptxas -v`` registers and spills
      and the dynamic shared memory of each instantiation of the
-     tensor-core kernels (K2's bf16 and f32 ones, with the blocks an SM
-     holds of the f32 one, and the bf16 chunk loops of K1 and K3), and
-     fails if a head-dim 64 or 128 one spills; then the same for every
+     tensor-core kernels (K2's bf16 and f32 ones and the bf16 and f32
+     chunk loops of K1 and K3, with the blocks an SM holds of the f32
+     ones), and fails if a head-dim 64 or 128 one spills; then the same for every
      instantiation of the decode kernels and their combines, failing on
      any spill but f32's at d > 128; then for K4's bf16 tensor-core
      kernel, with the blocks an SM holds, failing if its main-path
@@ -179,6 +185,9 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+KERNEL_ITERS = 20   # timed repeats of each phase-3 case, --quick or not
+
+
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -224,7 +233,8 @@ def device_time_ms(fn, iters: int, warmup: int = 3):
 
 def card_spec():
     """The card's data-sheet peaks: ``repro_torch/common/hw.py::H100_SXM``
-    (HBM bytes/s, dense bf16 FLOP/s on the tensor cores, f32 outside them)."""
+    (HBM bytes/s, dense bf16 and TF32 FLOP/s on the tensor cores, f32
+    outside them)."""
     from repro_torch.common.hw import H100_SXM
     return H100_SXM
 
@@ -236,14 +246,13 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-PEAK_TF32 = 494.7e12   # H100 SXM dense TF32 on the tensor cores (data sheet), FLOP/s
-
-
-def bound_3xtf32(nbytes: float, flops: float):
-    """(ms, by) of the work in 3xTF32 (K2's f32 kernel): three TF32
-    products for each f32 one, at the tensor cores' TF32 peak."""
-    t_bytes = nbytes / card_spec().hbm_bw * 1e3
-    t_ops = 3 * flops / PEAK_TF32 * 1e3
+def bound_3xtf32(nbytes: float, flops: float, passes: int = 3):
+    """(ms, by) of the work on the tensor cores in TF32: ``passes`` TF32
+    products for each f32 one (3xTF32 in K2's f32 kernel and K1's f32
+    chunks; 2 in K3's, whose codes are exact in TF32), at the TF32 peak."""
+    hw = card_spec()
+    t_bytes = nbytes / hw.hbm_bw * 1e3
+    t_ops = passes * flops / hw.peak_flops_tf32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -378,7 +387,7 @@ def row_rel_err(a, b):
 
 
 def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=None,
-            outputs=None):
+            outputs=None, tf32_passes=None):
     """One case: the kernel against its plain version on the same inputs
     (max abs error and, for a single output, ``row_rel_err``; for a tuple
     of outputs named by ``outputs``, each one's error as ``<name>_err``,
@@ -386,8 +395,9 @@ def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=Non
     ``cuda_time_ms`` times of kernel, plain version and library yardstick
     (None: there is none), the kernel's and the library's
     ``device_time_ms`` times and the kernel's host time per call, and the
-    bound for the work; ``extra`` (e.g. a decode call's split) is logged
-    with it."""
+    bound for the work (with ``tf32_passes``, or for K2 in f32, also the
+    TF32 bound); ``extra`` (e.g. a decode call's split) is logged with
+    it."""
     out = run()
     torch.cuda.synchronize()
     want = plain()
@@ -404,8 +414,11 @@ def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=Non
     lib_device_ms = device_time_ms(lib, iters)[0] if lib else None
     b_ms, b_by = bound(*work, dname)
     if kernel == "flash_attention" and dname == "float32":   # K2's f32 runs 3xTF32
-        extra = dict(extra or {}, **dict(zip(("bound_3xtf32_ms", "bound_3xtf32_by"),
-                                             bound_3xtf32(*work))))
+        tf32_passes = 3
+    if tf32_passes and dname == "float32":
+        extra = dict(extra or {}, tf32_passes=tf32_passes,
+                     **dict(zip(("bound_3xtf32_ms", "bound_3xtf32_by"),
+                                bound_3xtf32(*work, passes=tf32_passes))))
     return dict(kernel=kernel, case=label, dtype=dname, max_abs_err=err, tol=TOL[dname],
                 row_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                 device_ms=device_ms, host_ms=host_ms, library_device_ms=lib_device_ms,
@@ -574,7 +587,11 @@ TC_KERNELS = (  # library, kernel name, dtype, C helpers of its dynamic shared m
     ("paged_attention", "paged_attention_kernel_tc", "bf16", "paged_attention_bf16_smem_bytes",
      None),
     ("paged_attention_int8", "paged_attention_int8_kernel_tc", "bf16",
-     "paged_attention_int8_bf16_smem_bytes", None))
+     "paged_attention_int8_bf16_smem_bytes", None),
+    ("paged_attention", "paged_attention_kernel_f32", "f32", "paged_attention_f32_smem_bytes",
+     "paged_attention_f32_blocks_per_sm"),
+    ("paged_attention_int8", "paged_attention_int8_kernel_f32", "f32",
+     "paged_attention_int8_f32_smem_bytes", "paged_attention_int8_f32_blocks_per_sm"))
 
 
 def tc_resources(lib, kernel, dtype, smem_symbol, blocks_symbol):
@@ -723,6 +740,42 @@ def decode_split_info(torch, q, kp, table):
     return dict(splits=S, split_keys=L, workspace_bytes=B * H * S * (d + 2) * 4 if S > 1 else 0)
 
 
+def f32_chunk_split(torch, kernel, args, kw, plain, iters):
+    """An f32 chunk call's key split on this card (split count, split
+    length in keys, the f32 workspace bytes of its partials), and the same
+    call with the split off: the kernel's C entry called with S = 1, which
+    takes no workspace, its device ms (``unsplit_device_ms``) and its max
+    abs error against the plain version (``unsplit_max_abs_err``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as K1
+    from repro_torch.kernels import paged_attention_int8 as K3
+    from repro_torch.models.layers import NO_WINDOW
+    q, kp, table = args[0], args[1], args[-3]
+    B, C, H, d = q.shape
+    N, ps, KV, _ = kp.shape
+    Pmax = table.shape[1]
+    slots = K1.sm_count(q.device) * K1.chunk_blocks_per_sm(kernel, d)
+    S, L = K1.chunk_splits(B, C, H // KV, KV, Pmax, ps, slots)
+    wrapper = K1 if kernel == "paged_attention" else K3
+    fn = build.kernel_fn(kernel, f"{kernel}_f32", wrapper._F32_ARGTYPES)
+    out = torch.empty_like(q)
+    window = kw.get("window")
+    tail = (B, C, H, KV, d, N, ps, Pmax, 1, Pmax * ps, float(kw["scale"]),
+            NO_WINDOW if window is None else int(window), float(kw.get("softcap") or 0.0),
+            torch.cuda.current_stream().cuda_stream)
+
+    def unsplit():   # the wrapper's pointers: its inputs in order, then out
+        rc = fn(*(t.data_ptr() for t in args), out.data_ptr(), None, None, *tail)
+        if rc != 0:
+            fail(f"{kernel}_f32 with S = 1 failed: CUDA error {rc}")
+        return out
+
+    return dict(chunk_splits=S, chunk_split_keys=L, chunk_slots=slots,
+                chunk_workspace_bytes=B * C * H * S * (d + 2) * 4 if S > 1 else 0,
+                unsplit_max_abs_err=max_err(unsplit(), plain()),
+                unsplit_device_ms=device_time_ms(unsplit, iters)[0])
+
+
 SDPA_WINDOW_ONLY = "SDPA with the window mask alone (it has no softcap)"
 
 
@@ -768,26 +821,31 @@ def gemma2_cases(torch, dtype, dname, iters):
             ("gemma2 chunk B=2 C=256 d=256 kv 4400-5000", 2, 256, 4400, None)):
         args = paged_case(torch, B, C, KV, G, d, 16, 5000, dtype, seed=9, min_kv=min_kv,
                           pmax=pmax)
-        split = decode_split_info(torch, args[0], args[1], args[3]) if C == 1 else {}
+        run = lambda: K1.paged_attention(*args, **kw)
+        plain = lambda: K1.paged_attention_plain(*args, **kw)
+        f32_chunk = C > 1 and dtype == torch.float32
+        split = (decode_split_info(torch, args[0], args[1], args[3]) if C == 1 else
+                 f32_chunk_split(torch, "paged_attention", args, kw, plain, iters)
+                 if f32_chunk else {})
         cases.append(measure(
-            torch, "paged_attention", label, dname,
-            lambda: K1.paged_attention(*args, **kw),
-            lambda: K1.paged_attention_plain(*args, **kw),
+            torch, "paged_attention", label, dname, run, plain,
             sdpa_paged(torch, *args, kw["scale"], W),
             paged_work(args[0], args[1], args[3], args[4], args[5], window=W), iters,
-            dict(split, **note)))
+            dict(split, **note), tf32_passes=3 if f32_chunk else None))
         q, kp, vp, table, kv_lens, q_pos = paged_case(
             torch, B, C, KV, G, d, 16, 5000, torch.float32, seed=9, min_kv=min_kv, pmax=pmax)
         i8 = (q.to(dtype), *int8_pool(torch, kp, vp), table, kv_lens, q_pos)
         del args, kp, vp
+        run = lambda: K3.paged_attention_int8(*i8, **kw)
+        plain = lambda: K3.paged_attention_int8_plain(*i8, **kw)
+        if f32_chunk:
+            split = f32_chunk_split(torch, "paged_attention_int8", i8, kw, plain, iters)
         cases.append(measure(
-            torch, "paged_attention_int8", label, dname,
-            lambda: K3.paged_attention_int8(*i8, **kw),
-            lambda: K3.paged_attention_int8_plain(*i8, **kw),
+            torch, "paged_attention_int8", label, dname, run, plain,
             sdpa_paged_int8(torch, *i8, kw["scale"], W),
             paged_work(i8[0], i8[1], table, kv_lens, q_pos, kv_bytes=i8[1].shape[3] + 4,
                        window=W),
-            iters, dict(split, **note)))
+            iters, dict(split, **note), tf32_passes=2 if f32_chunk else None))
         del i8
     return cases
 
@@ -1013,26 +1071,33 @@ def phase_kernels(torch, iters):
                 ("chunk B=2 C=256", 2, 256, 1024, None, None)):
             args = paged_case(torch, B, C, 8, 2, 128, 16, max_kv, dtype, seed=1, min_kv=min_kv,
                               pmax=pmax)
-            split = decode_split_info(torch, args[0], args[1], args[3]) if C == 1 else None
+            run = lambda: K1.paged_attention(*args, scale=scale)
+            plain = lambda: K1.paged_attention_plain(*args, scale=scale)
+            f32_chunk = C > 1 and dtype == torch.float32
+            split = (decode_split_info(torch, args[0], args[1], args[3]) if C == 1 else
+                     f32_chunk_split(torch, "paged_attention", args, dict(scale=scale), plain,
+                                     iters) if f32_chunk else None)
             cases.append(measure(
-                torch, "paged_attention", label, dname,
-                lambda: K1.paged_attention(*args, scale=scale),
-                lambda: K1.paged_attention_plain(*args, scale=scale),
+                torch, "paged_attention", label, dname, run, plain,
                 sdpa_paged(torch, *args, scale),
-                paged_work(args[0], args[1], args[3], args[4], args[5]), iters, split))
+                paged_work(args[0], args[1], args[3], args[4], args[5]), iters, split,
+                tf32_passes=3 if f32_chunk else None))
             # K3 on the same shapes: codes and scales of seeded f32 normals
             q, kp, vp, table, kv_lens, q_pos = paged_case(
                 torch, B, C, 8, 2, 128, 16, max_kv, torch.float32, seed=1, min_kv=min_kv,
                 pmax=pmax)
             i8 = (q.to(dtype), *int8_pool(torch, kp, vp), table, kv_lens, q_pos)
             del args, kp, vp
+            run = lambda: K3.paged_attention_int8(*i8, scale=scale)
+            plain = lambda: K3.paged_attention_int8_plain(*i8, scale=scale)
+            if f32_chunk:
+                split = f32_chunk_split(torch, "paged_attention_int8", i8, dict(scale=scale),
+                                        plain, iters)
             cases.append(measure(
-                torch, "paged_attention_int8", label, dname,
-                lambda: K3.paged_attention_int8(*i8, scale=scale),
-                lambda: K3.paged_attention_int8_plain(*i8, scale=scale),
+                torch, "paged_attention_int8", label, dname, run, plain,
                 sdpa_paged_int8(torch, *i8, scale),
                 paged_work(i8[0], i8[1], table, kv_lens, q_pos, kv_bytes=i8[1].shape[3] + 4),
-                iters, split))
+                iters, split, tf32_passes=2 if f32_chunk else None))
             del i8
         g = torch.Generator(device="cuda").manual_seed(2)
         B, T, H, KV, d = 4, 1024, 16, 8, 128
@@ -1073,6 +1138,9 @@ def phase_kernels(torch, iters):
     bad += [c for c in cases if "splits" in c and not c["row_rel_err"] <= c["tol"]]
     bad += [c for c in edge if not (c["finite"] and c["empty_row_zero"])]
     bad += [c for c in cases if "lse_rel_err" in c and not c["lse_rel_err"] <= LSE_TOL]
+    # the f32 chunk kernels agree with the split off too
+    bad += [c for c in cases if "unsplit_max_abs_err" in c
+            and not c["unsplit_max_abs_err"] <= c["tol"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     return cases
@@ -3014,6 +3082,7 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
         decode_source="src/repro_torch/kernels/csrc/paged_decode.cuh",
         chunk_source="src/repro_torch/kernels/csrc/paged_tiles.cuh",
+        f32_chunk_source="src/repro_torch/kernels/csrc/paged_tiles_f32.cuh",
         replaces="src/repro/kernels/paged_attention.py:109",
         replaces_function="src/repro/kernels/paged_attention.py::paged_attention",
         headline=("decode B=16 C=1", "bfloat16"), library="scaled_dot_product_attention"),
@@ -3027,6 +3096,7 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention_int8.cu",
         decode_source="src/repro_torch/kernels/csrc/paged_decode.cuh",
         chunk_source="src/repro_torch/kernels/csrc/paged_tiles.cuh",
+        f32_chunk_source="src/repro_torch/kernels/csrc/paged_tiles_f32.cuh",
         replaces="src/repro/kernels/paged_attention_int8.py:111",
         replaces_function="src/repro/kernels/paged_attention_int8.py::paged_attention_int8",
         headline=("decode B=16 C=1", "bfloat16"),
@@ -3074,7 +3144,7 @@ def train_launches(train, cases, kname):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels only (phases 1-3, 1 timed repeat)")
+                    help="build and check the kernels only (phases 1-3)")
     ap.add_argument("--train-only", action="store_true",
                     help="build, then the training phase only (phases 1, 2 and 7)")
     ap.add_argument("--roofline-only", action="store_true",
@@ -3138,7 +3208,7 @@ def main() -> int:
             + json.dumps(decode_resources(lib, kernel, params)))
     log("ssd_scan_kernel_tc bf16 tensor-core instantiations (ptxas -v): "
         + json.dumps(ssd_resources()))
-    cases = phase_kernels(torch, iters=1 if args.quick else 20)
+    cases = phase_kernels(torch, iters=KERNEL_ITERS)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if args.quick:
         log(f"quick check passed in {time.perf_counter() - t_start:.1f} s")
@@ -3218,8 +3288,8 @@ def main() -> int:
                           f"launches_{part}_per_step": part_n / part_steps})
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
-            **{k: meta[k] for k in ("decode_source", "chunk_source", "tiles_source",
-                                    "f32_source") if k in meta},
+            **{k: meta[k] for k in ("decode_source", "chunk_source", "f32_chunk_source",
+                                    "tiles_source", "f32_source") if k in meta},
             replaces=meta["replaces"], replaces_function=meta["replaces_function"],
             launches=n, launches_by_path=by_path, launches_per_step=n / steps, **parts,
             case=f"{label} {dtype}", max_abs_err=c["max_abs_err"], tol=c["tol"],

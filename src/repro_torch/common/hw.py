@@ -19,6 +19,7 @@ class HardwareSpec:
     hbm_bytes: int           # HBM capacity per chip
     vmem_bytes: int          # VMEM per core
     peak_flops_f32: Optional[float] = None   # FLOP/s per chip outside matrix units
+    peak_flops_tf32: Optional[float] = None  # FLOP/s per chip, TF32 on the matrix units
 
 
 TPU_V5E = HardwareSpec(
@@ -40,4 +41,5 @@ H100_SXM = HardwareSpec(
     hbm_bytes=80 * 10**9,
     vmem_bytes=228 * 2**10,      # shared memory per SM
     peak_flops_f32=67e12,        # CUDA cores (no tensor cores)
+    peak_flops_tf32=494.7e12,    # dense, tensor cores
 )

@@ -4,9 +4,11 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_attention_int8.py
 // (`paged_attention_int8`, body `_kernel`).  It computes K1's function
 // over int8 code pages plus an f32 scale per (token, kv head), both
-// following one page table: every key and value row is dequantized
-// (code * scale, in f32) before both products.  Masks, the online
-// softmax, the GQA row folding and the empty-row rule are K1's.
+// following one page table; the Pallas kernel dequantizes every key and
+// value row (code * scale, in f32) before both products, and the decode
+// and f32 chunk loops below take the products on the codes and fold the
+// scales in.  Masks, the online softmax, the GQA row folding and the
+// empty-row rule are K1's.
 //
 // Three loops, as in K1:
 //   - Decode (C = 1), f32 and bf16 q: K1's split-KV kernel
@@ -20,10 +22,13 @@
 //     K1's 256 in bf16.  A lane loads 16 codes a vector; the dot product
 //     is taken on the codes and scaled once per key, and each scale is
 //     read once per key row.
-//   - f32 chunks (C > 1): the CUDA-core loop of attention_common.cuh
-//     (paged_attention_int8_kernel): 16 codes per 16-byte load,
-//     dequantized straight into the f32 shared tiles that the block's 4
-//     query rows share.
+//   - f32 chunks (C > 1): K1's paged tile loop in f32 (paged_tiles_f32.cuh,
+//     paged_attention_int8_kernel_f32) with the Q8Tiles loader: codes and
+//     scales double-buffered by cp.async, a pass writes the codes unscaled
+//     into an f32 tile, and as a code is exact in TF32 each product is
+//     two TF32 passes, not three: S_t = k_scale[t] ((q_hi + q_lo) code_t),
+//     o = sum_t (p_t v_scale[t]) code_t with the folded P split hi/lo; the
+//     key split and its combine are K1's.
 //   - bf16 chunks (C > 1): K1's paged tensor-core tile loop
 //     (paged_tiles.cuh, paged_attention_int8_kernel_tc) with the Q8Tiles
 //     loader: raw codes and scales are double-buffered by cp.async, and a
@@ -35,55 +40,11 @@
 // Layouts (the model's): q, out [B, C, H, d] f32 or bf16; code pages
 // [N, ps, KV, d] int8; scales [N, ps, KV, 1] f32; block_table [B, Pmax],
 // kv_lens [B], q_pos [B] int32.  d % 16 == 0, d <= 256.
-#include "attention_common.cuh"
 #include "paged_decode.cuh"
 #include "paged_tiles.cuh"
+#include "paged_tiles_f32.cuh"
 
 namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(attn::THREADS)
-paged_attention_int8_kernel(const T* __restrict__ q,
-                            const int8_t* __restrict__ k_pages,
-                            const float* __restrict__ k_scales,
-                            const int8_t* __restrict__ v_pages,
-                            const float* __restrict__ v_scales,
-                            const int* __restrict__ block_table,
-                            const int* __restrict__ kv_lens,
-                            const int* __restrict__ q_pos, T* __restrict__ out,
-                            int C, int H, int KV, int d, int N, int ps,
-                            int Pmax, float scale, int window, float softcap) {
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  // keys past the table's last page do not exist (the reference gathers
-  // exactly Pmax pages)
-  const int kv_len = min(kv_lens[b], Pmax * ps);
-  const attn::Q8Src<attn::PageRows> src{
-      k_pages, v_pages, k_scales, v_scales,
-      {block_table + size_t(b) * Pmax, ps, KV, kvh, N}, d};
-  attn::attend_rows<T>(q, out, src, b, kvh, C, H, KV, d,
-                       blockIdx.x * attn::WARPS, q_pos[b], kv_len, scale,
-                       /*causal=*/1, window, softcap);
-}
-
-template <typename T>
-int run(const void* q, const void* k_pages, const void* k_scales,
-        const void* v_pages, const void* v_scales, const void* block_table,
-        const void* kv_lens, const void* q_pos, void* out, int B, int C, int H,
-        int KV, int d, int N, int ps, int Pmax, float scale, int window,
-        float softcap, void* stream) {
-  const int rows = C * (H / KV);
-  const dim3 grid((rows + attn::WARPS - 1) / attn::WARPS, KV, B);
-  return attn::launch(paged_attention_int8_kernel<T>, grid, d, stream,
-                      static_cast<const T*>(q),
-                      static_cast<const int8_t*>(k_pages),
-                      static_cast<const float*>(k_scales),
-                      static_cast<const int8_t*>(v_pages),
-                      static_cast<const float*>(v_scales),
-                      static_cast<const int*>(block_table),
-                      static_cast<const int*>(kv_lens),
-                      static_cast<const int*>(q_pos), static_cast<T*>(out),
-                      C, H, KV, d, N, ps, Pmax, scale, window, softcap);
-}
 
 // bf16 chunks on the tensor cores (paged_tiles.cuh).
 template <int DP, bool CAPPED>
@@ -200,18 +161,112 @@ int run_decode(const void* q, const void* k_pages, const void* k_scales,
             ws_acc, ws_ml, B, H, KV, d, N, ps, Pmax, S, L, scale, window, softcap, stream);
 }
 
+// f32 chunks on the tensor cores, two TF32 passes on the codes
+// (paged_tiles_f32.cuh).
+template <int DP, bool CAPPED>
+__global__ void __launch_bounds__(
+    tf32::THREADS,
+    tf32::min_blocks(sizeof(float) * paged_f32::q_floats<DP>() +
+                     paged_f32::Q8Tiles<DP>::bytes))
+paged_attention_int8_kernel_f32(const float* __restrict__ q,
+                                const int8_t* __restrict__ k_pages,
+                                const float* __restrict__ k_scales,
+                                const int8_t* __restrict__ v_pages,
+                                const float* __restrict__ v_scales,
+                                const int* __restrict__ block_table,
+                                const int* __restrict__ kv_lens,
+                                const int* __restrict__ q_pos, float* __restrict__ out,
+                                float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                                int C, int H, int KV, int d, int N, int ps, int Pmax, int S,
+                                int L, float scale, int window, float softcap) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const paged_f32::BlockTile at = paged_f32::block_tile(C * (H / KV), KV, S);
+  const paged_f32::Q8Tiles<DP> tiles{
+      k_pages, v_pages, k_scales, v_scales,
+      {block_table + size_t(at.b) * Pmax, ps, KV, at.kvh, N}, d,
+      smem_f32 + paged_f32::q_floats<DP>()};
+  const int kv_len = max(0, min(kv_lens[at.b], Pmax * ps));
+  paged_f32::attend<DP, CAPPED>(tiles, at, smem_f32, q, out, ws_acc, ws_ml, kv_len,
+                                q_pos[at.b], C, H, KV, d, S, L, scale, window, softcap);
+}
+
+template <int DP>
+constexpr size_t smem_chunk_f32() {
+  return sizeof(float) * paged_f32::q_floats<DP>() + paged_f32::Q8Tiles<DP>::bytes;
+}
+
+template <int DP>
+int run_f32(const void* q, const void* k_pages, const void* k_scales,
+            const void* v_pages, const void* v_scales, const void* block_table,
+            const void* kv_lens, const void* q_pos, void* out, void* ws_acc, void* ws_ml,
+            int B, int C, int H, int KV, int d, int N, int ps, int Pmax, int S, int L,
+            float scale, int window, float softcap, void* stream) {
+  const auto kernel = softcap > 0.f ? paged_attention_int8_kernel_f32<DP, true>
+                                    : paged_attention_int8_kernel_f32<DP, false>;
+  float* acc = static_cast<float*>(ws_acc);
+  float* ml = static_cast<float*>(ws_ml);
+  return paged_f32::launch(kernel, paged_attention_int8_decode_combine_kernel<float>,
+                           smem_chunk_f32<DP>(), B, C, H, KV, d, S, acc, ml,
+                           static_cast<float*>(out), stream, static_cast<const float*>(q),
+                           static_cast<const int8_t*>(k_pages),
+                           static_cast<const float*>(k_scales),
+                           static_cast<const int8_t*>(v_pages),
+                           static_cast<const float*>(v_scales),
+                           static_cast<const int*>(block_table),
+                           static_cast<const int*>(kv_lens), static_cast<const int*>(q_pos),
+                           static_cast<float*>(out), acc, ml, C, H, KV, d, N, ps, Pmax, S, L,
+                           scale, window, softcap);
+}
+
+template <int DP>
+int f32_blocks_per_sm() {
+  return paged_f32::blocks_per_sm(paged_attention_int8_kernel_f32<DP, false>,
+                                  smem_chunk_f32<DP>());
+}
+
 }  // namespace
 
+// f32 chunks (C > 1): q, out [B, C, H, d] f32.  The wrapper picks K1's
+// key split (kernels/paged_attention.py::chunk_splits) and, when S > 1,
+// allocates the f32 workspace ws_acc [B, C, H, S, d] and
+// ws_ml [B, C, H, S, 2].
 extern "C" int paged_attention_int8_f32(
     const void* q, const void* k_pages, const void* k_scales,
     const void* v_pages, const void* v_scales, const void* block_table,
-    const void* kv_lens, const void* q_pos, void* out, int B, int C, int H,
-    int KV, int d, int N, int ps, int Pmax, float scale, int window,
-    float softcap, void* stream) {
+    const void* kv_lens, const void* q_pos, void* out, void* ws_acc, void* ws_ml, int B,
+    int C, int H, int KV, int d, int N, int ps, int Pmax, int S, int L, float scale,
+    int window, float softcap, void* stream) {
   if (C == 1) return int(cudaErrorInvalidValue);   // decode: paged_attention_int8_decode_f32
-  return run<float>(q, k_pages, k_scales, v_pages, v_scales, block_table,
-                    kv_lens, q_pos, out, B, C, H, KV, d, N, ps, Pmax, scale,
-                    window, softcap, stream);
+  if (paged_f32::bad_split(ps, Pmax, S, L, ws_acc, ws_ml)) return int(cudaErrorInvalidValue);
+  auto* fn = &run_f32<256>;
+  switch (tc::padded_dim(d)) {
+    case 32: fn = &run_f32<32>; break;
+    case 64: fn = &run_f32<64>; break;
+    case 128: fn = &run_f32<128>; break;
+  }
+  return fn(q, k_pages, k_scales, v_pages, v_scales, block_table, kv_lens, q_pos, out,
+            ws_acc, ws_ml, B, C, H, KV, d, N, ps, Pmax, S, L, scale, window, softcap,
+            stream);
+}
+
+// Dynamic shared memory, in bytes, of one block of an f32 chunk call at
+// head dim d, and the blocks of it one SM holds (-1 on a CUDA error).
+extern "C" int paged_attention_int8_f32_smem_bytes(int d) {
+  switch (tc::padded_dim(d)) {
+    case 32: return int(smem_chunk_f32<32>());
+    case 64: return int(smem_chunk_f32<64>());
+    case 128: return int(smem_chunk_f32<128>());
+  }
+  return int(smem_chunk_f32<256>());
+}
+
+extern "C" int paged_attention_int8_f32_blocks_per_sm(int d) {
+  switch (tc::padded_dim(d)) {
+    case 32: return f32_blocks_per_sm<32>();
+    case 64: return f32_blocks_per_sm<64>();
+    case 128: return f32_blocks_per_sm<128>();
+  }
+  return f32_blocks_per_sm<256>();
 }
 
 // Chunks (C > 1) on the tensor cores.

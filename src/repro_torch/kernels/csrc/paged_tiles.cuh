@@ -1,8 +1,8 @@
 // The paged tensor-core tile loop of K1 (paged_attention.cu) and K3
 // (paged_attention_int8.cu) for bf16 chunks (C > 1): K2's tile recipe
 // (flash_attention.cu, helpers in tc_common.cuh) read through a page
-// table.  Decode (C = 1) and every f32 call keep attention_common.cuh's
-// CUDA-core loop.
+// table.  Decode (C = 1) runs paged_decode.cuh, f32 chunks
+// paged_tiles_f32.cuh.
 //
 // What it computes is the Pallas kernels' function: folded row
 // r = c * G + g is query position q_pos[b] + c of head kvh * G + g; it sees
@@ -13,8 +13,7 @@
 // Design, for both page types:
 //   - One block of 4 warps per (64 folded query rows, kv head, sequence)
 //     on a 1-D grid that launches the tiles with the most keys first.
-//     Each key tile is read once for 64 rows (the CUDA-core loop reads it
-//     once per 4 rows).
+//     Each key tile is read once for 64 rows.
 //   - The block's key range is the union of its rows' causal and window
 //     ranges; only pages below ceil(kv_len / ps) are looked up, and page
 //     ids are clamped into the pool.  Tiles of 64 keys start at the range's

@@ -38,13 +38,17 @@ __host__ __device__ constexpr size_t smem_bytes() {
 }
 
 // Blocks an SM holds by shared memory (233,472 B, 1 KB reserved a block),
-// at most 2: the kernel's __launch_bounds__ minimum, so ptxas may take the
-// registers those blocks leave (255 a thread) rather than spill to reach
-// an occupancy the shared memory does not allow (at 4 blocks, DP = 32's
-// 128 registers a thread spilled).
+// at most 2: the f32 kernels' __launch_bounds__ minimum, so ptxas may take
+// the registers those blocks leave (255 a thread) rather than spill to
+// reach an occupancy the shared memory does not allow (at 4 blocks, DP =
+// 32's 128 registers a thread spilled).
+__host__ __device__ constexpr int min_blocks(size_t smem) {
+  return smem + 1024 <= 233472 / 2 ? 2 : 1;
+}
+
 template <int DP>
 __host__ __device__ constexpr int min_blocks() {
-  return smem_bytes<DP>() + 1024 <= 233472 / 2 ? 2 : 1;
+  return min_blocks(smem_bytes<DP>());
 }
 
 // x rounded to nearest into TF32 (the low 13 bits zero), as a b32 operand.
@@ -58,6 +62,19 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// x = hi + lo as two TF32 operands without a conversion instruction: hi
+// is x rounded to nearest, ties away from zero, to TF32 by integer ops
+// (cvt.rna's rounding, for finite x) and lo = x - hi, exact in f32, is
+// passed whole: mma.sync reads a .tf32 operand's top 19 bits, so lo is
+// truncated there (at most 2^-10 of lo, 2^-21 of x; cvt.rna would keep
+// 2^-22).  Every operand of every product is split, several times over
+// (each warp splits the K and V fragments it reads): split takes two cvt.rna
+// a value, this an integer add, an AND and an FADD.
+__device__ __forceinline__ void split_fast(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // c += a (16x8, row) * b (8x8, col): TF32 in, f32 accumulators.

@@ -21,11 +21,14 @@ kernel of ``csrc/paged_decode.cuh``: it is bound by the bytes of K/V it
 reads, so :func:`decode_splits` cuts each row's keys into S splits of L
 keys, from shapes alone, to put about four blocks on every SM whatever the
 batch; with S > 1 a combine kernel merges the splits' f32 partials, which
-live in a workspace allocated here once per shape (:func:`decode_plan`).  bf16 chunks (C > 1) run on the tensor
-cores (``csrc/paged_tiles.cuh``), f32 chunks on the CUDA-core loop
-(``csrc/attention_common.cuh``).  ``launches`` counts wrapper calls that
-launch, ``launches_decode`` those with C = 1 and ``launches_chunk`` those
-with C > 1 (a split decode call launches two kernels and counts once).
+live in a workspace allocated here once per shape (:func:`decode_plan`).  Chunks
+(C > 1) run on the tensor cores: bf16 in ``csrc/paged_tiles.cuh``, f32 in
+3xTF32 in ``csrc/paged_tiles_f32.cuh``, whose keys :func:`chunk_splits`
+cuts, again from shapes alone, when the chunk's row tiles leave SMs idle,
+with the f32 partials in a workspace of :func:`chunk_plan`.  ``launches``
+counts wrapper calls that launch, ``launches_decode`` those with C = 1 and
+``launches_chunk`` those with C > 1 (a split call launches two kernels and
+counts once).
 """
 from __future__ import annotations
 
@@ -41,10 +44,10 @@ launches = 0
 launches_decode = 0
 launches_chunk = 0
 
-_SYMBOLS = {torch.float32: "paged_attention_f32",
-            torch.bfloat16: "paged_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_F32_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _DECODE_SYMBOLS = {torch.float32: "paged_attention_decode_f32",
                    torch.bfloat16: "paged_attention_decode_bf16"}
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
@@ -78,7 +81,50 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+BLOCK_M = 64             # folded query rows a block of the chunk loops
+
+
+def chunk_splits(B: int, C: int, G: int, KV: int, Pmax: int, ps: int, slots: int):
+    """(S, L): the f32 chunk kernel's split of a row's ``Pmax * ps`` keys
+    into S splits of L keys each, L a whole number of pages.
+
+    The grid is S blocks for each (64 folded rows, kv head, sequence);
+    ``slots`` blocks run at once (SMs times blocks an SM).  Each block is
+    costed at its split's pages, and S (up to two waves of blocks, with at
+    least ``MIN_SPLIT_KEYS`` keys a split) minimises waves x pages a split.
+    A split is taken only if it lowers that cost below S = 1's, so a grid
+    that already fills the card stays whole; among splits of equal cost
+    the most are taken, since blocks are seldom full (causal rows, ragged
+    lengths and windows leave some short) and smaller ones balance them.
+    It reads shapes only, never ``kv_lens`` or ``q_pos`` (see
+    :func:`decode_splits`).  Split s covers the absolute keys
+    [s * L, (s + 1) * L); the kernel clips it to each row's visible range.
+    """
+    blocks = -(-C * G // BLOCK_M) * KV * B
+    unsplit = best = (-(-blocks // slots) * Pmax, 1)
+    for S in range(2, max(1, Pmax * ps // MIN_SPLIT_KEYS) + 1):
+        if blocks * (S - 1) >= 2 * slots:
+            break
+        cost = -(-blocks * S // slots) * -(-Pmax // S)
+        if cost < unsplit[0] and cost <= best[0]:
+            best = (cost, S)
+    pages = -(-Pmax // best[1])
+    return -(-Pmax // pages), pages * ps
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_blocks_per_sm(lib: str, d: int) -> int:
+    """Blocks of the f32 chunk kernel of ``lib`` (``paged_attention`` or
+    ``paged_attention_int8``) one SM holds at head dim d."""
+    n = build.kernel_fn(lib, f"{lib}_f32_blocks_per_sm", [ctypes.c_int])(d)
+    if n < 1:
+        raise RuntimeError(f"{lib}: the f32 chunk kernel cannot be resident at d={d} "
+                           f"(CUDA error {-n})")
+    return n
+
+
 _plans = {}
+_chunk_plans = {}
 
 
 def decode_plan(B: int, H: int, KV: int, d: int, Pmax: int, ps: int,
@@ -99,6 +145,27 @@ def decode_plan(B: int, H: int, KV: int, d: int, Pmax: int, ps: int,
             ws = torch.empty(B * H * S * (d + 2), dtype=torch.float32, device=device)
         plan = _plans[key] = (S, L, None if ws is None else ws.data_ptr(),
                               None if ws is None else ws.data_ptr() + 4 * B * H * S * d, ws)
+    return plan[:4]
+
+
+def chunk_plan(lib: str, B: int, C: int, H: int, KV: int, d: int, Pmax: int, ps: int,
+               device: torch.device, stream: int):
+    """(S, L, acc pointer, (m, l) pointer) of an f32 chunk call of ``lib``:
+    the split of :func:`chunk_splits` on this card and the f32 workspace of
+    its partials, acc [B, C, H, S, d] and (m, l) [B, C, H, S, 2] (null
+    pointers when S == 1), made once per shape, device and stream as
+    :func:`decode_plan` makes decode's."""
+    key = (lib, B, C, H, KV, d, Pmax, ps, device, stream)
+    plan = _chunk_plans.get(key)
+    if plan is None:
+        slots = sm_count(device) * chunk_blocks_per_sm(lib, d)
+        S, L = chunk_splits(B, C, H // KV, KV, Pmax, ps, slots)
+        ws = None
+        if S > 1:
+            ws = torch.empty(B * C * H * S * (d + 2), dtype=torch.float32, device=device)
+        plan = _chunk_plans[key] = (
+            S, L, None if ws is None else ws.data_ptr(),
+            None if ws is None else ws.data_ptr() + 4 * B * C * H * S * d, ws)
     return plan[:4]
 
 
@@ -176,8 +243,13 @@ def paged_attention(q, k_pages, v_pages, block_table, kv_lens, q_pos, *,
         S, L, acc, ml = decode_plan(B, H, KV, d, Pmax, ps, q.device, stream)
         fn = build.kernel_fn("paged_attention", _DECODE_SYMBOLS[q.dtype], _DECODE_ARGTYPES)
         rc = fn(*pointers, acc, ml, B, H, KV, d, N, ps, Pmax, S, L, *rest)
+    elif q.dtype == torch.float32:
+        S, L, acc, ml = chunk_plan("paged_attention", B, C, H, KV, d, Pmax, ps, q.device,
+                                   stream)
+        fn = build.kernel_fn("paged_attention", "paged_attention_f32", _F32_ARGTYPES)
+        rc = fn(*pointers, acc, ml, B, C, H, KV, d, N, ps, Pmax, S, L, *rest)
     else:
-        fn = build.kernel_fn("paged_attention", _SYMBOLS[q.dtype], _ARGTYPES)
+        fn = build.kernel_fn("paged_attention", "paged_attention_bf16", _ARGTYPES)
         rc = fn(*pointers, B, C, H, KV, d, N, ps, Pmax, *rest)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")

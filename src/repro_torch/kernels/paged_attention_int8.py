@@ -20,11 +20,12 @@ Dispatch: CPU tensors take :func:`paged_attention_int8_plain`; CUDA tensors
 launch a kernel or raise.  Decode (C = 1), f32 and bf16 q, runs K1's
 split-KV kernel (``csrc/paged_decode.cuh``) over int8 rows, with K1's
 split choice and workspace (``paged_attention.decode_plan``): it is
-bound by the bytes of codes and scales it reads.  bf16 chunks (C > 1) run
-on the tensor cores (``csrc/paged_tiles.cuh``), f32 chunks on the
-CUDA-core loop (``csrc/attention_common.cuh``).  ``launches`` counts
-wrapper calls that launch, ``launches_decode`` those with C = 1 and
-``launches_chunk`` those with C > 1.
+bound by the bytes of codes and scales it reads.  Chunks (C > 1) run on
+the tensor cores: bf16 q in ``csrc/paged_tiles.cuh``, f32 q in
+``csrc/paged_tiles_f32.cuh`` with two TF32 passes on the codes (exact in
+TF32) and K1's key split and workspace (``paged_attention.chunk_plan``).
+``launches`` counts wrapper calls that launch, ``launches_decode`` those
+with C = 1 and ``launches_chunk`` those with C > 1.
 """
 from __future__ import annotations
 
@@ -40,10 +41,10 @@ launches = 0
 launches_decode = 0
 launches_chunk = 0
 
-_SYMBOLS = {torch.float32: "paged_attention_int8_f32",
-            torch.bfloat16: "paged_attention_int8_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_F32_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _DECODE_SYMBOLS = {torch.float32: "paged_attention_int8_decode_f32",
                    torch.bfloat16: "paged_attention_int8_decode_bf16"}
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
@@ -154,8 +155,14 @@ def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales, block_table,
         fn = build.kernel_fn("paged_attention_int8", _DECODE_SYMBOLS[q.dtype],
                              _DECODE_ARGTYPES)
         rc = fn(*pointers, acc, ml, B, H, KV, d, N, ps, Pmax, S, L, *rest)
+    elif q.dtype == torch.float32:
+        S, L, acc, ml = _k1.chunk_plan("paged_attention_int8", B, C, H, KV, d, Pmax, ps,
+                                       q.device, stream)
+        fn = build.kernel_fn("paged_attention_int8", "paged_attention_int8_f32",
+                             _F32_ARGTYPES)
+        rc = fn(*pointers, acc, ml, B, C, H, KV, d, N, ps, Pmax, S, L, *rest)
     else:
-        fn = build.kernel_fn("paged_attention_int8", _SYMBOLS[q.dtype], _ARGTYPES)
+        fn = build.kernel_fn("paged_attention_int8", "paged_attention_int8_bf16", _ARGTYPES)
         rc = fn(*pointers, B, C, H, KV, d, N, ps, Pmax, *rest)
     if rc != 0:
         raise RuntimeError(

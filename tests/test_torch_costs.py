@@ -33,9 +33,11 @@ PAGE = 16         # phase_intensity's page size
 
 
 def test_hw_spec_copies_the_reference_and_adds_the_h100():
-    assert PORT_TPU_V5E.__dict__ == {**TPU_V5E.__dict__, "peak_flops_f32": None}
+    assert PORT_TPU_V5E.__dict__ == {**TPU_V5E.__dict__, "peak_flops_f32": None,
+                                     "peak_flops_tf32": None}
     assert H100_SXM.peak_flops_bf16 == 989e12 and H100_SXM.hbm_bw == 3.35e12
     assert H100_SXM.peak_flops_f32 == 67e12 and H100_SXM.hbm_bytes == 80 * 10**9
+    assert H100_SXM.peak_flops_tf32 == 494.7e12
     assert 290 < H100_SXM.peak_flops_bf16 / H100_SXM.hbm_bw < 300
 
 

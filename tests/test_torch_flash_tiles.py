@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from test_torch_kernels_gpu import FLASH_CASES, TOL, flash_inputs
+from torch_parity import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 from repro.models import layers as JL
 from repro_torch.kernels import flash_attention as K2

@@ -58,6 +58,22 @@ PAGED_CHUNK_CASES = [(128, 4, 2, 64, 16, (300, 45), (428, 173)),
                      (64, 8, 4, 256, 16, (300, 45), (364, 109)),
                      (100, 8, 4, 256, 8, (0, 130), (37, 230))]
 CHUNK_KWARGS = [dict(), dict(window=70, softcap=25.0)]
+# A PAGED_CHUNK_CASES layout and the call's window and softcap: the f32
+# chunk kernel (3xTF32 tiles of 64 folded rows) at the edges of its key
+# split.  paged_attention.chunk_splits cuts a row's Pmax * ps keys into S
+# splits of whole pages when the row tiles leave the card's SMs idle;
+# every case here has S > 1 on an H100 (132 SMs).  A window edge inside a
+# split, beside a sequence too short for any split but its first (splits
+# that see no key); a first chunk (q_pos 0) beside a long history, with
+# softcap alone; gemma2-2b's attention (8 q / 4 kv heads of d = 256,
+# window 4096, softcap 50) on a chunk past 4096 keys beside one inside
+# the window; d = 112 at ps = 4 with G = 3, whose rows' window edges
+# straddle a split boundary.
+PAGED_F32_SPLIT_CASES = [((64, 4, 2, 128, 16, (900, 30), (964, 94)), dict(window=300)),
+                         ((40, 8, 4, 64, 8, (472, 0), (512, 40)), dict(softcap=25.0)),
+                         ((64, 8, 4, 256, 16, (4200, 1000), (4264, 1064)),
+                          dict(window=4096, softcap=50.0)),
+                         ((100, 6, 2, 112, 4, (333,), (433,)), dict(window=150, softcap=30.0))]
 # The same layout at C = 1 (q_pos = kv_len - 1, 0 for an empty row) — the
 # edges of the split-KV decode kernel, whose splits are whole pages of at
 # least 128 keys (paged_attention.decode_splits): a 1037-key row that no
@@ -276,8 +292,9 @@ def poison_last_page(*pools):
 @pytest.mark.parametrize("case", PAGED_CHUNK_CASES)
 def test_paged_chunk_kernel_matches_plain(cuda, case, kernel, dtype):
     """K1 and K3 on chunks (bf16: the tensor-core tile loop; f32: the
-    CUDA-core loop) through a stale table, against their plain versions
-    on the clean table; a sequence with kv_len 0 writes exact zeros."""
+    3xTF32 tile loop with its key split) through a stale table, against
+    their plain versions on the clean table; a sequence with kv_len 0
+    writes exact zeros."""
     dt = getattr(torch, dtype)
     q, kpg, vpg, table, stale, lens, q_pos = paged_chunk_inputs(case)
     if kernel == "paged_attention":
@@ -303,6 +320,47 @@ def test_paged_chunk_kernel_matches_plain(cuda, case, kernel, dtype):
         for b in range(len(lens)):
             if int(lens[b]) == 0:
                 assert bool((out[b] == 0).all())
+
+
+@pytest.mark.parametrize("kernel", ["paged_attention", "paged_attention_int8"])
+@pytest.mark.parametrize("case,kw", PAGED_F32_SPLIT_CASES)
+def test_paged_f32_chunk_split_edges(cuda, case, kw, kernel):
+    """The f32 chunk kernel where its key split has edges: on this card
+    each case splits (S > 1), and through a stale table onto a NaN page
+    the output is within 1e-4 of the plain version on the clean table
+    (also relative to each sequence's max |o|: a dropped split or a
+    halved output exceeds it).  For int8 pages the first sequence's last
+    two pages, which its chunk's rows see, are all-zero codes with floored
+    scales."""
+    q, kpg, vpg, table, stale, lens, q_pos = paged_chunk_inputs(case)
+    C, H, KV, d, ps = case[:5]
+    scale = 1.0 / np.sqrt(d)
+    slots = K1.sm_count(cuda) * K1.chunk_blocks_per_sm(kernel, d)
+    S, _ = K1.chunk_splits(len(lens), C, H // KV, KV, table.shape[1], ps, slots)
+    assert S > 1
+    if kernel == "paged_attention":
+        mod, run, plain = K1, K1.paged_attention, K1.paged_attention_plain
+        pages = [kpg, vpg]
+        poison_last_page(*pages)
+    else:
+        mod, run, plain = K3, K3.paged_attention_int8, K3.paged_attention_int8_plain
+        (kq, ks), (vq, vs) = q8_kv(kpg), q8_kv(vpg)
+        last = -(-int(lens[0]) // ps)
+        zero = table[0, last - 2:last].long()
+        for codes, scales in ((kq, ks), (vq, vs)):
+            codes[zero], scales[zero] = 0, SCALE_FLOOR
+        poison_last_page(ks, vs)
+        pages = [kq, ks, vq, vs]
+    q, pages = q.to("cuda"), [p.to("cuda") for p in pages]
+    table, stale, lens, q_pos = (x.to("cuda") for x in (table, stale, lens, q_pos))
+    n = mod.launches_chunk
+    out = run(q, *pages, stale, lens, q_pos, scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert mod.launches_chunk == n + 1
+    assert bool(torch.isfinite(out).all())
+    want = plain(q, *pages, table, lens, q_pos, scale=scale, **kw)
+    assert _err(out, want) <= TOL["float32"]
+    assert _row_rel_err(out, want) <= TOL["float32"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

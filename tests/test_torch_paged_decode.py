@@ -32,6 +32,7 @@ import torch
 from test_torch_kernels_gpu import (DECODE_KWARGS, PAGED_CASES, PAGED_DECODE_CASES, TOL,
                                     _err, _paged, _row_rel_err, paged_chunk_inputs,
                                     poison_last_page)
+from torch_parity import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 from repro.kernels import kv_int8 as JQ
 from repro.models import layers as JL

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from test_torch_kernels_gpu import (CHUNK_KWARGS, PAGED_CASES, PAGED_CHUNK_CASES, TOL,
                                     _paged, paged_chunk_inputs, poison_last_page)
+from torch_parity import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 from repro.kernels import kv_int8 as JQ
 from repro.models import layers as JL

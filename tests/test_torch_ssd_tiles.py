@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from test_torch_kernels_gpu import SSD_CASES, TOL, ssd_inputs
+from torch_parity import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 from repro.kernels.ssd_scan import ssd_chunk_scan as pallas_ssd_chunk_scan
 from repro.models import ssm as JS

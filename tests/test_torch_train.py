@@ -35,7 +35,7 @@ from repro_torch.optim import Q8
 from repro_torch.optim import adamw as PA
 from repro_torch.train.losses import lm_loss, lm_loss_from_hidden
 from repro_torch.train.trainer import Trainer, init_state, make_train_step
-from torch_parity import jax_model, port_model, reduced_cfg
+from torch_parity import jax_model, one_torch_thread, port_model, reduced_cfg  # noqa: F401
 
 
 def _tcfg(tmp_path, **kw):

@@ -11,6 +11,8 @@ import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models.registry import CACHE_KIND, FAMILY_MODULE, Model
@@ -19,6 +21,20 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import get_model as port_get_model
 
 ARCH = "qwen3-0.6b"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's tests on one intra-op torch thread, then restore the
+    count.  The CPU emulations of the kernels' tile recipes are many small
+    matmuls in Python loops: under the test run's six workers on eight
+    cores, each worker's default of one thread a core oversubscribes the
+    host, and the emulations ran many times slower than alone.  Import it
+    into a test module to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_model(cfg, arch=ARCH):
