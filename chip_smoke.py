@@ -8,7 +8,8 @@
     python3 chip_smoke.py --sampling-only  # phases 1-2 and 9: build + sampled decoding
 
 Phases, each fatal on failure (non-zero exit, no result line):
-  1. environment: device name and count, ``nvidia-smi`` name and power limit;
+  1. environment: device name and count, ``nvidia-smi`` name and power limit,
+     the host's CPUs and torch's threads;
   2. build: every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
      (one ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` summary;
   3. kernels against their plain PyTorch versions at the main paths' shapes,
@@ -17,8 +18,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      for the int8 kernel after one dequantize call — never called by the
      port; none for the SSD scan and its backward, which no single
      PyTorch call computes),
-     and the card's bound for the same work (K2's f32 cases and K1/K3's f32
-     chunks also their TF32 bound, ``bound_3xtf32_ms``: three TF32 products
+     and the card's bound for the same work (K2's f32 cases, K1/K3's f32
+     chunks and K4's f32 backward also their TF32 bound,
+     ``bound_3xtf32_ms``: three TF32 products
      an f32 one, two for K3's products on int8 codes (``tf32_passes``), at
      ``common/hw.py::H100_SXM``'s 494.7 TFLOP/s), and the kernel's and the
      library's device time (``device_ms``: the calls queued behind a
@@ -39,10 +41,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      attention of 64 and of 1 query row against 1024 frames, K1 decode at
      G = 1, d = 64), and the scan with a ragged T and a nonzero h0 (its y
      and h_final errors logged apart: y held to the dtype's tolerance,
-     h_final to 1e-4 in both dtypes); K4's backward kernel at the hybrid's
+     h_final to 1e-4 in both dtypes); K4's backward kernels at the hybrid's
      training shape (B = 4, T = 1024) and at a ragged T = 1000 with h0 and
      a gradient on h_final, each gradient (dx, dla, dB, dC, dh0) logged
-     apart and held to the dtype's tolerance relative to its own max |g|.
+     apart and held to the dtype's tolerance relative to its own max |g|,
+     with each pass's device time apart (``states_device_ms``,
+     ``chunks_device_ms``), the state workspace's bytes and the byte floor
+     with it (``ws_floor_ms``), and in f32 the 3xTF32 bound.
      First it logs the ``ptxas -v`` registers and spills
      and the dynamic shared memory of each instantiation of the
      tensor-core kernels (K2's bf16 and f32 ones and the bf16 and f32
@@ -51,17 +56,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      instantiation of the decode kernels and their combines, failing on
      any spill but f32's at d > 128; then for K4's bf16 tensor-core
      kernel, with the blocks an SM holds, failing if its main-path
-     instantiation spills;
+     instantiation spills, and for K4's backward kernels (states and
+     chunks), failing if an f32 one with whole 16-byte rows spills;
   4. cross-device checks, f32, one seeded set of weights each, greedy
      streams equal between ``cuda`` (kernels) and the CPU (plain versions):
      the engine on qwen3-0.6b at full width and 2 layers with fp pages and
-     with int8 pages under the runtime sanitizer (``sanitize_level="step"``);
+     with int8 pages under the runtime sanitizer (``sanitize_level="step"``)
+     and on the rest of the transformer family (``CROSS_ENGINE``);
      the zamba2 hybrid at full width and 7 layer-units (2 prompts of 64
      tokens, 8 decode steps), whose first decode logits on ``cuda`` must
-     match the full-sequence forward; the rest of the transformer family;
+     match the full-sequence forward; internvl2-2b's prefill logits;
      rwkv6-7b at full width and 2 layers and seamless-m4t-medium at full
      width and 2 + 2 layers (2 prompts of 64 tokens, seamless after 12
-     frames, 8 decode steps), with their logit and state gaps;
+     frames, 8 decode steps), with their logit and state gaps.  The CPU's
+     side of every check whose weights are drawn on the CPU runs in a
+     worker process (``CrossCPU``: all but 2 of the host's CPUs, at a
+     lower priority) spawned before the build, beside the build and phase
+     3; the serving launcher of
+     phase 5 runs beside this phase;
   5. the main paths, in bf16 at full depth: qwen3-0.6b, 16 requests of
      128-1024 prompt tokens through all four serving modes, first with fp
      KV pages, then with int8 KV pages in a pool of the same bytes; then
@@ -103,7 +115,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      profiled step's device split; in a subprocess under
      ``torch.use_deterministic_algorithms``, bitwise crash/resume and
      int8 moments (with a resume through them) on the reduced config;
-     the training launcher in a subprocess.  Phase 3 also holds K2's
+     the training launcher in a subprocess (both beside the cross-device
+     rows, read before the timed paths).  Phase 3 also holds K2's
      training forward (o and lse) against its plain version beside the
      forward-only K2 at the same shapes (the hybrid's d = 112 included),
      K4's backward kernel against its plain version, and
@@ -137,10 +150,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      host ms of its CPU noise ``_gumbel_rows``), and a decode step's wall
      with all rows greedy against all rows sampled.  Last, the port's lint
      (``python -m repro_torch.analysis.lint src/repro_torch``) in a
-     subprocess must exit 0.
+     subprocess, started with the run, must exit 0.
 
-The last three lines of standard output are the ``{"kernels": [...]}``
-line, the card's ``nvidia-smi`` name and power limit, and
+Parts of phases 4-7 log their wall as ``time <part>: <s> s``.  The last
+three lines of standard output are the ``{"kernels": [...]}``
+line (a kernel whose headline case is f32 on the tensor cores, K4's
+backward, gives its TF32 bound as ``bound_ms`` and the CUDA cores' as
+``bound_cuda_core_ms``), the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
 reference package.
 """
@@ -174,6 +190,57 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Background:
+    """A command started now and read later (``result``), its output in
+    temporary files (an unread pipe could fill and stall it); killed at
+    exit if it is still running."""
+
+    def __init__(self, cmd, env, timeout):
+        import atexit
+        import tempfile
+        self.cmd, self.timeout, self.t0 = cmd, timeout, time.perf_counter()
+        self.files = [tempfile.TemporaryFile(mode="w+") for _ in range(2)]
+        self.proc = subprocess.Popen(cmd, env=env, stdout=self.files[0], stderr=self.files[1],
+                                     text=True)
+        atexit.register(self.kill)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self):
+        """(exit code, stdout, stderr, s from the start to this read)."""
+        try:
+            self.proc.wait(timeout=max(1.0, self.timeout - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail(f"{' '.join(self.cmd[1:])} ran past {self.timeout} s")
+        out = []
+        for f in self.files:
+            f.seek(0)
+            out.append(f.read())
+            f.close()
+        return self.proc.returncode, out[0], out[1], time.perf_counter() - self.t0
+
+
+def src_env(**extra):
+    """This process's environment with the checkout's ``src`` first on
+    ``PYTHONPATH``, for a subprocess of the port."""
+    import os
+    src = str(Path(__file__).resolve().parent / "src")
+    return dict(os.environ, **extra, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, logging its wall as ``time <label>: <s> s``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"time {label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def smi() -> str:
@@ -543,14 +610,19 @@ SSD_BWD_OUTPUTS = ("dx", "dla", "dB", "dC", "dh0")
 
 
 def ssd_bwd_cases(torch, dtype, dname, iters):
-    """K4's backward kernel (``ssd_chunk_scan_bwd``) against its plain
+    """K4's backward kernels (``ssd_chunk_scan_bwd``) against their plain
     version on the same inputs: at the hybrid's training shape (B = 4, T =
     1024, 112 heads, P = N = 64, chunk 64, h0 = 0, no gradient on the final
     state) and at a ragged T = 1000 with h0 and dh_final given.  Each
     gradient's max abs difference over its own max |g| is logged apart
     (``<name>_rel_err``) and held to the dtype's tolerance (bf16: the
     inputs' and dx's rounding); ``max_abs_err`` is the largest abs
-    difference.  No single PyTorch call computes the scan's backward."""
+    difference.  Each pass's device time (``states_device_ms``,
+    ``chunks_device_ms``) comes from ``torch.profiler``, and the
+    workspace's bytes are logged with ``ws_floor_ms``: the call's bytes
+    plus the states written and read once, at the card's HBM rate.  f32
+    runs 3xTF32 on the tensor cores (``bound_3xtf32_ms``).  No single
+    PyTorch call computes the scan's backward."""
     from repro_torch.kernels import ssd_scan as K4
     cases = []
     for label, T, given in (("train B=4 T=1024 H=112", 1024, False),
@@ -569,13 +641,38 @@ def ssd_bwd_cases(torch, dtype, dname, iters):
                for n, a, b in zip(names, got, want)}
         finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
         del got, want
-        c = measure(torch, "ssd_scan_bwd", label, dname, run, plain, None,
-                    ssd_bwd_work(x, Bc, h, dh, 64), iters, dict(rel, finite=finite),
-                    outputs=names)
+        passes = ssd_bwd_pass_ms(torch, run, iters)
+        work = ssd_bwd_work(x, Bc, h, dh, 64)
+        states = 4 * math.prod((*x.shape[::2], x.shape[3], Bc.shape[-1]))  # [B, H, P, N] f32
+        n_chunks = -(-T // 64)
+        ws_bytes = 2 * n_chunks * states                 # h and dh entering each chunk
+        ws_used = 2 * 2 * (n_chunks - 1) * states        # written, read; h0, dh_final not stored
+        extra = dict(rel, finite=finite, **passes, ws_bytes=ws_bytes,
+                     ws_floor_ms=(work[0] + ws_used) / card_spec().hbm_bw * 1e3)
+        c = measure(torch, "ssd_scan_bwd", label, dname, run, plain, None, work, iters, extra,
+                    outputs=names, tf32_passes=3)
         c["max_abs_err"] = max(c[f"{n}_err"] for n in names)
         cases.append(c)
         del x, la, Bc, Cc, h, dy, dh
     return cases
+
+
+def ssd_bwd_pass_ms(torch, run, iters):
+    """Device ms a call of each of K4's backward kernels, from
+    ``torch.profiler`` over ``iters`` calls of ``run``."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    us = {k: 0.0 for k in ("states", "chunks")}
+    for name, t in device_events(torch, prof):
+        for k in us:
+            if f"ssd_bwd_{k}_kernel" in name:
+                us[k] += t
+    return {f"{k}_device_ms": v / iters / 1e3 if v else "not measured" for k, v in us.items()}
 
 
 TC_KERNELS = (  # library, kernel name, dtype, C helpers of its dynamic shared memory
@@ -677,6 +774,53 @@ def ssd_resources():
     out["blocks_per_sm"] = build.kernel_fn("ssd_scan", "ssd_scan_bf16_blocks_per_sm", [])()
     if out["blocks_per_sm"] < 1:
         fail(f"ssd_scan_kernel_tc cannot be resident on an SM: {out}")
+    return out
+
+
+def ssd_bwd_resources():
+    """Registers, stack and spills of every instantiation of K4's backward
+    kernels (``ssd_bwd_states_kernel`` and ``ssd_bwd_chunks_kernel``, f32
+    and bf16 inputs, ``VEC``: P and N multiples of 8, else element copies)
+    from the ``ptxas -v`` output of both libraries (``ssd_scan_bwd`` for
+    f32, ``ssd_scan_bwd_bf16``), with each kernel's dynamic shared memory
+    and the blocks of its f32 ``VEC`` instantiation one SM holds.  Fails
+    if an f32 ``VEC`` instantiation (the training path's) spills."""
+    import ctypes
+    import re
+    from repro_torch.kernels import build
+    texts = [build.build_log[lib]["ptxas"] for lib in ("ssd_scan_bwd", "ssd_scan_bwd_bf16")]
+    if "(reused)" in texts:
+        return "not available: the library was built before this run"
+    text = "\n".join(texts)
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"ssd_bwd_(states|chunks)_kernelI(f|13__nv_bfloat16)Lb([01])E", line)
+            cur = out.setdefault(f"{m[1]} {'f32' if m[2] == 'f' else 'bf16'}"
+                                 + (" VEC" if m[3] == "1" else " element copies"),
+                                 {}) if m else None
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            cur.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                       spill_load_bytes=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m[1])
+    want = [f"{k} {d} {v}" for k in ("states", "chunks") for d in ("f32", "bf16")
+            for v in ("VEC", "element copies")]
+    if sorted(out) != sorted(want):
+        fail(f"ptxas log lacks the instantiations of K4's backward kernels: {sorted(out)}")
+    for k in ("states f32 VEC", "chunks f32 VEC"):
+        if out[k].get("spill_store_bytes", 1) or out[k].get("spill_load_bytes", 1):
+            fail(f"K4's backward {k} spills to local memory: {out[k]}")
+    for i, k in ((1, "states"), (2, "chunks")):
+        out[f"{k} dynamic_smem_bytes"] = build.kernel_fn(
+            "ssd_scan_bwd", "ssd_scan_bwd_smem_bytes", [ctypes.c_int])(i)
+        out[f"{k} blocks_per_sm"] = build.kernel_fn(
+            "ssd_scan_bwd", "ssd_scan_bwd_blocks_per_sm", [ctypes.c_int])(i)
+        if out[f"{k} blocks_per_sm"] < 1:
+            fail(f"K4's backward {k} kernel cannot be resident on an SM: {out}")
     return out
 
 
@@ -1215,107 +1359,132 @@ def read_launches():
 CROSS_SERVE = dict(max_batch=8, page_size=16, n_pages=128, max_pages_per_seq=16,
                    prefill_chunk=32, n_streams=2, chunk_tokens=64)
 CHUNKING_MODES = ("splitwiser", "splitwiser_mps", "chunked")
+# phase 4's engine checks, f32, weights drawn on the CPU from seed 0: name
+# (None: qwen3-0.6b, labelled by its page type alone), arch, config
+# overrides ({}: full depth), serve config, modes (None: every mode) and
+# requests (``cross_requests``).  qwen3-0.6b at full width and 2 layers
+# with fp pages, then int8 pages under the runtime sanitizer; opt-125m at
+# full width and depth; gemma2-2b at full width and 4 layers (2 local, 2
+# global) with one prompt of 4200 tokens, past its window of 4096;
+# olmoe-1b-7b (MoE) at full width and 2 layers.
+CROSS_ENGINE = (
+    (None, "qwen3-0.6b", dict(n_layers=2), dict(CROSS_SERVE, **ANALYSIS_OFF),
+     ("sequential", "splitwiser_mps"), ("random", 6, 16, 96, 8, 8)),
+    (None, "qwen3-0.6b", dict(n_layers=2), dict(CROSS_SERVE, **INT8_SANITIZED),
+     ("sequential", "splitwiser_mps"), ("random", 6, 16, 96, 8, 8)),
+    ("opt-125m", "opt-125m", {}, dict(CROSS_SERVE, **ANALYSIS_OFF), None,
+     ("random", 6, 16, 96, 8, 8)),
+    ("gemma2-2b", "gemma2-2b", dict(n_layers=4),
+     dict(CROSS_SERVE, max_batch=4, n_pages=320, max_pages_per_seq=272, max_seq_len=4352,
+          prefill_chunk=256, chunk_tokens=512, **ANALYSIS_OFF),
+     ("sequential", "chunked"), ("lengths", (4200, 64), 8)),
+    ("olmoe-1b-7b", "olmoe-1b-7b", dict(n_layers=2), dict(CROSS_SERVE, **ANALYSIS_OFF),
+     ("splitwiser_mps",), ("random", 4, 16, 96, 8, 8)))
 
 
-def cross_device(torch, label, model, params, serve_kw, modes, make_requests):
-    """Serve ``make_requests()`` on cuda (kernels) and on the CPU (plain
-    versions) in each of ``modes``, f32: the greedy streams must be equal,
-    and on cuda the paged kernel (K1, or K3 for int8 pages) must launch,
-    K2 in ``sequential`` and the paged chunk loop in the modes that chunk
+def cross_requests(spec, vocab):
+    """A phase-4 check's requests, seed 3: ("random", n, prompt lo, hi,
+    new lo, hi) or ("lengths", prompt lengths, new tokens)."""
+    kind, *args = spec
+    if kind == "lengths":
+        lengths, new = args
+        return requests_of_lengths(lengths, vocab, new, seed=3)
+    return requests(args[0], vocab, *args[1:], seed=3)
+
+
+def cross_model(torch, arch, over):
+    """(model, f32 params on the CPU from seed 0) of ``arch`` with the
+    config overrides ``over``: the same weights in every process."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    model = get_model(arch, replace(get_config(arch), **over))
+    return model, model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
+
+
+def cross_label(name, model, serve_kw):
+    pages = "int8" if serve_kw.get("kv_dtype") == "int8" else "fp"
+    return pages if name is None else f"{name} ({model.cfg.n_layers} layers) {pages}"
+
+
+def engine_streams(torch, model, params, cfg, device, reqs):
+    """Serve ``reqs`` with ``cfg`` on ``device``: (greedy streams, the
+    sanitizer's checks)."""
+    eng = make_engine_cls()(model, params, cfg, device=device)
+    eng.run(reqs, max_steps=4000)
+    return [r.out_tokens for r in reqs], eng.sanitizer.n_checks if eng.sanitizer else 0
+
+
+def cross_device(torch, label, model, params, serve_kw, modes, make_requests, cpu_side):
+    """Serve ``make_requests()`` on cuda (kernels) in each of ``modes``,
+    f32: the greedy streams must equal the CPU's (plain versions;
+    ``cpu_side``: mode -> (streams, sanitizer checks)), and on cuda the
+    paged kernel (K1, or K3 for int8 pages) must launch, K2 in
+    ``sequential`` and the paged chunk loop in the modes that chunk
     prompts; under the sanitizer it must have run on cuda (clean: a
     violation raises)."""
     from repro_torch.configs import ServeConfig
-    Engine = make_engine_cls()
     cfg = ServeConfig(**serve_kw)
     paged = "paged_attention_int8" if cfg.kv_dtype == "int8" else "paged_attention"
     for mode in modes:
-        streams, checks = {}, {}
-        for dev in ("cuda", "cpu"):
-            zero_launches()
-            reqs = make_requests()
-            eng = Engine(model, params, replace(cfg, mode=mode), device=dev)
-            eng.run(reqs, max_steps=4000)
-            streams[dev] = [r.out_tokens for r in reqs]
-            checks[dev] = eng.sanitizer.n_checks if eng.sanitizer else 0
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                counts = read_launches()
-            del eng
-        if streams["cuda"] != streams["cpu"]:
+        zero_launches()
+        streams, checks = engine_streams(torch, model, params, replace(cfg, mode=mode), "cuda",
+                                         make_requests())
+        torch.cuda.synchronize()
+        counts = read_launches()
+        cpu_streams, cpu_checks = cpu_side[mode]
+        if streams != cpu_streams:
             first = next((i, a, b) for i, (a, b) in
-                         enumerate(zip(streams["cuda"], streams["cpu"])) if a != b)
+                         enumerate(zip(streams, cpu_streams)) if a != b)
             fail(f"{label} {mode}: greedy streams differ between cuda and cpu: {first}")
         want = ([paged] + (["flash_attention"] if mode == "sequential" else [])
                 + ([paged + "_chunk"] if mode in CHUNKING_MODES else []))
         if any(counts[k] == 0 for k in want):
             fail(f"{label} {mode}: kernels were not launched on cuda: {counts}")
-        if cfg.sanitize_level != "off" and not checks["cuda"]:
+        if cfg.sanitize_level != "off" and not checks:
             fail(f"{label} {mode}: the sanitizer did not run on cuda")
-        log(f"cross-device {label} {mode}: {len(streams['cuda'])} greedy streams equal "
+        log(f"cross-device {label} {mode}: {len(streams)} greedy streams equal "
             f"(cuda vs cpu); launches {json.dumps(counts)}; sanitizer checks "
-            f"cuda={checks['cuda']} cpu={checks['cpu']} (clean)")
+            f"cuda={checks} cpu={cpu_checks} (clean)")
 
 
-def phase_cross_device(torch):
-    """cuda vs cpu greedy streams at full width, 2 layers, f32: fp pages,
-    then int8 pages under the step sanitizer, which must run clean on the
-    card."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
-    from repro_torch.models.registry import get_model
-    cfg = replace(get_config("qwen3-0.6b"), n_layers=2)
-    model = get_model("qwen3-0.6b", cfg)
-    params = T.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
-    for pages, extra in (("fp", ANALYSIS_OFF), ("int8", INT8_SANITIZED)):
-        cross_device(torch, pages, model, params, dict(CROSS_SERVE, **extra),
-                     ("sequential", "splitwiser_mps"),
-                     lambda: requests(6, cfg.vocab_size, 16, 96, 8, 8, seed=3))
+def phase_cross_device(torch, cpu):
+    """cuda vs cpu greedy streams for each row of ``CROSS_ENGINE``, the
+    CPU's sides from the worker ``cpu``."""
+    from repro_torch.configs import SERVE_MODES
+    key = model = params = None
+    for name, arch, over, serve_kw, modes, spec in CROSS_ENGINE:
+        if key != (arch, over):
+            del model, params
+            gc.collect()
+            key, (model, params) = (arch, over), cross_model(torch, arch, over)
+        label = cross_label(name, model, serve_kw)
+        cross_device(torch, label, model, params, serve_kw, modes or SERVE_MODES,
+                     lambda: cross_requests(spec, model.cfg.vocab_size), cpu.get(label))
+    del model, params
+    gc.collect()
 
 
-def phase_family_cross_device(torch):
-    """The rest of the transformer family, f32, cuda against the CPU:
-    opt-125m at full width and depth in every mode; gemma2-2b at full
-    width and 4 layers (2 local, 2 global) in ``sequential`` and
-    ``chunked``, with one prompt of 4200 tokens, past its window of 4096;
-    olmoe-1b-7b (MoE) at full width and 2 layers in ``splitwiser_mps``;
-    internvl2-2b's prefill logits over 256 patches and 64 tokens at full
-    width and 2 layers, within 1e-4 of the CPU's."""
-    from repro_torch.configs import SERVE_MODES, get_config
-    from repro_torch.models import transformer as T
-    from repro_torch.models.registry import get_model
-    for arch, layers, modes, serve_kw, make in (
-            ("opt-125m", None, SERVE_MODES, CROSS_SERVE,
-             lambda vocab: requests(6, vocab, 16, 96, 8, 8, seed=3)),
-            ("gemma2-2b", 4, ("sequential", "chunked"),
-             dict(CROSS_SERVE, max_batch=4, n_pages=320, max_pages_per_seq=272,
-                  max_seq_len=4352, prefill_chunk=256, chunk_tokens=512),
-             lambda vocab: requests_of_lengths((4200, 64), vocab, 8, seed=3)),
-            ("olmoe-1b-7b", 2, ("splitwiser_mps",), CROSS_SERVE,
-             lambda vocab: requests(4, vocab, 16, 96, 8, 8, seed=3))):
-        cfg = get_config(arch)
-        cfg = replace(cfg, n_layers=layers or cfg.n_layers)
-        model = get_model(arch, cfg)
-        params = model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
-        cross_device(torch, f"{arch} ({cfg.n_layers} layers) fp", model, params,
-                     dict(serve_kw, **ANALYSIS_OFF), modes,
-                     lambda: make(cfg.vocab_size))
-        del model, params
-        gc.collect()
-    cfg = replace(get_config("internvl2-2b"), n_layers=2)
-    params = get_model("internvl2-2b", cfg).init(torch.Generator().manual_seed(0),
-                                                 torch.float32, "cpu")
+def vlm_cross_inputs(torch, cfg):
+    """internvl2-2b's check: 2 prompts of 64 tokens and 256 patches each."""
     toks = torch.as_tensor(prompts(2, 64, cfg.vocab_size, seed=4))
     patches = torch.randn(2, cfg.n_vision_patches, cfg.d_vision,
                           generator=torch.Generator().manual_seed(5)) * 0.3
-    logits = {}
-    for dev in ("cuda", "cpu"):
-        zero_launches()
-        logits[dev], _ = T.prefill(to_device(params, dev), cfg, toks.to(dev),
-                                   patches=patches.to(dev))
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            counts = read_launches()
-    gap = max_err(logits["cuda"].cpu()[:, :cfg.vocab_size], logits["cpu"][:, :cfg.vocab_size])
+    return toks, patches
+
+
+def phase_vlm_cross_device(torch, cpu):
+    """internvl2-2b's prefill logits over 256 patches and 64 tokens at full
+    width and 2 layers, f32, within 1e-4 of the CPU's (from the worker
+    ``cpu``)."""
+    from repro_torch.models import transformer as T
+    model, params = cross_model(torch, "internvl2-2b", dict(n_layers=2))
+    cfg = model.cfg
+    toks, patches = vlm_cross_inputs(torch, cfg)
+    zero_launches()
+    logits, _ = T.prefill(to_device(params, "cuda"), cfg, toks.cuda(), patches=patches.cuda())
+    torch.cuda.synchronize()
+    counts = read_launches()
+    gap = max_err(logits.cpu()[:, :cfg.vocab_size], torch.as_tensor(cpu.get("internvl2-2b")))
     if counts["flash_attention"] != cfg.n_layers:
         fail(f"internvl2-2b: K2 launched {counts['flash_attention']} times in a "
              f"{cfg.n_layers}-layer prefill")
@@ -1324,6 +1493,93 @@ def phase_family_cross_device(torch):
     log(f"cross-device internvl2-2b ({cfg.n_layers} layers): prefill of 2 x "
         f"({cfg.n_vision_patches} patches + 64 tokens), max abs logit gap cuda vs cpu "
         f"{gap:.3e}; launches {json.dumps(counts)}")
+
+
+def cross_cpu_sides(torch):
+    """The CPU's side of each phase-4 check whose weights are drawn on the
+    CPU, in phase 4's order: yields (key, result) — per ``CROSS_ENGINE``
+    row its label and mode -> (streams, sanitizer checks); "hybrid" its
+    greedy tokens; "internvl2-2b" its prefill logits [2, vocab]."""
+    from repro_torch.configs import SERVE_MODES, ServeConfig
+    from repro_torch.models import transformer as T
+    key = model = params = None
+    for name, arch, over, serve_kw, modes, spec in CROSS_ENGINE:
+        if key != (arch, over):
+            del model, params
+            gc.collect()
+            key, (model, params) = (arch, over), cross_model(torch, arch, over)
+        cfg = ServeConfig(**serve_kw)
+        yield cross_label(name, model, serve_kw), {
+            mode: engine_streams(torch, model, params, replace(cfg, mode=mode), "cpu",
+                                 cross_requests(spec, model.cfg.vocab_size))
+            for mode in modes or SERVE_MODES}
+    del model, params
+    gc.collect()
+    model, params = cross_model(torch, "zamba2-7b", dict(n_layers=7))
+    toks = prompts(2, 64, model.cfg.vocab_size, seed=4)
+    yield "hybrid", hybrid_serve(torch, params, model.cfg, toks, steps=8, ps=16)["tokens"].tolist()
+    del model, params
+    gc.collect()
+    model, params = cross_model(torch, "internvl2-2b", dict(n_layers=2))
+    cfg = model.cfg
+    toks, patches = vlm_cross_inputs(torch, cfg)
+    logits, _ = T.prefill(params, cfg, toks, patches=patches)
+    yield "internvl2-2b", logits[:, :cfg.vocab_size].numpy()
+
+
+def cross_cpu_worker(src, threads, conn):
+    """Entry of phase 4's CPU worker process: sends each (key, result) of
+    ``cross_cpu_sides`` as it is done, or ("error", traceback)."""
+    import os
+    try:
+        # below the build's nvcc and this run's own thread in priority
+        os.nice(10)
+    except OSError:
+        pass
+    try:
+        if src not in sys.path:
+            sys.path.insert(0, src)
+        import torch
+        torch.set_num_threads(threads)
+        for item in cross_cpu_sides(torch):
+            conn.send(item)
+    except BaseException:   # fail() exits with SystemExit: report it too
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class CrossCPU:
+    """Phase 4's CPU sides, computed by a worker process with ``threads``
+    torch threads at a lower priority, spawned before the build: it runs
+    beside the build and phase 3, which leave most of the host's cores
+    idle.  ``get(key)`` waits for one result."""
+
+    def __init__(self, threads):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        src = str(Path(__file__).resolve().parent / "src")
+        # daemon: terminated at exit if this process fails first
+        self.proc = ctx.Process(target=cross_cpu_worker, args=(src, threads, child), daemon=True)
+        self.proc.start()
+        child.close()
+        self.got, self.t0 = {}, time.perf_counter()
+
+    def get(self, key):
+        while key not in self.got:
+            try:
+                k, v = self.conn.recv()
+            except EOFError:
+                fail(f"phase 4's CPU worker ended (exit code {self.proc.exitcode}) "
+                     f"before sending {key}")
+            if k == "error":
+                fail(f"phase 4's CPU worker failed:\n{v}")
+            self.got[k] = v
+            log(f"phase 4 CPU worker: {k} done {time.perf_counter() - self.t0:.1f} s "
+                f"after its start")
+        return self.got.pop(key)
 
 
 def to_device(tree, device):
@@ -1415,35 +1671,30 @@ def paged_serve(torch, params, cfg, toks, steps, ps, prefill, decode, label):
                 pages=(kp, vp, bt), prompt_len=S)
 
 
-def phase_hybrid_cross_device(torch):
+def phase_hybrid_cross_device(torch, cpu):
     """The hybrid at full width and 7 layer-units (one group of 5 Mamba2
     blocks and the shared block, 1 trailing Mamba2), f32: 2 prompts of 64
-    tokens and 8 decode steps on cuda and on the CPU; the greedy streams
-    must be equal, and on cuda the first decode step's logits must match
-    the full-sequence forward within 2e-3."""
-    from repro_torch.configs import get_config
+    tokens and 8 decode steps on cuda; the greedy streams must equal the
+    CPU's (from the worker ``cpu``), and on cuda the first decode step's
+    logits must match the full-sequence forward within 2e-3."""
     from repro_torch.models import hybrid as HY
-    from repro_torch.models.registry import get_model
-    cfg = replace(get_config("zamba2-7b"), n_layers=7)
-    model = get_model("zamba2-7b", cfg)
-    params = model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
+    model, params = cross_model(torch, "zamba2-7b", dict(n_layers=7))
+    cfg = model.cfg
     toks = prompts(2, 64, cfg.vocab_size, seed=4)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        p = to_device(params, dev)
-        zero_launches()
-        runs[dev] = hybrid_serve(torch, p, cfg, toks, steps=8, ps=16)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            counts = read_launches()
-            first = runs[dev]["tokens"][:, :1].cuda()
-            full, _ = HY.train_logits(p, cfg, {"tokens": torch.cat(
-                [torch.as_tensor(toks, device="cuda"), first], 1)})
-            gap = (runs[dev]["first_logits"] - full[:, -1]).abs().max().item()
-            del p, full
-    if not torch.equal(runs["cuda"]["tokens"], runs["cpu"]["tokens"]):
+    p = to_device(params, "cuda")
+    del params
+    zero_launches()
+    run = hybrid_serve(torch, p, cfg, toks, steps=8, ps=16)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    full, _ = HY.train_logits(p, cfg, {"tokens": torch.cat(
+        [torch.as_tensor(toks, device="cuda"), run["tokens"][:, :1].cuda()], 1)})
+    gap = (run["first_logits"] - full[:, -1]).abs().max().item()
+    del p, full
+    cpu_tokens = cpu.get("hybrid")
+    if run["tokens"].tolist() != cpu_tokens:
         fail(f"hybrid: greedy streams differ between cuda and cpu: "
-             f"{runs['cuda']['tokens'].tolist()} vs {runs['cpu']['tokens'].tolist()}")
+             f"{run['tokens'].tolist()} vs {cpu_tokens}")
     if any(counts[k] == 0 for k in ("paged_attention", "flash_attention", "ssd_scan")):
         fail(f"hybrid: kernels were not launched on cuda: {counts}")
     if not gap < 2e-3:
@@ -1745,14 +1996,14 @@ def log_agreement(name, paths):
 # K1/K3 decode (C = 1) is the split-KV kernel and its combine; every
 # other paged call is a chunk (bf16: the tensor-core loop, f32: the
 # CUDA-core loop).  "ssd_scan_kernel" matches K4's f32 kernel and its bf16
-# ssd_scan_kernel_tc, not its backward ssd_scan_bwd_kernel.
+# ssd_scan_kernel_tc; its backward is the pair ssd_bwd_{states,chunks}_kernel.
 KERNEL_CLASSES = (("paged_attention_int8 decode", ("paged_attention_int8_decode",)),
                   ("paged_attention_int8 chunk", ("paged_attention_int8_kernel",)),
                   ("paged_attention decode", ("paged_attention_decode",)),
                   ("paged_attention chunk", ("paged_attention_kernel",)),
                   ("flash_attention", ("flash_attention_kernel",)),
                   ("ssd_scan", ("ssd_scan_kernel",)),
-                  ("ssd_scan_bwd", ("ssd_scan_bwd_kernel",)),
+                  ("ssd_scan_bwd", ("ssd_bwd_states_kernel", "ssd_bwd_chunks_kernel")),
                   ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
 
@@ -1801,17 +2052,34 @@ def phase_profile(torch, windows, warm_steps=8, window=16):
     return out
 
 
-def device_ms_by_class(torch, prof):
-    """(device ms by kernel class, kernel count) of one profiled run.  It
-    reads kernel events only, so phase 6 profiles CUDA activity alone
-    (tracing the CPU's ops too doubles the time ``key_averages`` takes)."""
-    by_class, n_kernels = {}, 0
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if not us or e.device_type != torch.autograd.DeviceType.CUDA:
+def device_events(torch, prof):
+    """(demangled name, µs) of each device event (kernel, copy, fill) of
+    a finished ``torch.profiler`` run, read from its kineto results.  The
+    same events and times as ``key_averages``' device rows, without the
+    event tree that ``key_averages`` first builds of the whole trace: that
+    costs the host ~80 µs an event, ~10 s a profiled window of the qwen3
+    engine (60,000 kernels and their launches)."""
+    cuda, names, out = torch.autograd.DeviceType.CUDA, {}, []
+    demangle = getattr(torch._C, "_demangle", lambda n: n)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or getattr(e, "is_hidden_event", lambda: False)():
             continue
-        n_kernels += e.count
-        name = e.key.lower()
+        us = e.duration_ns() / 1e3
+        if us:
+            raw = e.name()
+            name = names.get(raw) or names.setdefault(raw, demangle(raw))
+            out.append((name, us))
+    return out
+
+
+def device_ms_by_class(torch, prof):
+    """(device ms by kernel class, kernel count) of one profiled run
+    (``device_events``).  It reads device events only, so phase 6
+    profiles CUDA activity alone."""
+    by_class, n_kernels = {}, 0
+    for name, us in device_events(torch, prof):
+        n_kernels += 1
+        name = name.lower()
         cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
     return by_class, n_kernels
@@ -2093,29 +2361,30 @@ def phase_seamless_path(torch):
     return dict(launches=launches, steps=1 + steps), window
 
 
-def phase_launcher(torch):
+LAUNCHER_CMD = ("-m", "repro_torch.launch.serve", "--arch", "opt-125m", "--mode",
+                "splitwiser_mps", "--n-requests", "16", "--json")
+
+
+def start_launcher():
+    """Start the serving launcher (``phase_launcher``) in the background."""
+    return Background([sys.executable, *LAUNCHER_CMD], src_env(), timeout=600)
+
+
+def phase_launcher(started):
     """The serving launcher as its users run it: ``python -m
     repro_torch.launch.serve --arch opt-125m --mode splitwiser_mps
-    --n-requests 16 --json`` at full size on the card, in a subprocess.
-    It must exit 0 with every request done; its summary line is logged."""
-    import os
-    gc.collect()
-    torch.cuda.empty_cache()
-    src = str(Path(__file__).resolve().parent / "src")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "opt-125m",
-           "--mode", "splitwiser_mps", "--n-requests", "16", "--json"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if out.returncode != 0:
-        fail(f"launcher exited {out.returncode}: {out.stderr.strip()[-2000:]}")
-    line = out.stdout.strip().splitlines()[-1]
+    --n-requests 16 --json`` at full size on the card, in a subprocess
+    (``started`` by ``start_launcher``, beside phase 4's checks).  It must
+    exit 0 with every request done; its summary line is logged."""
+    rc, stdout, stderr, wall = started.result()
+    if rc != 0:
+        fail(f"launcher exited {rc}: {stderr.strip()[-2000:]}")
+    line = stdout.strip().splitlines()[-1]
     summary = json.loads(line)
     if summary["n_done"] != 16:
         fail(f"launcher finished {summary['n_done']} of 16 requests: {line}")
-    log(f"launcher ({' '.join(cmd[1:])}; {wall:.1f} s with start-up): {line}")
+    log(f"launcher ({' '.join(LAUNCHER_CMD)}; read {wall:.1f} s after its start, beside "
+        f"phase 4): {line}")
 
 
 def phase_decode_profile(torch, label, window, steps=8):
@@ -2538,22 +2807,34 @@ def train_determinism(torch, tmp):
     print("determinism " + json.dumps(out), flush=True)
 
 
-def phase_train_subprocesses(torch, tmp):
-    """Bitwise resume and int8 moments on the card (``train_determinism``,
-    in a subprocess of this script so ``CUBLAS_WORKSPACE_CONFIG`` is set
-    before CUDA starts), then the launcher as its users run it:
-    ``python -m repro_torch.launch.train --arch qwen3-0.6b --reduced
-    --steps 4``, which must exit 0 and print its ``done:`` line."""
-    import os
-    src = str(Path(__file__).resolve().parent / "src")
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--train-determinism",
-                          str(tmp / "det")], env=env, capture_output=True, text=True,
-                         timeout=600)
-    if out.returncode != 0:
-        fail(f"train determinism run exited {out.returncode}: {out.stderr.strip()[-3000:]}")
-    line = next(x for x in out.stdout.splitlines() if x.startswith("determinism "))
+TRAIN_LAUNCHER_ARGS = ("-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b",
+                       "--reduced", "--steps", "4")
+
+
+def start_train_subprocesses(tmp):
+    """Start, in the background, bitwise resume and int8 moments on the
+    card (``train_determinism``, in a subprocess of this script so
+    ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts) and the
+    launcher as its users run it: ``python -m repro_torch.launch.train
+    --arch qwen3-0.6b --reduced --steps 4``.  Both run on the reduced
+    config beside the cross-device training rows."""
+    env = src_env(CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    return (Background([sys.executable, str(Path(__file__).resolve()), "--train-determinism",
+                        str(tmp / "det")], env, timeout=600),
+            Background([sys.executable, *TRAIN_LAUNCHER_ARGS, "--ckpt-dir",
+                        str(tmp / "launcher")], env, timeout=600))
+
+
+def phase_train_subprocesses(started):
+    """Read the subprocesses of ``start_train_subprocesses``: the
+    determinism run must show a bitwise resume and int8 moments within 0.1
+    of f32's loss, the launcher must exit 0 and print its ``done:``
+    line."""
+    det_run, launcher = started
+    rc, stdout, stderr, _ = det_run.result()
+    if rc != 0:
+        fail(f"train determinism run exited {rc}: {stderr.strip()[-3000:]}")
+    line = next(x for x in stdout.splitlines() if x.startswith("determinism "))
     det = json.loads(line[len("determinism "):])
     log("training on the card under deterministic algorithms " + json.dumps(det))
     bad = []
@@ -2566,17 +2847,13 @@ def phase_train_subprocesses(torch, tmp):
         bad.append("the int8-moment resume is not bitwise equal to the uninterrupted run")
     if bad:
         fail("training on the card: " + "; ".join(bad))
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b",
-           "--reduced", "--steps", "4", "--ckpt-dir", str(tmp / "launcher")]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    done = [x for x in out.stdout.splitlines() if x.startswith("done:")]
-    if out.returncode != 0 or not done:
-        fail(f"train launcher exited {out.returncode}: {out.stdout[-1000:]} "
-             f"{out.stderr.strip()[-2000:]}")
-    log(f"train launcher ({' '.join(cmd[1:5])} ... --steps 4; {wall:.1f} s with start-up): "
-        + " | ".join(out.stdout.strip().splitlines()))
+    rc, stdout, stderr, wall = launcher.result()
+    done = [x for x in stdout.splitlines() if x.startswith("done:")]
+    if rc != 0 or not done:
+        fail(f"train launcher exited {rc}: {stdout[-1000:]} {stderr.strip()[-2000:]}")
+    log(f"train launcher ({' '.join(TRAIN_LAUNCHER_ARGS[1:5])} ... --steps 4; read "
+        f"{wall:.1f} s after its start, beside the cross-device rows): "
+        + " | ".join(stdout.strip().splitlines()))
     return det
 
 
@@ -2586,10 +2863,14 @@ def phase_train(torch):
     import tempfile
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
-        cross = phase_train_cross_device(torch, tmp)
-        main_path, split = phase_train_path(torch, tmp)
-        hybrid_path, hybrid_split = phase_train_hybrid_path(torch, tmp)
-        det = phase_train_subprocesses(torch, tmp)
+        # the subprocesses run beside the cross-device rows, whose wall is
+        # the CPU's, and end before the timed training paths
+        started = start_train_subprocesses(tmp)
+        cross = timed("phase 7 cross-device rows", phase_train_cross_device, torch, tmp)
+        det = timed("phase 7 subprocesses (after the rows)", phase_train_subprocesses, started)
+        main_path, split = timed("phase 7 qwen3 path", phase_train_path, torch, tmp)
+        hybrid_path, hybrid_split = timed("phase 7 zamba2 path", phase_train_hybrid_path,
+                                          torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return dict(cross_device=cross, main_path=main_path, split=split, hybrid_path=hybrid_path,
@@ -2991,9 +3272,8 @@ def sampler_timing(torch):
             call()
         torch.cuda.synchronize()
     dev_us = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total and e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[e.key] = dev_us.get(e.key, 0.0) + e.self_device_time_total
+    for name, us in device_events(torch, prof):
+        dev_us[name] = dev_us.get(name, 0.0) + us
     device = sum(dev_us.values()) / 1e3 / reps
     copy = sum(v for k, v in dev_us.items() if "memcpy" in k.lower()) / 1e3 / reps
     return dict(B=B, V=V, host_ms=host, device_ms=device if device else "not measured",
@@ -3026,10 +3306,19 @@ def decode_step_walls(torch, setup, reqs):
     return sorted(walls)[n // 2]
 
 
-def phase_sampling(torch):
-    """Phase 9: sampled decoding on the card (module docstring).  Returns
-    the path's launches and engine steps for the kernels line."""
-    import os
+def start_lint():
+    """Start the port's lint (``phase_sampling``) in the background: it
+    reads source files only, so it can run from the start."""
+    src = Path(__file__).resolve().parent / "src"
+    return Background([sys.executable, "-m", "repro_torch.analysis.lint",
+                       str(src / "repro_torch")], src_env(), timeout=300)
+
+
+def phase_sampling(torch, lint=None):
+    """Phase 9: sampled decoding on the card (module docstring), then the
+    lint's result (``lint``: the run ``start_lint`` began, else one
+    started here).  Returns the path's launches and engine steps for the
+    kernels line."""
     from repro_torch.configs import SERVE_MODES, get_config
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_model
@@ -3044,34 +3333,31 @@ def phase_sampling(torch):
     def make(policies=SAMPLED_POLICIES, rids=None):
         return sampled_requests(cfg.vocab_size, policies, rids)
 
-    base, launches, steps = sampled_checks(torch, setup, make)
+    base, launches, steps = timed("phase 9 cuda checks", sampled_checks, torch, setup, make)
     total = {k: sum(launches[m][k] for m in SERVE_MODES) for k in launches[SERVE_MODES[0]]}
     log("phase 9 launches per mode " + json.dumps(launches))
     # logged, not fatal: logits differ by ~1e-5 between devices, so a
     # near-tie may flip a sampled token
-    cpu, _, _ = sampled_run(torch, (model, cpu_params), SAMPLED_SERVE, "sequential", make(),
-                            "cpu")
+    cpu, _, _ = timed("phase 9 cpu run", sampled_run, torch, (model, cpu_params), SAMPLED_SERVE,
+                      "sequential", make(), "cpu")
     sampled = [r.rid for r in make() if r.sampling.temperature > 0]
     log("phase 9 cuda vs cpu agreement, share of token positions: " + json.dumps(dict(
         sampled=agreement([base[r] for r in sampled], [cpu[r] for r in sampled]),
         greedy=agreement([base[r] for r in base if r not in sampled],
                          [cpu[r] for r in base if r not in sampled]),
         first_difference=first_difference(base, cpu))))
-    timing = sampler_timing(torch)
-    walls = {kind: decode_step_walls(torch, setup, make(policies))
-             for kind, policies in (("all_greedy", ({},)), ("all_sampled", SAMPLED_POLICIES[1:]))}
+    timing = timed("phase 9 sampler timing", sampler_timing, torch)
+    walls = timed("phase 9 decode step walls", lambda: {
+        kind: decode_step_walls(torch, setup, make(policies))
+        for kind, policies in (("all_greedy", ({},)), ("all_sampled", SAMPLED_POLICIES[1:]))})
     log("phase 9 sampler on the card " + json.dumps(dict(
         sample_tokens=timing, decode_step_wall_ms=dict(B=16, **walls))))
     # the lint, as a CI job on this machine runs it
-    src = Path(__file__).resolve().parent / "src"
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(src), os.environ.get("PYTHONPATH")) if p))
-    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint", str(src / "repro_torch")],
-                         env=env, capture_output=True, text=True, timeout=300)
-    if out.returncode != 0:
-        fail(f"phase 9: the lint exited {out.returncode}: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+    rc, stdout, stderr, _ = timed("phase 9 lint", (lint or start_lint()).result)
+    if rc != 0:
+        fail(f"phase 9: the lint exited {rc}: {stdout[-2000:]}{stderr[-2000:]}")
     log(f"phase 9 lint (python -m repro_torch.analysis.lint src/repro_torch): exit 0, "
-        f"{out.stdout.strip().splitlines()[-1]}")
+        f"{stdout.strip().splitlines()[-1]}")
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     return dict(launches=total, steps=sum(steps.values()))
 
@@ -3112,6 +3398,8 @@ KERNELS = {
     # through the gradient XLA derives from its jnp scan
     "ssd_scan_bwd": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        kernels_source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cuh",
+        bf16_source="src/repro_torch/kernels/csrc/ssd_scan_bwd_bf16.cu",
         replaces="src/repro/kernels/ssd_scan.py:88",
         replaces_function="the gradient of src/repro/models/ssm.py::mamba2_chunk_scan "
                           "(the Pallas kernel src/repro/kernels/ssd_scan.py::ssd_chunk_scan "
@@ -3119,6 +3407,18 @@ KERNELS = {
         headline=("train B=4 T=1024 H=112", "float32"), train_only=True,
         library="none (no single PyTorch call computes the scan's backward)"),
 }
+
+
+def headline_bound(c):
+    """The kernels line's bound of a headline case: for a kernel that runs
+    its f32 products in TF32 on the tensor cores (``tf32_passes``), the
+    TF32 bound, with the CUDA cores' f32 bound beside it; else the case's
+    bound."""
+    if "bound_3xtf32_ms" not in c:
+        return dict(bound_ms=c["bound_ms"], bound_by=c["bound_by"])
+    return dict(bound_ms=c["bound_3xtf32_ms"], bound_by=c["bound_3xtf32_by"],
+                tf32_passes=c["tf32_passes"], bound_cuda_core_ms=c["bound_ms"],
+                bound_cuda_core_by=c["bound_by"])
 
 
 def train_launches(train, cases, kname):
@@ -3169,12 +3469,21 @@ def main() -> int:
         train_determinism(torch, Path(args.train_determinism))
         return 0
     t_start = time.perf_counter()
+    full = not (args.quick or args.train_only or args.roofline_only or args.sampling_only)
+    import os
+    # work that needs neither the kernels nor the card starts now, beside
+    # the build and phase 3: phase 4's CPU sides and the lint
+    workers = max(1, len(os.sched_getaffinity(0)) - 2)
+    cpu = CrossCPU(workers) if full else None
+    lint = start_lint() if full else None
 
     # 1. environment
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = smi()
     log(f"device: {name} count={count} nvidia-smi: {card} torch {torch.__version__} "
         f"cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(f"host: {len(os.sched_getaffinity(0))} CPUs; torch threads {torch.get_num_threads()}"
+        + (f", phase 4's CPU worker's {workers}" if full else ""))
 
     # 2. build
     from repro_torch.kernels import build
@@ -3208,28 +3517,34 @@ def main() -> int:
             + json.dumps(decode_resources(lib, kernel, params)))
     log("ssd_scan_kernel_tc bf16 tensor-core instantiations (ptxas -v): "
         + json.dumps(ssd_resources()))
+    log("K4 backward ssd_bwd_{states,chunks}_kernel instantiations (ptxas -v): "
+        + json.dumps(ssd_bwd_resources()))
     cases = phase_kernels(torch, iters=KERNEL_ITERS)
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     if args.quick:
         log(f"quick check passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # 4. cross-device checks
-    phase_cross_device(torch)
-    phase_hybrid_cross_device(torch)
-    phase_family_cross_device(torch)
-    phase_model_level_cross_device(torch)
+    # 4. cross-device checks; the serving launcher runs beside them
+    launcher = start_launcher()
+    timed("phase 4 engine checks", phase_cross_device, torch, cpu)
+    timed("phase 4 hybrid", phase_hybrid_cross_device, torch, cpu)
+    timed("phase 4 internvl2-2b", phase_vlm_cross_device, torch, cpu)
+    timed("phase 4 rwkv6 and seamless", phase_model_level_cross_device, torch)
+    cpu.proc.join(timeout=60)
+    log(f"phase 4's CPU worker exit code: {cpu.proc.exitcode}")
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. the main paths, then the dispatch sentinel on opt-125m's engine
-    paths, setup = phase_main_path(torch)
-    family, setups = phase_family_paths(torch)
+    paths, setup = timed("phase 5 qwen3-0.6b", phase_main_path, torch)
+    family, setups = timed("phase 5 family", phase_family_paths, torch)
     paths.update(family)
     log("modes " + json.dumps({k: v["per_mode"] for k, v in paths.items() if "per_mode" in v}))
-    paths["hybrid"], hybrid_setup = phase_hybrid_path(torch)
-    paths["rwkv6-7b"], rwkv_window = phase_rwkv_path(torch)
-    paths["seamless-m4t-medium"], seamless_window = phase_seamless_path(torch)
-    phase_launcher(torch)
+    paths["hybrid"], hybrid_setup = timed("phase 5 zamba2-7b", phase_hybrid_path, torch)
+    paths["rwkv6-7b"], rwkv_window = timed("phase 5 rwkv6-7b", phase_rwkv_path, torch)
+    paths["seamless-m4t-medium"], seamless_window = timed(
+        "phase 5 seamless-m4t-medium", phase_seamless_path, torch)
+    phase_launcher(launcher)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
     phase_sentinel(torch, setups["opt-125m"])
     log(f"sentinel phase done at {time.perf_counter() - t_start:.1f} s")
@@ -3237,7 +3552,7 @@ def main() -> int:
     # 6. where the time goes
     from repro_torch.configs import SERVE_MODES
     vocab = {name: s[0].cfg.vocab_size for name, s in dict(setups, qwen3=setup).items()}
-    phase_profile(torch, (
+    timed("phase 6 engine windows", phase_profile, torch, (
         ("fp", setup, dict(MAIN_SERVE, **ANALYSIS_OFF), lambda: main_requests(vocab["qwen3"]),
          SERVE_MODES),
         ("int8", setup, dict(MAIN_SERVE, **ANALYSIS_OFF, kv_dtype="int8"),
@@ -3246,9 +3561,10 @@ def main() -> int:
          lambda: main_requests(vocab["opt-125m"]), ("splitwiser_mps",)),
         ("gemma2-2b fp", setups["gemma2-2b"], dict(GEMMA_SERVE, **ANALYSIS_OFF),
          lambda: gemma2_requests(vocab["gemma2-2b"]), ("sequential",))))
-    phase_hybrid_profile(torch, hybrid_setup)
-    phase_decode_profile(torch, "rwkv6-7b", rwkv_window)
-    phase_decode_profile(torch, "seamless-m4t-medium", seamless_window)
+    timed("phase 6 zamba2-7b", phase_hybrid_profile, torch, hybrid_setup)
+    timed("phase 6 rwkv6-7b", phase_decode_profile, torch, "rwkv6-7b", rwkv_window)
+    timed("phase 6 seamless-m4t-medium", phase_decode_profile, torch, "seamless-m4t-medium",
+          seamless_window)
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # 7. training, with the serving phases' models released first
@@ -3263,7 +3579,7 @@ def main() -> int:
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
     # 9. sampled decoding
-    paths["qwen3 f32 sampled"] = phase_sampling(torch)
+    paths["qwen3 f32 sampled"] = phase_sampling(torch, lint)
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3289,12 +3605,13 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
             **{k: meta[k] for k in ("decode_source", "chunk_source", "f32_chunk_source",
-                                    "tiles_source", "f32_source") if k in meta},
+                                    "tiles_source", "f32_source", "kernels_source",
+                                    "bf16_source") if k in meta},
             replaces=meta["replaces"], replaces_function=meta["replaces_function"],
             launches=n, launches_by_path=by_path, launches_per_step=n / steps, **parts,
             case=f"{label} {dtype}", max_abs_err=c["max_abs_err"], tol=c["tol"],
-            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=c["library_ms"], library=meta["library"],
+            ms=c["ms"], plain_ms=c["plain_ms"], **headline_bound(c),
+            library_ms=c["library_ms"], library=meta["library"],
             device_ms=c["device_ms"], library_device_ms=c["library_device_ms"],
             **(train_launches(train, cases, kname)
                if kname in ("flash_attention", "ssd_scan") else {}),

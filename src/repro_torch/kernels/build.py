@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 KERNELS = ("paged_attention", "flash_attention", "paged_attention_int8", "ssd_scan",
-           "ssd_scan_bwd")
+           "ssd_scan_bwd", "ssd_scan_bwd_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -21,10 +21,16 @@ f32 kernel and the plain version compute in f32; the bf16 kernel feeds
 the tensor cores bf16 operands (C.B^T o decay and x o decay as hi + lo
 pairs, the state as one bf16 for C.h^T) with f32 sums and an f32 state.
 
-The backward is K4's own kernel, ``csrc/ssd_scan_bwd.cu`` (the Pallas
-kernel has none: the reference differentiates its jnp scan), bound by
-:class:`SSDScanFn`; :func:`ssd_chunk_scan_bwd_plain` is its plain
-version, and ``ssd_scan_bwd.cu``'s header gives the recipe.
+The backward is K4's own pair of kernels, ``csrc/ssd_scan_bwd.cuh``
+(built for f32 inputs by ``csrc/ssd_scan_bwd.cu``, for bf16 by
+``csrc/ssd_scan_bwd_bf16.cu``; the Pallas kernel has none: the reference
+differentiates its jnp scan),
+bound by :class:`SSDScanFn`: a states kernel runs the two recurrences
+across chunks (the state entering and the gradient leaving each chunk,
+into an f32 workspace), then a chunks kernel takes every chunk alone,
+all its products in 3xTF32 on the tensor cores.
+:func:`ssd_chunk_scan_bwd_plain` is its plain version, and
+``ssd_scan_bwd.cu``'s header gives the recipe and the design.
 
 Dispatch: CPU tensors take :func:`ssd_chunk_scan_plain`, which autograd
 differentiates.  CUDA tensors launch the kernel or raise: under grad
@@ -49,7 +55,9 @@ MAX_DIM = 64            # the kernel's largest chunk, P and N
 
 _SYMBOLS = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_SYMBOLS = {torch.float32: "ssd_scan_bwd_f32", torch.bfloat16: "ssd_scan_bwd_bf16"}
+# library and C entry of the backward by input dtype
+_BWD_ENTRIES = {torch.float32: ("ssd_scan_bwd", "ssd_scan_bwd_f32"),
+                torch.bfloat16: ("ssd_scan_bwd_bf16", "ssd_scan_bwd_bf16")}
 _BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -254,7 +262,8 @@ def ssd_chunk_scan_bwd(x, la, Bc, Cc, h0, dy, dh_final, *, chunk: int = 64):
     ``ssd_chunk_scan(x, la, Bc, Cc, h0)`` for the output gradients ``dy``
     (x's shape and dtype) and ``dh_final`` ([B, H, P, N] f32, or None for
     zeros), in the dtypes of :func:`ssd_chunk_scan_bwd_plain`, which CPU
-    tensors take.  CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` or raise."""
+    tensors take.  CUDA tensors launch ``csrc/ssd_scan_bwd.cuh``'s states
+    and chunks kernels (one launch of the pair, counted once) or raise."""
     _check(x, la, Bc, Cc, h0, chunk)
     if dy.shape != x.shape:
         raise ValueError(f"dy must have x's shape {tuple(x.shape)}, got {tuple(dy.shape)}")
@@ -273,15 +282,14 @@ def ssd_chunk_scan_bwd(x, la, Bc, Cc, h0, dy, dh_final, *, chunk: int = 64):
     tensors.update((k, t) for k, t in (("h0", h0), ("dh_final", dh_final)) if t is not None)
     build.check_cuda_args(tensors, (), x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
-    n_chunks = -(-T // chunk)
-    ws = torch.empty(B, H, n_chunks, P, N, **f32)
+    ws = torch.empty(2, B, H, -(-T // chunk), P, N, **f32)   # the states h and dh
     dx = torch.empty_like(x)
     dla = torch.empty(B, T, H, **f32)
     dB_part = torch.empty(B, T, H, N, **f32)
     dC_part = torch.empty(B, T, H, N, **f32)
     dh0 = None if h0 is None else torch.empty(B, H, P, N, **f32)
     if B * H:                            # else every output is empty
-        fn = build.kernel_fn("ssd_scan_bwd", _BWD_SYMBOLS[x.dtype], _BWD_ARGTYPES)
+        fn = build.kernel_fn(*_BWD_ENTRIES[x.dtype], _BWD_ARGTYPES)
         ptr = lambda t: None if t is None else t.data_ptr()
         rc = fn(x.data_ptr(), la.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), ptr(h0),
                 dy.data_ptr(), ptr(dh_final), ws.data_ptr(), dx.data_ptr(), dla.data_ptr(),

@@ -576,18 +576,16 @@ def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
         K4.ssd_chunk_scan_bwd(x64, la.detach(), b, b, None, x64.bfloat16(), None, chunk=8)
 
 
-@pytest.mark.parametrize("h0", ["zero", "random"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", SSD_CASES)
-def test_ssd_bwd_kernel_matches_plain(cuda, case, dtype, h0):
-    """K4's backward kernel against its plain version on the same inputs
-    (with h0, also a gradient on the final state): each gradient within
-    the dtype's tolerance of its own max |g|, all finite."""
+def _check_ssd_bwd(case, dtype, h0, dh_given):
+    """K4's backward kernels against their plain version on one case: one
+    launch counted, each gradient finite and within the dtype's tolerance
+    of its own max |g|, dtypes and absent gradients as the plain version's."""
     dt = getattr(torch, dtype)
     x, la, Bc, Cc, h = ssd_inputs(case, h0)
     rng = np.random.RandomState(1)
     dy = _rand(rng, *x.shape).to("cuda", dt)
-    dh = _rand(rng, *h.shape).to("cuda") if h is not None else None
+    dh = _rand(rng, *x.shape[:1], x.shape[2], x.shape[3], Bc.shape[-1]).to("cuda") \
+        if dh_given else None
     x, Bc, Cc = (a.to("cuda", dt) for a in (x, Bc, Cc))
     la, h = la.to("cuda"), None if h is None else h.to("cuda")
     chunk = case[5]
@@ -604,6 +602,39 @@ def test_ssd_bwd_kernel_matches_plain(cuda, case, dtype, h0):
             continue
         assert bool(torch.isfinite(a.float()).all())
         assert _err(a, b) <= TOL[dtype] * max(b.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("h0", ["zero", "random"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_bwd_kernel_matches_plain(cuda, case, dtype, h0):
+    """K4's backward kernels against their plain version on the same
+    inputs (with h0, also a gradient on the final state): each gradient
+    within the dtype's tolerance of its own max |g|, all finite."""
+    _check_ssd_bwd(case, dtype, h0, h0 == "random")
+
+
+# B, H, T, P, N, chunk, decay — the edges of the backward's two grids
+# (states: (H, B, 2) walking the chunks; chunks: (n_chunks, H, B)): one
+# chunk below and at the chunk size (the states pass carries nothing),
+# whole chunks, a ragged last chunk at chunk 32, the strong decay, P and N
+# not multiples of 8 (element copies; chunk 50), and grids of fewer blocks
+# than an H100 has SMs.
+SSD_BWD_GRID_CASES = [(2, 4, 50, 64, 64, 64, 0.1), (1, 3, 64, 64, 64, 64, 0.1),
+                      (2, 4, 192, 64, 64, 64, 0.1), (1, 4, 130, 64, 64, 32, 0.1),
+                      (1, 4, 200, 64, 64, 64, 4.0), (1, 3, 100, 20, 64, 64, 0.1),
+                      (1, 3, 100, 64, 12, 50, 0.1), (1, 2, 128, 64, 64, 64, 0.1)]
+
+
+@pytest.mark.parametrize("dh_final", [False, True], ids=["dh_final=None", "dh_final"])
+@pytest.mark.parametrize("h0", ["zero", "random"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_BWD_GRID_CASES)
+def test_ssd_bwd_grid_edges(cuda, case, dtype, h0, dh_final):
+    """K4's backward kernels at the edges of their grids, with h0 and
+    dh_final each present or absent: one launch, each gradient within the
+    dtype's tolerance of its own max |g| of the plain version."""
+    _check_ssd_bwd(case, dtype, h0, dh_final)
 
 
 @pytest.mark.parametrize("case", [SSD_CASES[i] for i in (0, 3, 4, 10)])
