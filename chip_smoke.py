@@ -19,12 +19,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      port; none for the SSD scan and its backward, which no single
      PyTorch call computes),
      and the card's bound for the same work (K2's f32 cases, K1/K3's f32
-     chunks and K4's f32 backward also their TF32 bound,
-     ``bound_3xtf32_ms``: three TF32 products
-     an f32 one, two for K3's products on int8 codes (``tf32_passes``), at
-     ``common/hw.py::H100_SXM``'s 494.7 TFLOP/s), and the kernel's and the
-     library's device time (``device_ms``: the calls queued behind a
-     device sleep, so the host's cost per call does not pace them);
+     chunks and K4's f32 forward and backward run on the tensor cores:
+     their ``bound_ms`` is the TF32 bound, also ``bound_3xtf32_ms``, at
+     three TF32 products an f32 one, two for K3's products on int8 codes
+     (``tf32_passes``), at ``common/hw.py::H100_SXM``'s 494.7 TFLOP/s,
+     and the CUDA cores' f32 bound is ``bound_cuda_core_ms``), and the
+     kernel's and the library's device time (``device_ms``: the calls
+     queued behind a device sleep, so the host's cost per call does not
+     pace them);
      K1/K3 at decode (C = 1: the split-KV kernel, each case logging its
      split count, split length and workspace bytes, and its error held to
      the tolerance relative to each sequence's max |o| too) for B = 16
@@ -39,9 +41,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      clamp onto a NaN page), K1/K2 at the hybrid's head geometry and at
      seamless-m4t-medium's (K2 non-causal over a ragged encoder, cross-
      attention of 64 and of 1 query row against 1024 frames, K1 decode at
-     G = 1, d = 64), and the scan with a ragged T and a nonzero h0 (its y
-     and h_final errors logged apart: y held to the dtype's tolerance,
-     h_final to 1e-4 in both dtypes); K4's backward kernels at the hybrid's
+     G = 1, d = 64), and K4's forward at zamba2's prefill (B = 8, T =
+     1024), at a ragged T = 1000 with a nonzero h0 and, in f32, at the
+     hybrid's training shape (B = 4, T = 1024), its y and h_final errors
+     logged apart (y held to the dtype's tolerance, h_final to 1e-4 in
+     both dtypes; f32 runs 3xTF32 on the tensor cores, so its cases'
+     ``bound_ms`` is the 3xTF32 bound); K4's backward kernels at the hybrid's
      training shape (B = 4, T = 1024) and at a ragged T = 1000 with h0 and
      a gradient on h_final, each gradient (dx, dla, dB, dC, dh0) logged
      apart and held to the dtype's tolerance relative to its own max |g|,
@@ -54,10 +59,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      chunk loops of K1 and K3, with the blocks an SM holds of the f32
      ones), and fails if a head-dim 64 or 128 one spills; then the same for every
      instantiation of the decode kernels and their combines, failing on
-     any spill but f32's at d > 128; then for K4's bf16 tensor-core
-     kernel, with the blocks an SM holds, failing if its main-path
-     instantiation spills, and for K4's backward kernels (states and
-     chunks), failing if an f32 one with whole 16-byte rows spills;
+     any spill but f32's at d > 128; then for K4's forward kernels, the
+     bf16 one and the f32 one (3xTF32), each with its dynamic shared
+     memory and the blocks an SM holds, failing if an instantiation with
+     whole 16-byte rows (the main path's) spills, and for K4's backward
+     kernels (states and chunks), failing if an f32 one with whole
+     16-byte rows spills;
   4. cross-device checks, f32, one seeded set of weights each, greedy
      streams equal between ``cuda`` (kernels) and the CPU (plain versions):
      the engine on qwen3-0.6b at full width and 2 layers with fp pages and
@@ -154,8 +161,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 Parts of phases 4-7 log their wall as ``time <part>: <s> s``.  The last
 three lines of standard output are the ``{"kernels": [...]}``
-line (a kernel whose headline case is f32 on the tensor cores, K4's
-backward, gives its TF32 bound as ``bound_ms`` and the CUDA cores' as
+line (every f32 case that runs TF32 on the tensor cores, a headline
+case too, gives its TF32 bound as ``bound_ms`` and the CUDA cores' as
 ``bound_cuda_core_ms``), the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
 reference package.
@@ -462,9 +469,11 @@ def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=Non
     ``cuda_time_ms`` times of kernel, plain version and library yardstick
     (None: there is none), the kernel's and the library's
     ``device_time_ms`` times and the kernel's host time per call, and the
-    bound for the work (with ``tf32_passes``, or for K2 in f32, also the
-    TF32 bound); ``extra`` (e.g. a decode call's split) is logged with
-    it."""
+    bound for the work (f32 with ``tf32_passes``, and K2 in f32, runs its
+    products in TF32 on the tensor cores: ``bound_ms`` is then the TF32
+    bound, also logged as ``bound_3xtf32_ms``, and the CUDA cores' f32
+    bound is ``bound_cuda_core_ms``); ``extra`` (e.g. a decode call's
+    split) is logged with it."""
     out = run()
     torch.cuda.synchronize()
     want = plain()
@@ -483,9 +492,10 @@ def measure(torch, kernel, label, dname, run, plain, lib, work, iters, extra=Non
     if kernel == "flash_attention" and dname == "float32":   # K2's f32 runs 3xTF32
         tf32_passes = 3
     if tf32_passes and dname == "float32":
-        extra = dict(extra or {}, tf32_passes=tf32_passes,
-                     **dict(zip(("bound_3xtf32_ms", "bound_3xtf32_by"),
-                                bound_3xtf32(*work, passes=tf32_passes))))
+        t_ms, t_by = bound_3xtf32(*work, passes=tf32_passes)
+        extra = dict(extra or {}, tf32_passes=tf32_passes, bound_3xtf32_ms=t_ms,
+                     bound_3xtf32_by=t_by, bound_cuda_core_ms=b_ms, bound_cuda_core_by=b_by)
+        b_ms, b_by = t_ms, t_by
     return dict(kernel=kernel, case=label, dtype=dname, max_abs_err=err, tol=TOL[dname],
                 row_rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                 device_ms=device_ms, host_ms=host_ms, library_device_ms=lib_device_ms,
@@ -578,6 +588,32 @@ def ssd_work(x, Bc, h0, chunk):
     return nbytes, 2.0 * B * H * macs
 
 
+def ssd_fwd_cases(torch, dtype, dname, iters):
+    """K4's forward (``ssd_chunk_scan``) against its plain version: at
+    zamba2's prefill (B = 8 prompts of 1024, 112 heads of 64, state 64,
+    chunk 64), at a ragged T = 1000 with a nonzero h0 and, in f32, at the
+    hybrid's training shape (B = 4, T = 1024), each with y's and h_final's
+    errors apart (``y_err``, ``h_final_err``); f32 runs 3xTF32 on the
+    tensor cores (``bound_ms`` is its 3xTF32 bound).  No single PyTorch
+    call computes the scan."""
+    from repro_torch.kernels import ssd_scan as K4
+    shapes = [("prefill B=8 T=1024 H=112", 8, 1024, False),
+              ("ragged T=1000 h0!=0", 8, 1000, True)]
+    if dname == "float32":
+        shapes.append(("train fwd B=4 T=1024 H=112", 4, 1024, False))
+    cases = []
+    for label, B, T, h0 in shapes:
+        x, la, Bc, Cc, h = ssd_case(torch, B, T, 112, 64, 64, dtype, h0, seed=3)
+        cases.append(measure(
+            torch, "ssd_scan", label, dname,
+            lambda: K4.ssd_chunk_scan(x, la, Bc, Cc, h, chunk=64),
+            lambda: K4.ssd_chunk_scan_plain(x, la, Bc, Cc, h, chunk=64),
+            None, ssd_work(x, Bc, h, 64), iters,
+            dict(h_final_tol=TOL["float32"]), outputs=("y", "h_final"), tf32_passes=3))
+        del x, la, Bc, Cc, h
+    return cases
+
+
 def ssd_bwd_work(x, Bc, h0, dh_final, chunk):
     """(bytes, flops) of one backward of the scan: x, la, B, C, dy (and
     h0, dh_final when given) read once, dx, dla, dB, dC (and dh0) written
@@ -621,8 +657,8 @@ def ssd_bwd_cases(torch, dtype, dname, iters):
     ``chunks_device_ms``) comes from ``torch.profiler``, and the
     workspace's bytes are logged with ``ws_floor_ms``: the call's bytes
     plus the states written and read once, at the card's HBM rate.  f32
-    runs 3xTF32 on the tensor cores (``bound_3xtf32_ms``).  No single
-    PyTorch call computes the scan's backward."""
+    runs 3xTF32 on the tensor cores (``bound_ms`` is its 3xTF32 bound).
+    No single PyTorch call computes the scan's backward."""
     from repro_torch.kernels import ssd_scan as K4
     cases = []
     for label, T, given in (("train B=4 T=1024 H=112", 1024, False),
@@ -742,12 +778,14 @@ def tc_resources(lib, kernel, dtype, smem_symbol, blocks_symbol):
 
 
 def ssd_resources():
-    """Registers, stack and spills of both instantiations of K4's bf16
-    tensor-core kernel (``VEC``: P and N multiples of 8, the main path's;
-    else element copies) from the ``ptxas -v`` output, with the dynamic
-    shared memory a block takes and the blocks one SM holds
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Fails if the
-    main path's instantiation spills."""
+    """Registers, stack and spills of every instantiation of K4's forward
+    kernels, the bf16 ``ssd_scan_kernel_tc`` and the f32
+    ``ssd_scan_kernel_f32`` (``VEC``: P and N multiples of 8, the main
+    path's; else element copies), from the ``ptxas -v`` output, with each
+    kernel's dynamic shared memory a block and the blocks of its ``VEC``
+    instantiation one SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Fails if a
+    ``VEC`` instantiation spills."""
     import re
     from repro_torch.kernels import build
     text = build.build_log["ssd_scan"]["ptxas"]
@@ -756,8 +794,10 @@ def ssd_resources():
     out, cur = {}, None
     for line in text.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"ssd_scan_kernel_tcILb([01])E", line)
-            cur = out.setdefault("VEC" if m[1] == "1" else "element copies", {}) if m else None
+            m = re.search(r"ssd_scan_kernel_(tc|f32)ILb([01])E", line)
+            cur = out.setdefault(f"{'bf16' if m[1] == 'tc' else 'f32'} "
+                                 + ("VEC" if m[2] == "1" else "element copies"),
+                                 {}) if m else None
         elif cur is None:
             continue
         elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -766,14 +806,19 @@ def ssd_resources():
                        spill_load_bytes=int(m[3]))
         elif m := re.search(r"Used (\d+) registers", line):
             cur["registers"] = int(m[1])
-    if sorted(out) != ["VEC", "element copies"]:
-        fail(f"ptxas log lacks the bf16 instantiations of ssd_scan_kernel_tc: {sorted(out)}")
-    if out["VEC"].get("spill_store_bytes", 1) or out["VEC"].get("spill_load_bytes", 1):
-        fail(f"ssd_scan_kernel_tc VEC spills to local memory: {out['VEC']}")
-    out["dynamic_smem_bytes"] = build.kernel_fn("ssd_scan", "ssd_scan_bf16_smem_bytes", [])()
-    out["blocks_per_sm"] = build.kernel_fn("ssd_scan", "ssd_scan_bf16_blocks_per_sm", [])()
-    if out["blocks_per_sm"] < 1:
-        fail(f"ssd_scan_kernel_tc cannot be resident on an SM: {out}")
+    want = [f"{d} {v}" for d in ("bf16", "f32") for v in ("VEC", "element copies")]
+    if sorted(out) != sorted(want):
+        fail(f"ptxas log lacks the instantiations of K4's forward kernels: {sorted(out)}")
+    for d in ("bf16", "f32"):
+        k = f"{d} VEC"
+        if out[k].get("spill_store_bytes", 1) or out[k].get("spill_load_bytes", 1):
+            fail(f"K4's forward {k} spills to local memory: {out[k]}")
+        out[f"{d} dynamic_smem_bytes"] = build.kernel_fn(
+            "ssd_scan", f"ssd_scan_{d}_smem_bytes", [])()
+        out[f"{d} blocks_per_sm"] = build.kernel_fn(
+            "ssd_scan", f"ssd_scan_{d}_blocks_per_sm", [])()
+        if out[f"{d} blocks_per_sm"] < 1:
+            fail(f"K4's forward {d} kernel cannot be resident on an SM: {out}")
     return out
 
 
@@ -1163,23 +1208,12 @@ def phase_kernels(torch, iters):
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_attention as K1
     from repro_torch.kernels import paged_attention_int8 as K3
-    from repro_torch.kernels import ssd_scan as K4
     F = torch.nn.functional
     scale = 1.0 / math.sqrt(128)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        # K4 at zamba2's prefill (B=8 prompts of 1024, 112 heads of 64,
-        # state 64, chunk 64), then a ragged T with a nonzero h0
-        for label, T, h0 in (("prefill B=8 T=1024 H=112", 1024, False),
-                             ("ragged T=1000 h0!=0", 1000, True)):
-            x, la, Bc, Cc, h = ssd_case(torch, 8, T, 112, 64, 64, dtype, h0, seed=3)
-            cases.append(measure(
-                torch, "ssd_scan", label, dname,
-                lambda: K4.ssd_chunk_scan(x, la, Bc, Cc, h, chunk=64),
-                lambda: K4.ssd_chunk_scan_plain(x, la, Bc, Cc, h, chunk=64),
-                None, ssd_work(x, Bc, h, 64), iters,
-                dict(h_final_tol=TOL["float32"]), outputs=("y", "h_final")))
+        cases += ssd_fwd_cases(torch, dtype, dname, iters)
         cases += ssd_bwd_cases(torch, dtype, dname, iters)
         # K1/K2 at the hybrid's shared attention: d=112, 32 q and 32 kv
         # heads (G=1); decode rows all at one length, as in its decode
@@ -1994,8 +2028,8 @@ def log_agreement(name, paths):
 
 
 # K1/K3 decode (C = 1) is the split-KV kernel and its combine; every
-# other paged call is a chunk (bf16: the tensor-core loop, f32: the
-# CUDA-core loop).  "ssd_scan_kernel" matches K4's f32 kernel and its bf16
+# other paged call is a chunk (the tensor-core tile loops).
+# "ssd_scan_kernel" matches K4's forward kernels, ssd_scan_kernel_f32 and
 # ssd_scan_kernel_tc; its backward is the pair ssd_bwd_{states,chunks}_kernel.
 KERNEL_CLASSES = (("paged_attention_int8 decode", ("paged_attention_int8_decode",)),
                   ("paged_attention_int8 chunk", ("paged_attention_int8_kernel",)),
@@ -3390,6 +3424,7 @@ KERNELS = {
     "ssd_scan": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         tiles_source="src/repro_torch/kernels/csrc/ssd_tiles.cuh",
+        f32_tiles_source="src/repro_torch/kernels/csrc/ssd_tiles_f32.cuh",
         replaces="src/repro/kernels/ssd_scan.py:64",
         replaces_function="src/repro/kernels/ssd_scan.py::ssd_chunk_scan",
         headline=("prefill B=8 T=1024 H=112", "bfloat16"),
@@ -3409,18 +3444,6 @@ KERNELS = {
 }
 
 
-def headline_bound(c):
-    """The kernels line's bound of a headline case: for a kernel that runs
-    its f32 products in TF32 on the tensor cores (``tf32_passes``), the
-    TF32 bound, with the CUDA cores' f32 bound beside it; else the case's
-    bound."""
-    if "bound_3xtf32_ms" not in c:
-        return dict(bound_ms=c["bound_ms"], bound_by=c["bound_by"])
-    return dict(bound_ms=c["bound_3xtf32_ms"], bound_by=c["bound_3xtf32_by"],
-                tf32_passes=c["tf32_passes"], bound_cuda_core_ms=c["bound_ms"],
-                bound_cuda_core_by=c["bound_by"])
-
-
 def train_launches(train, cases, kname):
     """Training launches in the kernels line: K2's training forward (its
     launches on both training paths and its case at the qwen3 path's
@@ -3436,7 +3459,7 @@ def train_launches(train, cases, kname):
                 launches_lse_per_step={p: by_path[p] / v["steps"] for p, v in paths.items()},
                 lse_case=f"{c['case']} float32", lse_ms=c["ms"], lse_device_ms=c["device_ms"],
                 lse_plain_ms=c["plain_ms"], lse_bound_ms=c["bound_ms"],
-                lse_bound_by=c["bound_by"], lse_bound_3xtf32_ms=c["bound_3xtf32_ms"],
+                lse_bound_by=c["bound_by"], lse_bound_cuda_core_ms=c["bound_cuda_core_ms"],
                 lse_max_abs_err=c["max_abs_err"],
                 lse_rel_err=c["lse_rel_err"], lse_bwd_ms=c["bwd_ms"])
 
@@ -3515,7 +3538,7 @@ def main() -> int:
     for lib, kernel, params in DECODE_KERNELS:
         log(f"{kernel} split-KV decode instantiations (ptxas -v): "
             + json.dumps(decode_resources(lib, kernel, params)))
-    log("ssd_scan_kernel_tc bf16 tensor-core instantiations (ptxas -v): "
+    log("K4 forward ssd_scan_kernel_{tc,f32} instantiations (ptxas -v): "
         + json.dumps(ssd_resources()))
     log("K4 backward ssd_bwd_{states,chunks}_kernel instantiations (ptxas -v): "
         + json.dumps(ssd_bwd_resources()))
@@ -3605,12 +3628,14 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route=meta["route"], source=meta["source"],
             **{k: meta[k] for k in ("decode_source", "chunk_source", "f32_chunk_source",
-                                    "tiles_source", "f32_source", "kernels_source",
-                                    "bf16_source") if k in meta},
+                                    "tiles_source", "f32_tiles_source", "f32_source",
+                                    "kernels_source", "bf16_source") if k in meta},
             replaces=meta["replaces"], replaces_function=meta["replaces_function"],
             launches=n, launches_by_path=by_path, launches_per_step=n / steps, **parts,
             case=f"{label} {dtype}", max_abs_err=c["max_abs_err"], tol=c["tol"],
-            ms=c["ms"], plain_ms=c["plain_ms"], **headline_bound(c),
+            ms=c["ms"], plain_ms=c["plain_ms"],
+            **{k: c[k] for k in ("bound_ms", "bound_by", "tf32_passes", "bound_cuda_core_ms",
+                                 "bound_cuda_core_by") if k in c},
             library_ms=c["library_ms"], library=meta["library"],
             device_ms=c["device_ms"], library_device_ms=c["library_device_ms"],
             **(train_launches(train, cases, kname)

@@ -14,264 +14,42 @@
 // evaluated only on the branch i <= t: above the diagonal it can overflow,
 // and a 0/1 mask would turn inf into NaN.
 //
-// bf16 (ssd_scan_bf16) runs the tensor-core kernel of ssd_tiles.cuh,
-// whose note says what bounds it and how.  f32 (ssd_scan_f32) keeps the
-// CUDA-core kernel below, so the card-vs-CPU parity runs stay in full
-// f32: its four products run on the CUDA cores in f32 (67 TFLOP/s, ~28
-// GFLOP at zamba2's prefill, a ceiling near 0.4 ms).
+// Both dtypes run on the tensor cores, one block of 4 warps per (head,
+// batch row) walking 64-row chunk tiles with the state in f32 registers:
+// bf16 (ssd_scan_bf16) the kernel of ssd_tiles.cuh (bf16 operands, G and
+// x o dk as hi + lo pairs), f32 (ssd_scan_f32) the kernel of
+// ssd_tiles_f32.cuh (every product in 3xTF32, so y and h_final keep f32's
+// accuracy); each header gives its design.  The f32 kernel replaces a
+// CUDA-core loop (16 x 16 threads a block, 4 x 4 register tiles of fmaf fed
+// from shared memory) that ran at 18% of the CUDA cores' bound.
 //
-// Design of the f32 kernel: one block of 16 x 16 threads per (batch row,
-// head) walks the chunks in order — the loop that replaces Pallas's
-// sequential third grid axis.  Per chunk it stages x [Q,P], B and C [Q,N]
-// in shared memory (rows padded to N + 1 floats: no bank conflicts), scans
-// la with warp shuffles, then each thread computes 4 x 4 outputs of each
-// product (rows ty + 16 r, columns tx + 16 c).  The 16 x 16 tiles wholly
-// above the diagonal of C.B^T are skipped, in that product and in (C.B^T
-// o decay) x.  The state stays in shared memory, each entry updated by the
-// one thread that owns it once y has read it.
+// What bounds the f32 kernel on an H100: at zamba2's prefill (B = 8, T =
+// 1024, 112 heads, P = N = 64) a call moves ~0.49 GB, x and y dominating
+// (0.147 ms at 3.35 TB/s), and its needed products are ~23 GFLOP, ~68 in
+// 3xTF32 (0.135 ms at 494.7 TFLOP/s): the bytes and the products bound it
+// about equally.  The design reaches neither.  With mma.sync (not wgmma)
+// each product comes with its fragment loads from shared memory and its
+// hi/lo splits; a block keeps one chunk in flight and waits at two
+// barriers a chunk for the warp with the most of the causal triangle
+// (warp 3's G.x takes 8 steps, warp 0's 2); 115,712 bytes of shared
+// memory leave 2 blocks an SM, so the 896 blocks of a prefill fill the
+// card's 264 slots in 3.4 waves.  PERF.md has its measurements.
 //
 // Layouts (the model's, no transposes around the launch):
-//   x, y [B, T, H, P] (T = x's type)   la [B, T, H] f32 (<= 0)
+//   x, y [B, T, H, P] (x's type)   la [B, T, H] f32 (<= 0)
 //   Bc, Cc [B, T, N] (x's type, shared by all heads)
 //   h0 [B, H, P, N] f32 or null (zeros)   h_out [B, H, P, N] f32
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "ssd_tiles.cuh"
-
-namespace {
-
-constexpr int TX = 16;                  // threads per block row and column
-constexpr int THREADS = TX * TX;
-constexpr int R = 4;                    // outputs per thread along each axis
-constexpr int MAX_DIM = TX * R;         // 64: the largest Q, P and N
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// Dynamic shared memory of one block, in floats.
-inline size_t smem_floats(int Q, int P, int N) {
-  return size_t(P) * (N + 1)            // h   [P][N+1]
-         + size_t(Q) * P                // x   [Q][P]
-         + 2 * size_t(Q) * (N + 1)      // B, C [Q][N+1]
-         + size_t(Q) * (Q + 1)          // G   [Q][Q+1]: (C.B^T o decay), lower
-         + 3 * size_t(Q);               // L, exp(L), exp(L_last - L)
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ la,
-                const T* __restrict__ Bc, const T* __restrict__ Cc,
-                const float* __restrict__ h0, T* __restrict__ y,
-                float* __restrict__ h_out, int T_len, int H, int P, int N,
-                int Q) {
-  extern __shared__ float smem[];
-  const int NP = N + 1, QP = Q + 1;
-  float* h_s = smem;
-  float* x_s = h_s + P * NP;
-  float* b_s = x_s + Q * P;
-  float* c_s = b_s + Q * NP;
-  float* g_s = c_s + Q * NP;
-  float* L_s = g_s + Q * QP;
-  float* eL_s = L_s + Q;                 // exp(L_t)
-  float* dk_s = eL_s + Q;                // exp(L_last - L_i)
-
-  const int hd = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int lane = tid & 31, warp = tid >> 5;
-  const size_t row0 = size_t(b) * T_len;                 // (b, t = 0)
-  const size_t h_off = (size_t(b) * H + hd) * P * N;
-
-  for (int e = tid; e < P * N; e += THREADS)
-    h_s[(e / N) * NP + e % N] = h0 ? h0[h_off + e] : 0.f;
-
-  // this thread's rows and columns, clamped into range for loads (the
-  // results of clamped rows and columns are never stored)
-  int rq[R], cq[R], cp[R], cn[R], rp[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    rq[k] = min(ty + TX * k, Q - 1);
-    cq[k] = min(tx + TX * k, Q - 1);
-    cp[k] = min(tx + TX * k, P - 1);
-    cn[k] = min(tx + TX * k, N - 1);
-    rp[k] = min(ty + TX * k, P - 1);
-  }
-
-  for (int t0 = 0; t0 < T_len; t0 += Q) {
-    const int q_valid = min(Q, T_len - t0);
-    __syncthreads();                     // last chunk's state update done
-    for (int e = tid; e < Q * P; e += THREADS) {
-      const int i = e / P;
-      x_s[e] = i < q_valid ? to_f(x[((row0 + t0 + i) * H + hd) * P + e % P]) : 0.f;
-    }
-    for (int e = tid; e < Q * N; e += THREADS) {
-      const int i = e / N, n = e % N;
-      const size_t off = (row0 + t0 + i) * N + n;
-      b_s[i * NP + n] = i < q_valid ? to_f(Bc[off]) : 0.f;
-      c_s[i * NP + n] = i < q_valid ? to_f(Cc[off]) : 0.f;
-    }
-    if (warp == 0) {                     // inclusive scan of la, Q <= 64
-      float v0 = lane < q_valid ? la[(row0 + t0 + lane) * H + hd] : 0.f;
-      float v1 = lane + 32 < q_valid ? la[(row0 + t0 + lane + 32) * H + hd] : 0.f;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u0 = __shfl_up_sync(FULL, v0, o);
-        const float u1 = __shfl_up_sync(FULL, v1, o);
-        if (lane >= o) { v0 += u0; v1 += u1; }
-      }
-      v1 += __shfl_sync(FULL, v0, 31);
-      const float last = __shfl_sync(FULL, Q > 32 ? v1 : v0, (Q - 1) & 31);
-      if (lane < Q) {
-        L_s[lane] = v0; eL_s[lane] = expf(v0); dk_s[lane] = expf(last - v0);
-      }
-      if (lane + 32 < Q) {
-        L_s[lane + 32] = v1; eL_s[lane + 32] = expf(v1); dk_s[lane + 32] = expf(last - v1);
-      }
-    }
-    __syncthreads();
-
-    // 1. G[t][i] = exp(L_t - L_i) C_t . B_i for i <= t, else 0 (tiles
-    //    c <= r only: the others lie wholly above the diagonal)
-    {
-      float acc[R][R] = {};
-      for (int n = 0; n < N; ++n) {
-        float cv[R], bv[R];
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          cv[k] = c_s[rq[k] * NP + n];
-          bv[k] = b_s[cq[k] * NP + n];
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int c = 0; c <= r; ++c) acc[r][c] = fmaf(cv[r], bv[c], acc[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int t = ty + TX * r;
-#pragma unroll
-        for (int c = 0; c <= r; ++c) {
-          const int i = tx + TX * c;
-          if (t < Q && i < Q)
-            g_s[t * QP + i] = i <= t ? expf(L_s[t] - L_s[i]) * acc[r][c] : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 2. y[t][p] = exp(L_t) C_t . h[p] + sum_{i<=t} G[t][i] x[i][p]
-    {
-      float acc[R][R] = {};
-      for (int n = 0; n < N; ++n) {
-        float cv[R], hv[R];
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          cv[k] = c_s[rq[k] * NP + n];
-          hv[k] = h_s[cp[k] * NP + n];
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int c = 0; c < R; ++c) acc[r][c] = fmaf(cv[r], hv[c], acc[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float e = eL_s[rq[r]];
-#pragma unroll
-        for (int c = 0; c < R; ++c) acc[r][c] *= e;
-      }
-#pragma unroll
-      for (int ib = 0; ib < R; ++ib) {   // key tile ib feeds row tiles r >= ib
-        const int i_end = min(Q, TX * (ib + 1));
-        for (int i = TX * ib; i < i_end; ++i) {
-          float xv[R];
-#pragma unroll
-          for (int c = 0; c < R; ++c) xv[c] = x_s[i * P + cp[c]];
-#pragma unroll
-          for (int r = ib; r < R; ++r) {
-            const float g = g_s[rq[r] * QP + i];
-#pragma unroll
-            for (int c = 0; c < R; ++c) acc[r][c] = fmaf(g, xv[c], acc[r][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int t = ty + TX * r;
-        if (t >= q_valid) continue;
-        T* yr = y + ((row0 + t0 + t) * H + hd) * P;
-#pragma unroll
-        for (int c = 0; c < R; ++c) {
-          const int p = tx + TX * c;
-          if (p < P) yr[p] = from_f<T>(acc[r][c]);
-        }
-      }
-    }
-    __syncthreads();                     // every read of h done
-
-    // 3. h[p][n] = exp(L_last) h[p][n] + sum_i exp(L_last - L_i) x[i][p] B[i][n]
-    {
-      float acc[R][R] = {};
-      for (int i = 0; i < Q; ++i) {
-        const float dk = dk_s[i];
-        float xv[R], bv[R];
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          xv[k] = x_s[i * P + rp[k]] * dk;
-          bv[k] = b_s[i * NP + cn[k]];
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int c = 0; c < R; ++c) acc[r][c] = fmaf(xv[r], bv[c], acc[r][c]);
-      }
-      const float e_last = eL_s[Q - 1];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int p = ty + TX * r;
-#pragma unroll
-        for (int c = 0; c < R; ++c) {
-          const int n = tx + TX * c;
-          if (p < P && n < N) h_s[p * NP + n] = fmaf(e_last, h_s[p * NP + n], acc[r][c]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < P * N; e += THREADS)
-    h_out[h_off + e] = h_s[(e / N) * NP + e % N];
-}
-
-template <typename T>
-int run(const void* x, const void* la, const void* Bc, const void* Cc,
-        const void* h0, void* y, void* h_out, int B, int T_len, int H, int P,
-        int N, int Q, void* stream) {
-  if (Q < 1 || Q > MAX_DIM || P < 1 || P > MAX_DIM || N < 1 || N > MAX_DIM)
-    return int(cudaErrorInvalidValue);
-  const size_t smem = smem_floats(Q, P, N) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-  }
-  ssd_scan_kernel<T><<<dim3(H, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(la),
-      static_cast<const T*>(Bc), static_cast<const T*>(Cc),
-      static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(h_out), T_len, H, P, N, Q);
-  return int(cudaGetLastError());
-}
-
-}  // namespace
+#include "ssd_tiles_f32.cuh"
 
 extern "C" int ssd_scan_f32(const void* x, const void* la, const void* Bc,
                             const void* Cc, const void* h0, void* y,
                             void* h_out, int B, int T, int H, int P, int N,
                             int Q, void* stream) {
-  return run<float>(x, la, Bc, Cc, h0, y, h_out, B, T, H, P, N, Q, stream);
+  return ssd_f32::run(x, la, Bc, Cc, h0, y, h_out, B, T, H, P, N, Q, stream);
 }
 
 extern "C" int ssd_scan_bf16(const void* x, const void* la, const void* Bc,
@@ -288,3 +66,8 @@ extern "C" int ssd_scan_bf16_smem_bytes() { return int(ssd::SMEM_BYTES); }
 // Blocks of the bf16 kernel (P, N multiples of 8) resident on one SM of
 // the current device, or -1 on a CUDA error.
 extern "C" int ssd_scan_bf16_blocks_per_sm() { return ssd::blocks_per_sm(); }
+
+// The same for the f32 kernel.
+extern "C" int ssd_scan_f32_smem_bytes() { return int(ssd_f32::SMEM_BYTES); }
+
+extern "C" int ssd_scan_f32_blocks_per_sm() { return ssd_f32::blocks_per_sm(); }

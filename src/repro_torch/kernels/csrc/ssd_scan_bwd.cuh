@@ -14,11 +14,11 @@
 namespace ssd_bwd {
 
 using tc::bf16;
+using tf32::warp_mma;   // the products, in chains of tf32::CHAIN steps
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int TILE = 64;                 // steps a chunk tile; the largest Q, P, N
-constexpr int CHAIN = 4;                 // steps an mma.sync chain sums
 constexpr int SR = TILE + 4;             // row stride of x, dy, B, C and dh
 constexpr int ST = TILE + 8;             // row stride of h and of pass 1's tiles
 constexpr unsigned FULL = 0xffffffffu;
@@ -32,74 +32,6 @@ constexpr size_t CHUNKS_SMEM = sizeof(float) * (5 * TILE * SR + TILE * ST + 7 * 
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-// v as an mma.sync operand: hi (+ lo) unless it is EXACT in TF32 already.
-template <bool EXACT>
-__device__ __forceinline__ void operand(float v, uint32_t& hi, uint32_t& lo) {
-  if constexpr (EXACT) {
-    hi = __float_as_uint(v);
-    lo = 0u;
-  } else {
-    tf32::split_fast(v, hi, lo);
-  }
-}
-
-// acc[i] += A.B for the NF n fragments i over the 8-wide steps kk in
-// [k_lo, k_hi) (<= 8): the steps in chains of CHAIN summed by mma.sync in
-// fresh accumulators and added to acc by the CUDA cores.  fa(kk, a) gives
-// this thread's A fragment of step kk as f32, fb(kk, i, b) its B fragment
-// of step kk and n fragment i; AX / BX: that operand is exact in TF32 (its
-// lo terms are skipped).  Step kk + 1's fragments are loaded while step
-// kk's products run, and each pass of a step runs over all the n
-// fragments before the next, so no mma.sync waits on the one before it.
-// Every n fragment is computed (tiles are zero past P, N and the chunk),
-// so no run-time test stands between the mma.syncs, and the steps loop
-// at run time, which keeps the kernel small enough for the instruction
-// cache (unrolled, its ten products were not).
-template <int NF, bool AX, bool BX, typename FA, typename FB>
-__device__ __forceinline__ void warp_mma(float (&acc)[NF][4], int k_lo, int k_hi, FA fa, FB fb) {
-  if (k_lo >= k_hi) return;
-  float ra[4], rb[NF][2];
-  fa(k_lo, ra);
-#pragma unroll
-  for (int i = 0; i < NF; ++i) fb(k_lo, i, rb[i]);
-#pragma unroll 1
-  for (int k0 = k_lo; k0 < k_hi; k0 += CHAIN) {
-    float part[NF][4];
-#pragma unroll
-    for (int i = 0; i < NF; ++i) part[i][0] = part[i][1] = part[i][2] = part[i][3] = 0.f;
-    const int k1 = min(k0 + CHAIN, k_hi);
-#pragma unroll 1
-    for (int kk = k0; kk < k1; ++kk) {
-      uint32_t ah[4], al[4], bh[NF][2], bl[NF][2];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) operand<AX>(ra[e], ah[e], al[e]);
-#pragma unroll
-      for (int i = 0; i < NF; ++i) {
-        operand<BX>(rb[i][0], bh[i][0], bl[i][0]);
-        operand<BX>(rb[i][1], bh[i][1], bl[i][1]);
-      }
-      const int knext = min(kk + 1, k_hi - 1);   // the last step loads itself again
-      fa(knext, ra);
-#pragma unroll
-      for (int i = 0; i < NF; ++i) fb(knext, i, rb[i]);
-      if constexpr (!AX) {
-#pragma unroll
-        for (int i = 0; i < NF; ++i) tf32::mma(part[i], al, bh[i][0], bh[i][1]);
-      }
-      if constexpr (!BX) {
-#pragma unroll
-        for (int i = 0; i < NF; ++i) tf32::mma(part[i], ah, bl[i][0], bl[i][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < NF; ++i) tf32::mma(part[i], ah, bh[i][0], bh[i][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < NF; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] += part[i][e];
-  }
-}
 
 __device__ __forceinline__ void zero(float (&acc)[8][4]) {
 #pragma unroll

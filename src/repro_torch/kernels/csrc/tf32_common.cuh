@@ -1,6 +1,8 @@
-// Device helpers of K2's f32 tensor-core kernel (flash_attention.cu):
-// products in 3xTF32 on mma.sync.m16n8k8, and the online softmax over
-// key tiles of any multiple of 8 keys.
+// Device helpers of the f32 tensor-core kernels: products in 3xTF32 on
+// mma.sync.m16n8k8, the online softmax over key tiles of any multiple of
+// 8 keys (K2's flash_attention.cu, K1/K3's paged_tiles_f32.cuh), and
+// warp_mma, a warp's product in chains of CHAIN steps (K4's
+// ssd_tiles_f32.cuh and ssd_scan_bwd.cuh).
 //
 // 3xTF32: the tensor cores read only the top 19 bits (sign, 8 exponent,
 // 10 mantissa) of a 32-bit operand, so each f32 operand x is split
@@ -111,6 +113,76 @@ __device__ __forceinline__ void mma3_x4(float (&c)[4][4], int n, const uint32_t 
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     if (i < n) mma(c[i], a_hi, b_hi[i][0], b_hi[i][1]);
+}
+
+constexpr int CHAIN = 4;  // steps an mma.sync chain sums (warp_mma)
+
+// v as an mma.sync operand: hi (+ lo) unless it is EXACT in TF32 already.
+template <bool EXACT>
+__device__ __forceinline__ void operand(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (EXACT) {
+    hi = __float_as_uint(v);
+    lo = 0u;
+  } else {
+    split_fast(v, hi, lo);
+  }
+}
+
+// acc[i] += A.B for the NF n fragments i over the 8-wide steps kk in
+// [k_lo, k_hi) (<= 8): the steps in chains of CHAIN summed by mma.sync in
+// fresh accumulators and added to acc by the CUDA cores.  fa(kk, a) gives
+// this thread's A fragment of step kk as f32, fb(kk, i, b) its B fragment
+// of step kk and n fragment i; AX / BX: that operand is exact in TF32 (its
+// lo terms are skipped).  Step kk + 1's fragments are loaded while step
+// kk's products run, and each pass of a step runs over all the n
+// fragments before the next, so no mma.sync waits on the one before it.
+// Every n fragment is computed (tiles are zero past P, N and the chunk),
+// so no run-time test stands between the mma.syncs, and the steps loop
+// at run time, which keeps the kernel small enough for the instruction
+// cache (unrolled, K4's backward's ten products were not).
+template <int NF, bool AX, bool BX, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NF][4], int k_lo, int k_hi, FA fa, FB fb) {
+  if (k_lo >= k_hi) return;
+  float ra[4], rb[NF][2];
+  fa(k_lo, ra);
+#pragma unroll
+  for (int i = 0; i < NF; ++i) fb(k_lo, i, rb[i]);
+#pragma unroll 1
+  for (int k0 = k_lo; k0 < k_hi; k0 += CHAIN) {
+    float part[NF][4];
+#pragma unroll
+    for (int i = 0; i < NF; ++i) part[i][0] = part[i][1] = part[i][2] = part[i][3] = 0.f;
+    const int k1 = min(k0 + CHAIN, k_hi);
+#pragma unroll 1
+    for (int kk = k0; kk < k1; ++kk) {
+      uint32_t ah[4], al[4], bh[NF][2], bl[NF][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) operand<AX>(ra[e], ah[e], al[e]);
+#pragma unroll
+      for (int i = 0; i < NF; ++i) {
+        operand<BX>(rb[i][0], bh[i][0], bl[i][0]);
+        operand<BX>(rb[i][1], bh[i][1], bl[i][1]);
+      }
+      const int knext = min(kk + 1, k_hi - 1);   // the last step loads itself again
+      fa(knext, ra);
+#pragma unroll
+      for (int i = 0; i < NF; ++i) fb(knext, i, rb[i]);
+      if constexpr (!AX) {
+#pragma unroll
+        for (int i = 0; i < NF; ++i) mma(part[i], al, bh[i][0], bh[i][1]);
+      }
+      if constexpr (!BX) {
+#pragma unroll
+        for (int i = 0; i < NF; ++i) mma(part[i], ah, bl[i][0], bl[i][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < NF; ++i) mma(part[i], ah, bh[i][0], bh[i][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < NF; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] += part[i][e];
+  }
 }
 
 // One key tile's softmax step for this thread's rows g and g + 8, over NJ

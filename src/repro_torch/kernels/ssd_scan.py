@@ -3,12 +3,13 @@ zamba2 prefill.
 
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/ssd_scan.py::ssd_chunk_scan``; the CUDA source is
-``csrc/ssd_scan.cu`` (f32, on the CUDA cores) and ``csrc/ssd_tiles.cuh``
-(bf16, on the tensor cores), whose header notes say what bounds them and
-how.  It computes the Pallas kernel's function and also what the model's
-oracle ``models/ssm.py::mamba2_chunk_scan`` takes: an initial state
-``h0`` and any ``T`` (the steps of a ragged last chunk add nothing and
-leave the state exact).
+``csrc/ssd_scan.cu`` (the C entries and what bounds the kernels), with
+``csrc/ssd_tiles_f32.cuh`` (f32, 3xTF32 on the tensor cores) and
+``csrc/ssd_tiles.cuh`` (bf16, on the tensor cores), whose header notes
+give their designs.  It computes the Pallas kernel's function and also
+what the model's oracle ``models/ssm.py::mamba2_chunk_scan`` takes: an
+initial state ``h0`` and any ``T`` (the steps of a ragged last chunk add
+nothing and leave the state exact).
 
 Layouts are the model's, so ``mamba2_block`` makes no transposed copies
 (the Pallas kernel took heads before time):
@@ -17,9 +18,11 @@ Layouts are the model's, so ``mamba2_block`` makes no transposed copies
   Bc/Cc  [B, T, N]      x's dtype, shared by all heads
   h0     [B, H, P, N]   f32, or None for zeros
 Returns (y [B, T, H, P] in x's dtype, h_final [B, H, P, N] f32).  The
-f32 kernel and the plain version compute in f32; the bf16 kernel feeds
-the tensor cores bf16 operands (C.B^T o decay and x o decay as hi + lo
-pairs, the state as one bf16 for C.h^T) with f32 sums and an f32 state.
+plain version computes in f32; the f32 kernel takes every product in
+3xTF32 (each operand split into TF32 hi + lo, three products summed in
+f32), which keeps f32's accuracy; the bf16 kernel feeds the tensor cores
+bf16 operands (C.B^T o decay and x o decay as hi + lo pairs, the state as
+one bf16 for C.h^T) with f32 sums and an f32 state.
 
 The backward is K4's own pair of kernels, ``csrc/ssd_scan_bwd.cuh``
 (built for f32 inputs by ``csrc/ssd_scan_bwd.cu``, for bf16 by

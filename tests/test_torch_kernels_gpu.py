@@ -539,6 +539,13 @@ def ssd_inputs(case, h0):
 def test_ssd_kernel_matches_plain(cuda, case, dtype, h0):
     """K4 against its plain version on the same inputs: y to the dtype's
     tolerance, h_final to 1e-4 in both dtypes, both finite."""
+    _check_ssd_fwd(case, dtype, h0)
+
+
+def _check_ssd_fwd(case, dtype, h0):
+    """K4's forward against its plain version on one case: one launch
+    counted, y within the dtype's tolerance and h_final within 1e-4, both
+    finite, in the plain version's dtypes."""
     dt = getattr(torch, dtype)
     x, la, Bc, Cc, h = ssd_inputs(case, h0)
     x, Bc, Cc = (a.to("cuda", dt) for a in (x, Bc, Cc))
@@ -624,6 +631,18 @@ SSD_BWD_GRID_CASES = [(2, 4, 50, 64, 64, 64, 0.1), (1, 3, 64, 64, 64, 64, 0.1),
                       (2, 4, 192, 64, 64, 64, 0.1), (1, 4, 130, 64, 64, 32, 0.1),
                       (1, 4, 200, 64, 64, 64, 4.0), (1, 3, 100, 20, 64, 64, 0.1),
                       (1, 3, 100, 64, 12, 50, 0.1), (1, 2, 128, 64, 64, 64, 0.1)]
+
+
+@pytest.mark.parametrize("h0", ["zero", "random"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_BWD_GRID_CASES)
+def test_ssd_fwd_grid_edges(cuda, case, dtype, h0):
+    """K4's forward kernels (one block per head and batch row, walking the
+    chunks) at the same edges: T below and at one chunk, whole chunks, a
+    ragged last chunk at chunk 32, the strong decay, P and N not multiples
+    of 8 and grids of fewer blocks than an H100 has SMs: one launch, y and
+    h_final within tolerance of the plain version."""
+    _check_ssd_fwd(case, dtype, h0)
 
 
 @pytest.mark.parametrize("dh_final", [False, True], ids=["dh_final=None", "dh_final"])
