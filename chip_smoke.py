@@ -6,6 +6,7 @@
     python3 chip_smoke.py --train-only  # phases 1-2 and 7: build + training
     python3 chip_smoke.py --roofline-only  # phases 1-2 and 8: build + roofline
     python3 chip_smoke.py --sampling-only  # phases 1-2 and 9: build + sampled decoding
+    python3 chip_smoke.py --mesh-only   # phases 1-2 and 10: build + the mesh
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: device name and count, ``nvidia-smi`` name and power limit,
@@ -157,7 +158,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
      host ms of its CPU noise ``_gumbel_rows``), and a decode step's wall
      with all rows greedy against all rows sampled.  Last, the port's lint
      (``python -m repro_torch.analysis.lint src/repro_torch``) in a
-     subprocess, started with the run, must exit 0.
+     subprocess, started with the run, must exit 0;
+ 10. the mesh (``launch/{mesh,shardings,spmd}.py``, ``models/sharding.py``):
+     the transformer family's sharded prefill, decode and mixed steps
+     through ``launch/steps.py``'s cells with a mesh, f32, pages of 16
+     tokens.  First NCCL at world size 1 in this process (one card: NCCL
+     refuses two ranks on one device), mesh (1, 1): qwen3-0.6b at full
+     width and depth, fp pages, 16 sequences of 128-1024 prompt tokens
+     prefilled one by one, 8 greedy decode steps and 2 mixed steps (2
+     prompt streams in chunks of 128 beside the decode rows).  Then two
+     ranks as two processes on the one card over gloo (collectives staged
+     through host memory), meshes (1, 2) and (2, 1): qwen3-0.6b (8 + 4
+     heads a rank at tp = 2) with fp pages at full depth and int8 pages at
+     2 layers (below), and olmoe-1b-7b at
+     full width and 4 of its 16 layers with 32 of 64 experts a rank at
+     tp = 2, 8 sequences of 128-512 tokens each.  Every path's launch
+     counters are zeroed before it and read after; then each rank runs the
+     one-card steps on the full weights and pools over its data shard's
+     rows, fed the same tokens (the MoE's capacity then comes from the same
+     tokens).  Fatal: logits beyond 1e-5 (NCCL) or 1e-4 (gloo) of max
+     |logit|, a greedy token that differs, a rank's pages beyond 1e-5 of
+     max |value| of the one-card pool's slice, K2 and K1's (fp) or K3's
+     (int8) decode and chunk loops not launched on a rank.  int8 pages:
+     the two quantize a few K/V to codes one apart (a rounding boundary,
+     ROADMAP's "Expected"; counted), which moves logits ~1e-3 and the next
+     layer's K/V, so their logits and scales are held to 1e-2 of their
+     max, a code off by more than one is fatal, and a greedy token may
+     differ only in a near tie (the one-card step's top two logits closer
+     than the steps' logit gap; counted).
+     Logged per rank: the step walls, the collectives a step with their
+     bytes, the backend.
 
 Parts of phases 4-7 log their wall as ``time <part>: <s> s``.  The last
 three lines of standard output are the ``{"kernels": [...]}``
@@ -3396,6 +3426,307 @@ def phase_sampling(torch, lint=None):
     return dict(launches=total, steps=sum(steps.values()))
 
 
+# ------------------------------------------------------------ phase 10 ---
+# the mesh: the transformer family's sharded serving steps (tensor
+# parallel over "model", data parallel over "data", the MoE expert
+# parallel) over torch.distributed.  One card: NCCL at world size 1 in this
+# process (NCCL refuses two ranks on one device), then two ranks as two
+# processes on the one card over gloo, whose collectives are staged
+# through host memory.  A case: arch, config overrides (a cut depth), mesh
+# shapes, page type, sequences, their prompt lengths (uniform in a range).
+# int8 pages: the mesh and the one-card step each quantize their own K/V,
+# which the tensor-parallel sums move by rounding; where a value sits on a
+# rounding boundary its code flips (ROADMAP, "Expected": ~1e-3 on a
+# logit), and the flip moves the next layer's K/V by up to ~1e-3 of their
+# scale.  Past a few layers the drift compounds (the first runs of phase
+# 10 and a CPU run of the same path: at 28 layers 2% of the codes differ,
+# some by two, scales by 2.9e-3 and logits by 1.7e-3 of their max; at 2
+# layers ~1e-5 of the codes, each by one), so int8 pages run qwen3 at 2
+# layers, as phase 4's int8 check does.  There codes must lie within one
+# of the one-card pool's (those one apart counted), scales and logits
+# within MESH_INT8_TOL of their max, and a greedy token may differ only
+# where the one-card step's top two logits lie closer than the two steps'
+# logits do (a near tie, counted).
+MESH_PS, MESH_DECODE, MESH_MIXED, MESH_CHUNK, MESH_STREAMS = 16, 8, 2, 128, 2
+MESH_LOGIT_TOL = {"nccl": 1e-5, "gloo": 1e-4}      # of max |logit| of the one-card step
+MESH_PAGE_TOL = 1e-5                               # of max |page value| of the one-card pool
+MESH_INT8_TOL = 1e-2                               # int8 pages: logits and scales
+NCCL_CASES = (("qwen3-0.6b", {}, ((1, 1),), "fp", 16, (128, 1024)),)
+GLOO_SHAPES = ((1, 2), (2, 1))
+GLOO_CASES = (("qwen3-0.6b", {}, GLOO_SHAPES, "fp", 8, (128, 512)),
+              ("qwen3-0.6b", {"n_layers": 2}, GLOO_SHAPES, "int8", 8, (128, 512)),
+              ("olmoe-1b-7b", {"n_layers": 4}, GLOO_SHAPES, "fp", 8, (128, 512)))
+MESH_KERNELS = {"fp": ("flash_attention", "paged_attention_decode", "paged_attention_chunk"),
+                "int8": ("flash_attention", "paged_attention_int8_decode",
+                         "paged_attention_int8_chunk")}
+
+
+def _put(pool, kv, table_row, S, ps):
+    """Write one sequence's K or V [L, S, KV, hd] into ``pool`` (fp, or
+    int8 codes and scales) through its page-table row."""
+    import torch
+    from repro_torch.kernels.kv_int8 import q8_kv
+    t = torch.arange(S, device=kv.device)
+    pg, off = table_row.long()[t // ps], t % ps
+    if isinstance(pool, dict):
+        pool["q"][:, pg, off], pool["s"][:, pg, off] = q8_kv(kv)
+    else:
+        pool[:, pg, off] = kv
+
+
+def _mesh_pool(torch, shape, int8):
+    from repro_torch.kernels.kv_int8 import SCALE_FLOOR
+    if not int8:
+        return torch.zeros(shape, device="cuda")
+    return {"q": torch.zeros(shape, dtype=torch.int8, device="cuda"),
+            "s": torch.full(shape[:-1] + (1,), SCALE_FLOOR, device="cuda")}
+
+
+def _logit_gap(a, b, vocab):
+    a, b = a[..., :vocab].double(), b[..., :vocab].double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def mesh_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
+    """One mesh path on this rank: prefill (K2), MESH_DECODE greedy decode
+    steps and MESH_MIXED mixed steps (MESH_STREAMS prompt streams in
+    chunks of MESH_CHUNK) through ``launch/steps.py``'s sharded cells, f32,
+    launch counters zeroed before and read after; then the one-card
+    steps on the full weights and pools, on this rank's data shard's rows
+    fed the same tokens (for the MoE at data > 1 each shard's capacity
+    comes from its own rows, as the mesh's).  Fatal: logits beyond
+    ``MESH_LOGIT_TOL`` of max |logit|, a greedy token that differs, the
+    rank's pages beyond ``MESH_PAGE_TOL`` of the one-card pool's slice, a
+    kernel of the path not launched; int8 pages as the header of this
+    phase says (``MESH_INT8_TOL``, codes within one, near ties)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.kv_int8 import fake_quant_kv
+    from repro_torch.launch import steps
+    from repro_torch.launch.shardings import param_pspecs, shard_params
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    cfg = replace(get_config(arch), **over)
+    policy = sharding.Policy(sharding.make_rules(), mesh)
+    nd, tp, d, m = policy.size("data"), policy.tp, policy.index("data"), policy.index("model")
+    int8, ps = pages == "int8", MESH_PS
+    label = (f"mesh {backend} {nd}x{tp} {arch}" + (f" {cfg.n_layers} layers" if over else "")
+             + f" {pages} rank {torch.distributed.get_rank()}")
+    cells = dict(prefill=steps.build_prefill(arch, mesh=mesh, cfg=cfg),
+                 decode=steps.build_decode(arch, mesh=mesh, cfg=cfg,
+                                           scheme="kv8" if int8 else "baseline"),
+                 mixed=steps.build_mixed(arch, mesh=mesh, cfg=cfg,
+                                         scheme="kv8" if int8 else "baseline"))
+    full = get_model(arch, cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                                     torch.float32, "cuda", tp=tp)
+    local = shard_params(full, param_pspecs(full, cfg, tp=tp), policy)
+    fq = fake_quant_kv if int8 else None
+
+    rs = np.random.RandomState(1)
+    lens = rs.randint(len_range[0], len_range[1] + 1, size=n_seqs)
+    prompts = [rs.randint(2, cfg.vocab_size, size=n) for n in lens]
+    streams = torch.as_tensor(rs.randint(2, cfg.vocab_size, (MESH_STREAMS, MESH_CHUNK * MESH_MIXED)),
+                              device="cuda")
+    pmax = -(-(len_range[1] + MESH_DECODE + MESH_MIXED) // ps)
+    spages = -(-MESH_CHUNK * MESH_MIXED // ps)
+    b_loc, p_loc = n_seqs // nd, MESH_STREAMS // nd
+    n_loc = b_loc * pmax + p_loc * spages + 1         # + the shard's trash page
+    ar = torch.arange
+    seq_table = torch.cat([dd * n_loc + ar(b_loc * pmax).reshape(b_loc, pmax)
+                           for dd in range(nd)]).to("cuda", torch.int32)
+    stream_table = torch.cat([dd * n_loc + b_loc * pmax + ar(p_loc * spages).reshape(p_loc, spages)
+                              for dd in range(nd)]).to("cuda", torch.int32)
+    rows, srows = range(d * b_loc, (d + 1) * b_loc), slice(d * p_loc, (d + 1) * p_loc)
+    bt, st = seq_table[d * b_loc:(d + 1) * b_loc], stream_table[srows]
+    lens_t = torch.as_tensor(lens[d * b_loc:(d + 1) * b_loc], device="cuda", dtype=torch.int32)
+    _, KV_p, _, _, _ = T.gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
+    kvl = KV_p // tp
+
+    def mixed_batch(step, tok):
+        c = MESH_CHUNK
+        return dict(p_tokens=streams[srows, step * c:(step + 1) * c].to(torch.int32), p_table=st,
+                    p_start=torch.full((p_loc,), step * c, device="cuda", dtype=torch.int32),
+                    p_lens=torch.full((p_loc,), c, device="cuda", dtype=torch.int32),
+                    d_tokens=tok.to(torch.int32), d_table=bt,
+                    d_lens=lens_t + MESH_DECODE + step,
+                    d_active=torch.ones(b_loc, dtype=torch.bool, device="cuda"))
+
+    # --- the mesh path: launch counters zeroed just before, read just after
+    pool_shape = (cfg.n_layers, n_loc, ps, kvl, cfg.head_dim)
+    kp, vp = _mesh_pool(torch, pool_shape, int8), _mesh_pool(torch, pool_shape, int8)
+    rec = dict(prefill=[], decode=[], mixed=[], tokens=[])
+    walls = dict(prefill=[], decode=[], mixed=[])
+    coll = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        zero_launches()
+        c0 = dict(sharding.counts)
+        for j, i in enumerate(rows):
+            t0 = time.perf_counter()
+            lg, (k, v) = cells["prefill"]["fn"](local, torch.as_tensor(prompts[i], device="cuda")[None],
+                                                kv_fake_quant=fq)
+            _put(kp, k[:, 0], bt[j] % n_loc, int(lens[i]), ps)     # pool-local page ids
+            _put(vp, v[:, 0], bt[j] % n_loc, int(lens[i]), ps)
+            torch.cuda.synchronize()
+            walls["prefill"].append(time.perf_counter() - t0)
+            rec["prefill"].append(lg[0])
+        c1 = dict(sharding.counts)
+        tok = torch.stack(rec["prefill"])[:, :cfg.vocab_size].argmax(-1)
+        for step in range(MESH_DECODE):
+            rec["tokens"].append(tok)
+            t0 = time.perf_counter()
+            lg, _ = cells["decode"]["fn"](local, tok.to(torch.int32), kp, vp, bt, lens_t + step)
+            tok = lg[:, :cfg.vocab_size].argmax(-1)
+            torch.cuda.synchronize()
+            walls["decode"].append(time.perf_counter() - t0)
+            rec["decode"].append(lg)
+        c2 = dict(sharding.counts)
+        for step in range(MESH_MIXED):
+            rec["tokens"].append(tok)
+            t0 = time.perf_counter()
+            pl, dl, _ = cells["mixed"]["fn"](local, mixed_batch(step, tok), kp, vp)
+            tok = dl[:, :cfg.vocab_size].argmax(-1)
+            torch.cuda.synchronize()
+            walls["mixed"].append(time.perf_counter() - t0)
+            rec["mixed"].append((pl, dl))
+        launches = read_launches()
+        c3 = dict(sharding.counts)
+    for name, (a, b, n) in dict(prefill=(c0, c1, b_loc), decode=(c1, c2, MESH_DECODE),
+                                mixed=(c2, c3, MESH_MIXED)).items():
+        coll[name] = {k: (b.get(k, 0) - a.get(k, 0)) / n for k in b}
+    missing = [k for k in MESH_KERNELS[pages] if not launches[k]]
+    if missing:
+        fail(f"phase 10 {label}: {missing} not launched: {launches}")
+    del local
+
+    # --- the one-card steps on this rank's rows, fed the mesh's tokens
+    tol = MESH_INT8_TOL if int8 else MESH_LOGIT_TOL[backend]
+    gaps = dict(prefill=0.0, decode=0.0, mixed=0.0)
+    near_ties = []
+    n_glob = nd * n_loc
+    gk = _mesh_pool(torch, (cfg.n_layers, n_glob, ps, KV_p, cfg.head_dim), int8)
+    gv = _mesh_pool(torch, (cfg.n_layers, n_glob, ps, KV_p, cfg.head_dim), int8)
+
+    def check(kind, step, got, want):
+        gap = _logit_gap(got, want, cfg.vocab_size)
+        gaps[kind] = max(gaps[kind], gap)
+        if gap > tol:
+            fail(f"phase 10 {label}: {kind} step {step} logits {gap:.3e} of max |logit| "
+                 f"from the one-card step (tolerance {tol})")
+        g, w = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
+        for r in (g.argmax(-1) != w.argmax(-1)).nonzero().flatten().tolist():
+            top2 = w[r].double().topk(2).values
+            margin = float((top2[0] - top2[1]) / w.abs().max())
+            if not int8 or margin > gap:
+                fail(f"phase 10 {label}: {kind} step {step} row {r}: greedy token differs from "
+                     f"the one-card step's (its top-2 margin {margin:.3e}, logit gap {gap:.3e})")
+            near_ties.append(dict(kind=kind, step=step, row=r, margin=margin, gap=gap))
+
+    with torch.inference_mode():
+        for j, i in enumerate(rows):
+            lg, (k, v) = T.prefill(full, cfg, torch.as_tensor(prompts[i], device="cuda")[None],
+                                   kv_fake_quant=fq)
+            _put(gk, k[:, 0], bt[j], int(lens[i]), ps)
+            _put(gv, v[:, 0], bt[j], int(lens[i]), ps)
+            check("prefill", j, rec["prefill"][j], lg[0])
+        for step in range(MESH_DECODE):
+            lg, _ = T.decode(full, cfg, rec["tokens"][step].to(torch.int32), gk, gv, bt, lens_t + step)
+            check("decode", step, rec["decode"][step], lg)
+        for step in range(MESH_MIXED):
+            pl, dl, _ = T.mixed(full, cfg, mixed_batch(step, rec["tokens"][MESH_DECODE + step]), gk, gv)
+            check("mixed", step, rec["mixed"][step][0], pl)
+            check("mixed", step, rec["mixed"][step][1], dl)
+    keep = torch.arange(n_loc - 1, device="cuda")              # all but the trash page
+    flips, page_gap = 0, 0.0
+    for mine, glob in ((kp, gk), (vp, gv)):
+        def part(pool):
+            return pool[:, d * n_loc:(d + 1) * n_loc][:, keep][:, :, :, m * kvl:(m + 1) * kvl]
+        if int8:
+            diff = (mine["q"][:, keep].int() - part(glob["q"]).int()).abs()
+            flips += int((diff == 1).sum())
+            if int(diff.max()) > 1:
+                fail(f"phase 10 {label}: an int8 page code differs by {int(diff.max())}")
+            mine, glob = mine["s"], glob["s"]
+        want = part(glob).double()
+        gap = float((mine[:, keep].double() - want).abs().max() / want.abs().max())
+        page_gap = max(page_gap, gap)
+        if gap > (MESH_INT8_TOL if int8 else MESH_PAGE_TOL):
+            fail(f"phase 10 {label}: pages {gap:.3e} of max |value| from the one-card pool")
+    del full, gk, gv
+    res = dict(label=label, backend=backend, mesh=[nd, tp], rank=torch.distributed.get_rank(),
+               arch=arch, n_layers=cfg.n_layers, pages=pages, rows=b_loc, streams=p_loc,
+               prompt_lens=[int(lens[i]) for i in rows], launches=launches,
+               steps=b_loc + MESH_DECODE + MESH_MIXED, logit_gap=gaps, page_gap=page_gap,
+               int8_flips=flips, int8_near_ties=near_ties, prefill_wall_s=walls["prefill"],
+               decode_wall_s=walls["decode"], mixed_wall_s=walls["mixed"],
+               collectives_a_step=coll,
+               note="collectives staged through host (gloo)" if backend == "gloo" else
+               "NCCL at world size 1")
+    log(f"phase 10 {json.dumps(res)}")
+    return res
+
+
+def mesh_rank(rank, world, init, out_dir):
+    """One of phase 10's gloo ranks on the one card: every ``GLOO_CASES``
+    case, its results to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        results = []
+        meshes = {shape: make_mesh(shape, device_type="cuda", backend="gloo")
+                  for shape in GLOO_SHAPES}
+        for arch, over, shapes, pages, n, len_range in GLOO_CASES:
+            for shape in shapes:
+                results.append(mesh_case(torch, meshes[shape], "gloo", arch, over, pages, n,
+                                         len_range))
+                gc.collect()
+                torch.cuda.empty_cache()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(results))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(torch):
+    """Phase 10: NCCL at one rank in this process, then two gloo ranks
+    spawned on the card.  Returns each rank's path (label -> launches and
+    steps) for the kernels line."""
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    from repro_torch.launch.mesh import make_mesh
+    results = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv", rank=0, world_size=1)
+        try:
+            for arch, over, shapes, pages, n, len_range in NCCL_CASES:
+                for shape in shapes:
+                    results.append(mesh_case(torch, make_mesh(shape), "nccl", arch, over, pages,
+                                             n, len_range))
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"time phase 10 nccl: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.spawn(mesh_rank, args=(2, f"file://{tmp}/rdv", tmp), nprocs=2, join=True)
+        except ProcessException as e:            # a rank's failure fails the run
+            fail(f"phase 10: a gloo rank failed: {e}")
+        for r in range(2):
+            results += json.loads(Path(tmp, f"rank{r}.json").read_text())
+    log(f"time phase 10 gloo (two ranks on the card): {time.perf_counter() - t1:.1f} s")
+    return {r["label"]: r for r in results}
+
+
 # ------------------------------------------------------------------ main ---
 KERNELS = {
     "paged_attention": dict(
@@ -3474,6 +3805,8 @@ def main() -> int:
                     help="build, then the roofline phase only (phases 1, 2 and 8)")
     ap.add_argument("--sampling-only", action="store_true",
                     help="build, then the sampled-decoding phase only (phases 1, 2 and 9)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, then the mesh phase only (phases 1, 2 and 10)")
     ap.add_argument("--train-determinism", metavar="DIR",
                     help=argparse.SUPPRESS)   # phase 7's subprocess (train_determinism)
     args = ap.parse_args()
@@ -3492,7 +3825,8 @@ def main() -> int:
         train_determinism(torch, Path(args.train_determinism))
         return 0
     t_start = time.perf_counter()
-    full = not (args.quick or args.train_only or args.roofline_only or args.sampling_only)
+    full = not (args.quick or args.train_only or args.roofline_only or args.sampling_only
+                or args.mesh_only)
     import os
     # work that needs neither the kernels nor the card starts now, beside
     # the build and phase 3: phase 4's CPU sides and the lint
@@ -3529,6 +3863,10 @@ def main() -> int:
     if args.sampling_only:
         phase_sampling(torch)
         log(f"sampling-only run passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.mesh_only:
+        phase_mesh(torch)
+        log(f"mesh-only run passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
     # 3. kernels against their plain versions
@@ -3604,6 +3942,12 @@ def main() -> int:
     # 9. sampled decoding
     paths["qwen3 f32 sampled"] = phase_sampling(torch, lint)
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 10. the mesh, with the earlier phases' models released
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(phase_mesh(torch))
+    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, meta in KERNELS.items():

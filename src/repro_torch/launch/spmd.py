@@ -1,0 +1,130 @@
+"""The mesh path's attention and MoE hooks: the counterparts of the
+reference's ``shard_map`` islands.
+
+The reference runs two ops in ``shard_map`` islands because GSPMD
+cannot partition them well: paged attention with its page writes (a
+data-dependent scatter/gather) and MoE dispatch (a data-dependent
+scatter, formulated as expert-local compute + ONE psum over `model`).
+In the port's local-shard idiom (``models/sharding.py``) every op runs
+on per-rank local arrays, so the islands become hooks over the rank's
+own shards:
+
+1. ``make_sharded_decode_attn`` / ``make_sharded_chunk_attn``: the
+   ``attn_fn`` of ``models/transformer.py``'s ``decode`` and ``mixed``.
+   They attend over the rank's local pool, K1 on fp pools and K3 on int8
+   ``{"q", "s"}`` pools (``kernels/kv_int8.py``), on ``H_p/tp`` query and
+   ``KV_p/tp`` KV heads (G unchanged).  Locality invariant, as the
+   reference's: a sequence's pages live on its data shard, and block
+   tables hold global page ids that ``local_table`` maps to pool-local
+   ones with ``% N_local`` (the last local page is the shard's trash
+   page); the model's page writes use that same table.
+2. ``make_sharded_moe_fn``: expert-parallel (EP, ``E % tp == 0``: each
+   rank owns ``E/tp`` experts, ``expert_offset`` its first) or expert
+   tensor-parallel (d_ff sliced) dispatch over the rank's tokens, then
+   one ``all_reduce`` of ``y`` over `model`.  Capacity comes from the
+   local token count: the rank's data shard's tokens.  Every model rank
+   routes the same tokens over the full router, so the reference's mean
+   of ``aux`` over `model` is the local value and needs no collective.
+
+In the mixed step the reference splits the concatenated ``[prefill;
+decode]`` token array into contiguous blocks over data, so at data > 1
+its MoE capacity groups straddle data shards' rows; the port's groups
+are each shard's own streams and decode rows (its engine pins a stream
+to a shard), the one-card step on that shard's rows.  The two agree
+wherever no expert overflows.
+
+Not ported yet (ROADMAP queue 1): the decode ``2d`` scheme (``flat_f``:
+expert d_ff sharded over every axis, tokens replicated), replicated
+decode batches (``shard_batch=False`` over data > 1) and the training
+profile's FSDP weight gather (``fsdp_gather``).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import act_fn
+from repro_torch.models.moe import moe_apply
+from repro_torch.models.sharding import Policy, all_reduce, make_rules
+
+
+def _policy(mesh, data, model):
+    if model not in mesh.mesh_dim_names or not set(data) <= set(mesh.mesh_dim_names):
+        raise ValueError(f"mesh axes {mesh.mesh_dim_names} lack {data} or {model!r}")
+    return Policy(make_rules(tuple(data), model), mesh)
+
+
+class ShardedPagedAttention:
+    """``ops.paged_attention``'s signature over one layer of the rank's
+    local pool (K1 for fp pages, K3 for int8), given pool-local tables."""
+
+    def __init__(self, kv_int8: bool):
+        self.kv_int8 = kv_int8
+
+    @staticmethod
+    def local_table(block_table, pages):
+        """Global page ids -> ids in the rank's pool of N_local pages."""
+        codes = pages["q"] if isinstance(pages, dict) else pages
+        return block_table % codes.shape[1]
+
+    def __call__(self, q, kpg, vpg, block_table, kv_lens, q_pos, *, scale,
+                 window=None, softcap=None):
+        if isinstance(kpg, dict) != self.kv_int8:
+            raise TypeError(f"hook built with kv_int8={self.kv_int8} got "
+                            f"{'int8' if isinstance(kpg, dict) else 'fp'} pages")
+        kw = dict(scale=scale, window=window, softcap=softcap)
+        if self.kv_int8:
+            return ops.paged_attention_int8(q, kpg["q"], kpg["s"], vpg["q"], vpg["s"],
+                                            block_table, kv_lens, q_pos, **kw)
+        return ops.paged_attention(q, kpg, vpg, block_table, kv_lens, q_pos, **kw)
+
+
+def make_sharded_decode_attn(mesh, *, data=("data",), model="model",
+                             shard_batch=True, kv_int8=False):
+    """The decode step's ``attn_fn`` on the rank's local pool.
+
+    shard_batch=False is the reference's replicated decode batch with
+    pages sharded over data (its single-sequence long-context layout);
+    the port has it only where the data axis has one rank."""
+    policy = _policy(mesh, data, model)
+    if not shard_batch and policy.size(tuple(data)) > 1:
+        raise NotImplementedError(
+            "a decode batch replicated over data > 1 (shard_batch=False) is not "
+            "ported: ROADMAP queue 1, item 17 (the decode 2d scheme)")
+    return ShardedPagedAttention(kv_int8)
+
+
+def make_sharded_chunk_attn(mesh, *, data=("data",), model="model",
+                            kv_int8=False):
+    """The mixed step's chunk ``attn_fn``: chunked-prefill attention over
+    the rank's local pool (streams shard over data)."""
+    _policy(mesh, data, model)
+    return ShardedPagedAttention(kv_int8)
+
+
+def make_sharded_moe_fn(mesh, cfg, *, tp: int, data=("data",), model="model",
+                        flat_f=False, fsdp_gather=False):
+    """EP/expert-TP MoE: local dispatch + expert GEMMs + one all_reduce.
+    ``lp`` holds the rank's expert slices (``launch/shardings.py``)."""
+    if flat_f:
+        raise NotImplementedError(
+            "the decode 2d scheme (flat_f: expert d_ff over every axis) is not "
+            "ported: ROADMAP queue 1, item 17")
+    if fsdp_gather:
+        raise NotImplementedError(
+            "the training profile's FSDP expert gather (fsdp_gather) is not "
+            "ported: ROADMAP queue 1, item 16 (training with TP + FSDP)")
+    policy = _policy(mesh, data, model)
+    if policy.size(model) != tp:
+        raise ValueError(f"tp={tp} but the mesh's {model!r} axis has "
+                         f"{policy.size(model)} ranks")
+    E = cfg.n_experts
+    ep = E % tp == 0
+    offset = policy.index(model) * (E // tp) if ep else 0
+    gate_act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
+
+    def fn(lp, x2d):
+        y, aux = moe_apply(lp, x2d, n_experts=E, top_k=cfg.top_k, act=gate_act,
+                           expert_offset=offset,
+                           capacity_factor=cfg.moe_capacity_factor)
+        return all_reduce(y, policy, model), aux
+
+    return fn

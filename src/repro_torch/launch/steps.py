@@ -14,10 +14,19 @@ Shapes (assignment): train_4k / prefill_32k / decode_32k / long_500k,
 plus mixed_32k — the paper-representative Splitwiser fused step (16
 prompt streams x 2048-token chunks + 128 decode slots @32k).
 
-On one card there is nothing to shard: the reference's shardings,
-donation, sharding policies, expert-parallel MoE and its sharding
-schemes (``tp``, ``fsdp``, ``zero3``, ``2d``) have no counterpart.  The
-two schemes that change the work stay: the vocab-tiled loss of the train
+``build_prefill``, ``build_decode`` and ``build_mixed`` take a ``mesh``
+(``launch/mesh.py``; ``None``: one card) for the transformer family,
+dense and MoE.  With one, ``fn`` is the rank's sharded step (tensor
+parallel over `model`, data parallel over `data`, the MoE
+expert-parallel, ``launch/spmd.py``'s hooks), ``make_args`` draws this
+rank's arguments (its weight slices from the full ``tp``-padded draw, its
+data shard's rows, its local pools ``[L, N/n_data, ps, KV_p/tp, hd]``,
+whose values every rank draws alike) from the global pool of
+``_page_pool_shapes``, N holding a trash page per data shard.  ``args``
+are this rank's fake arguments.  The other families, the train step and the decode
+``2d`` scheme raise ``NotImplementedError`` for a mesh (ROADMAP queue 1).
+Donation has no counterpart (pools are written in place).  The two
+schemes that change the work stay: the vocab-tiled loss of the train
 step (``loss_impl="vtiled"``, the reference's ``+vtiled``) and int8 KV
 pages in the mixed step (``scheme="kv8"``).
 """
@@ -26,10 +35,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import TrainConfig, get_config
+from repro_torch.launch import spmd
 from repro_torch.launch.costs import fake_mode
+from repro_torch.launch.shardings import param_pspecs, shard_params
 from repro_torch.models import encdec, hybrid, rwkv, ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_model
+from repro_torch.models.sharding import Policy, make_rules
 from repro_torch.train.trainer import init_state, make_train_step
 
 PAGE = 64
@@ -63,6 +75,46 @@ def _cell(fn, make_args, note):
     with fake_mode():
         args = make_args(torch.Generator().manual_seed(0), "cpu")
     return dict(fn=fn, args=args, make_args=make_args, note=note)
+
+
+class _Shard:
+    """The mesh of a sharded cell as the cell functions use it (one card: all
+    trivial)."""
+
+    def __init__(self, model, mesh):
+        self.policy = None if mesh is None else Policy(make_rules(("data",), "model"), mesh)
+        if mesh is not None and model.cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"{model.cfg.family} ({model.name}) has no sharded step yet: "
+                "ROADMAP queue 1, item 15")
+        self.mesh, self.model = mesh, model
+        self.tp = 1 if mesh is None else self.policy.tp
+        self.n_data = 1 if mesh is None else self.policy.size("data")
+        self.kw = {} if mesh is None else dict(
+            tp=self.tp, policy=self.policy,
+            moe_fn=spmd.make_sharded_moe_fn(mesh, model.cfg, tp=self.tp)
+            if model.cfg.is_moe else None)
+
+    def params(self, g, device):
+        """The full ``tp``-padded draw, then this rank's slices of it."""
+        if self.mesh is None:
+            return self.model.init(g, BF16, device)
+        full = self.model.init(g, BF16, device, tp=self.tp)
+        return shard_params(full, param_pspecs(full, self.model.cfg, tp=self.tp),
+                            self.policy)
+
+    def rows(self, t, n=None):
+        """This rank's data shard of ``t``'s rows."""
+        n = t.shape[0] if n is None else n
+        if n % self.n_data:
+            raise ValueError(f"{n} rows do not divide over {self.n_data} data shards")
+        k = n // self.n_data
+        return t[self.policy.index("data") * k:][:k] if self.n_data > 1 else t
+
+    def local_pool(self, shape):
+        """[L, N/n_data, ps, KV_p/tp, hd] of a global pool shape."""
+        L, N, ps, KV_p, hd = shape
+        return (L, N // self.n_data, ps, KV_p // self.tp, hd)
 
 
 def _tokens(g, cfg, shape, device):
@@ -110,21 +162,25 @@ def build_train(arch, loss_impl="chunked"):
 
 
 # ---------------------------------------------------------------- prefill --
-def build_prefill(arch, shape_name="prefill_32k"):
-    model = get_model(arch)
+def build_prefill(arch, shape_name="prefill_32k", mesh=None, cfg=None):
+    """``cfg``: a config of ``arch`` to build instead of its own (a cut
+    depth).  The transformer family's ``fn`` passes keywords on to
+    ``prefill`` (``kv_fake_quant``)."""
+    model = get_model(arch, cfg)
     cfg = model.cfg
     sh = SHAPES[shape_name]
     B, S = sh["batch"], sh["seq"]
+    shard = _Shard(model, mesh)
 
     def params(g, device):
         return model.init(g, BF16, device)
 
     if cfg.family in ("dense", "moe"):
-        def fn(params, tokens):
-            return T.prefill(params, cfg, tokens)
+        def fn(params, tokens, **kw):
+            return T.prefill(params, cfg, tokens, **shard.kw, **kw)
 
         def make_args(g, device):
-            return params(g, device), _tokens(g, cfg, (B, S), device)
+            return shard.params(g, device), shard.rows(_tokens(g, cfg, (B, S), device))
     elif cfg.family == "vlm":
         def fn(params, tokens, patches):
             return T.prefill(params, cfg, tokens, patches=patches)
@@ -154,25 +210,31 @@ def build_prefill(arch, shape_name="prefill_32k"):
 
         def make_args(g, device):
             return params(g, device), _tokens(g, cfg, (B, S), device)
-    return _cell(fn, make_args, f"prefill B={B} S={S}")
+    return _cell(fn, make_args, f"prefill B={B} S={S}"
+                 + (f" mesh {tuple(mesh.shape)}" if mesh is not None else ""))
 
 
 # ----------------------------------------------------------------- decode --
-def _page_pool_shapes(cfg, n_seqs, seq, n_layers=None, extra_seqs=0):
-    """(pages shape [L,N,ps,KV_p,hd], Pmax) on one device: N holds every
-    sequence's pages and the trash page."""
-    _, KV_p, _, _, _ = T.gqa_layout(cfg.n_heads, cfg.n_kv_heads)
+def _page_pool_shapes(cfg, n_seqs, seq, n_layers=None, extra_seqs=0, tp=1,
+                      n_data=1):
+    """(pages shape [L,N,ps,KV_p,hd], Pmax). N holds every sequence's
+    pages and a trash page per data shard, and divides by n_data."""
+    _, KV_p, _, _, _ = T.gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
     L = n_layers if n_layers is not None else cfg.n_layers
     per_seq = seq // PAGE + 1
-    N = (n_seqs + extra_seqs) * per_seq + 1
+    n_raw = (n_seqs + extra_seqs) * per_seq + n_data
+    N = -(-n_raw // n_data) * n_data
     return (L, N, PAGE, KV_p, cfg.head_dim), per_seq
 
 
-def _tables(g, n_seqs, Pmax, N, device):
-    """[n_seqs, Pmax] int32 page tables over distinct pages of a pool of
-    N (the last, the trash page, in none)."""
-    pages = torch.randperm(N - 1, generator=g, device=device)[: n_seqs * Pmax]
-    return pages.reshape(n_seqs, Pmax).to(I32)
+def _tables(g, n_seqs, Pmax, N, device, n_data=1):
+    """[n_seqs, Pmax] int32 page tables of global page ids: the rows of
+    data shard d (the d-th of n_data row blocks) over distinct pages of
+    that shard's N/n_data (its last, the trash page, in none)."""
+    per, n_loc = n_seqs // n_data, N // n_data
+    tabs = [torch.randperm(n_loc - 1, generator=g, device=device)[: per * Pmax] + d * n_loc
+            for d in range(n_data)]
+    return torch.cat(tabs).reshape(n_seqs, Pmax).to(I32)
 
 
 def _full(n, value, device):
@@ -183,18 +245,34 @@ def _fp_pages(g, shape, device):
     return _normal(g, shape, BF16, device), _normal(g, shape, BF16, device)
 
 
-def build_decode(arch, shape_name="decode_32k"):
+def _pages(g, shape, kv8, device):
+    """One pool of ``shape``: bf16 values, or int8 codes and f32 scales."""
+    if not kv8:
+        return _normal(g, shape, BF16, device)
+    codes = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8, device=device)
+    scales = torch.rand(shape[:-1] + (1,), generator=g, device=device) / 64
+    return {"q": codes, "s": scales}
+
+
+def build_decode(arch, shape_name="decode_32k", mesh=None, cfg=None, scheme="baseline"):
     """One decode step of B sequences, each ``seq`` tokens deep (its
-    next token at position seq - 1)."""
-    model = get_model(arch)
+    next token at position seq - 1).  scheme "kv8": the transformer
+    family over int8 KV pages; the reference's "2d" (activations
+    replicated over data) is not ported."""
+    if scheme == "2d":
+        raise NotImplementedError("the decode 2d scheme is not ported: ROADMAP "
+                                  "queue 1, item 17")
+    kv8 = scheme == "kv8"
+    model = get_model(arch, cfg)
     cfg = model.cfg
     sh = SHAPES[shape_name]
     B, S = sh["batch"], sh["seq"]
+    shard = _Shard(model, mesh)
 
     def params(g, device):
         return model.init(g, BF16, device)
 
-    if cfg.family == "ssm":                   # rwkv: state cache only
+    if cfg.family == "ssm":                   # rwkv: state cache only (one card)
         def fn(params, tokens, state):
             return rwkv.decode(params, cfg, tokens, state)
 
@@ -233,67 +311,83 @@ def build_decode(arch, shape_name="decode_32k"):
         return _cell(fn, make_args, f"decode(encdec) B={B} ctx={S}")
 
     # transformer family
-    pg_shape, Pmax = _page_pool_shapes(cfg, B, S)
+    pg_shape, Pmax = _page_pool_shapes(cfg, B, S, tp=shard.tp, n_data=shard.n_data)
+    attn = (spmd.make_sharded_decode_attn(mesh, kv_int8=kv8) if mesh is not None else None)
 
     def fn(params, tokens, kpg, vpg, bt, lens):
-        return T.decode(params, cfg, tokens, kpg, vpg, bt, lens)
+        return T.decode(params, cfg, tokens, kpg, vpg, bt, lens, attn_fn=attn, **shard.kw)
 
     def make_args(g, device):
-        return (params(g, device), _tokens(g, cfg, (B,), device),
-                *_fp_pages(g, pg_shape, device),
-                _tables(g, B, Pmax, pg_shape[1], device), _full(B, S - 1, device))
-    return _cell(fn, make_args, f"decode B={B} ctx={S} pool={pg_shape}")
+        shape = shard.local_pool(pg_shape)
+        return (shard.params(g, device), shard.rows(_tokens(g, cfg, (B,), device)),
+                _pages(g, shape, kv8, device), _pages(g, shape, kv8, device),
+                shard.rows(_tables(g, B, Pmax, pg_shape[1], device, shard.n_data)),
+                shard.rows(_full(B, S - 1, device)))
+    return _cell(fn, make_args, f"decode B={B} ctx={S} pool={pg_shape} scheme={scheme}"
+                 + (f" mesh {tuple(mesh.shape)}" if mesh is not None else ""))
 
 
 # ------------------------------------------------------------------ mixed --
-def build_mixed(arch, shape_name="mixed_32k", scheme="baseline"):
+def build_mixed(arch, shape_name="mixed_32k", scheme="baseline", mesh=None, cfg=None):
     """The paper-technique cell: fused chunked-prefill + decode.  Each
     prompt stream's chunk ends at position ``seq``; decode rows are
     ``seq`` tokens deep.  scheme "kv8": int8-quantized KV pages
-    ({"q": codes, "s": scales}, halving KV traffic)."""
-    model = get_model(arch)
+    ({"q": codes, "s": scales}, halving KV traffic).  On a mesh the
+    stream count is rounded up to a multiple of the data shards (one or
+    more a shard: the paper's #processes knob scaled to the mesh)."""
+    model = get_model(arch, cfg)
     cfg = model.cfg
     sh = SHAPES[shape_name]
-    B, S, C, Pstr = sh["batch"], sh["seq"], sh["chunk"], sh["streams"]
-    pg_shape, Pmax = _page_pool_shapes(cfg, B, S, extra_seqs=Pstr)
+    B, S, C = sh["batch"], sh["seq"], sh["chunk"]
+    shard = _Shard(model, mesh)
+    Pstr = -(-max(sh["streams"], shard.n_data) // shard.n_data) * shard.n_data
+    pg_shape, Pmax = _page_pool_shapes(cfg, B, S, extra_seqs=Pstr, tp=shard.tp,
+                                       n_data=shard.n_data)
     kv8 = scheme == "kv8"
+    attn = None if mesh is None else {
+        "decode": spmd.make_sharded_decode_attn(mesh, kv_int8=kv8),
+        "chunk": spmd.make_sharded_chunk_attn(mesh, kv_int8=kv8)}
 
     def fn(params, mb, kpg, vpg):
-        return T.mixed(params, cfg, mb, kpg, vpg)
+        return T.mixed(params, cfg, mb, kpg, vpg, attn_fn=attn, **shard.kw)
 
     def pages(g, device):
-        if not kv8:
-            return _normal(g, pg_shape, BF16, device)
-        codes = torch.randint(-127, 128, pg_shape, generator=g, dtype=torch.int8,
-                              device=device)
-        scales = torch.rand(pg_shape[:-1] + (1,), generator=g, device=device) / 64
-        return {"q": codes, "s": scales}
+        return _pages(g, shard.local_pool(pg_shape), kv8, device)
 
     def make_args(g, device):
-        table = _tables(g, Pstr + B, Pmax, pg_shape[1], device)   # distinct pages
-        mb = dict(p_tokens=_tokens(g, cfg, (Pstr, C), device), p_table=table[:Pstr].clone(),
+        # distinct pages; each data shard's rows: its streams, then its decode rows
+        table = _tables(g, Pstr + B, Pmax, pg_shape[1], device, shard.n_data)
+        table = table.reshape(shard.n_data, (Pstr + B) // shard.n_data, Pmax)
+        p_table = table[:, : Pstr // shard.n_data].reshape(Pstr, Pmax)
+        d_table = table[:, Pstr // shard.n_data:].reshape(B, Pmax)
+        mb = dict(p_tokens=_tokens(g, cfg, (Pstr, C), device), p_table=p_table,
                   p_start=_full(Pstr, S - C, device), p_lens=_full(Pstr, C, device),
-                  d_tokens=_tokens(g, cfg, (B,), device), d_table=table[Pstr:].clone(),
+                  d_tokens=_tokens(g, cfg, (B,), device), d_table=d_table,
                   d_lens=_full(B, S - 1, device),
                   d_active=torch.ones(B, dtype=torch.bool, device=device))
-        return model.init(g, BF16, device), mb, pages(g, device), pages(g, device)
+        mb = {k: shard.rows(v).clone() for k, v in mb.items()}
+        return shard.params(g, device), mb, pages(g, device), pages(g, device)
 
     return _cell(fn, make_args, f"mixed(Splitwiser) streams={Pstr}x{C} + decode B={B} "
-                                f"@ctx={S} scheme={scheme}")
+                                f"@ctx={S} scheme={scheme}"
+                 + (f" mesh {tuple(mesh.shape)}" if mesh is not None else ""))
 
 
-def build_cell(arch, shape_name):
+def build_cell(arch, shape_name, mesh=None):
     cfg = get_config(arch)
     ok, why = cell_supported(cfg, shape_name)
     if not ok:
         return None, why
     kind = SHAPES[shape_name]["kind"]
     if kind == "train":
+        if mesh is not None:
+            raise NotImplementedError("the sharded train step (TP + FSDP) is not "
+                                      "ported: ROADMAP queue 1, item 16")
         return build_train(arch), ""
     if kind == "prefill":
-        return build_prefill(arch, shape_name), ""
+        return build_prefill(arch, shape_name, mesh), ""
     if kind == "decode":
-        return build_decode(arch, shape_name), ""
+        return build_decode(arch, shape_name, mesh), ""
     if kind == "mixed":
-        return build_mixed(arch, shape_name), ""
+        return build_mixed(arch, shape_name, mesh=mesh), ""
     raise ValueError(kind)

@@ -12,9 +12,14 @@ A port of the reference's ``models/moe.py`` with the same semantics:
 - the same Switch-style load-balancing aux loss.
 
 The expert products are plain batched matrix products (``torch.bmm``),
-as the reference leaves them to XLA outside any Pallas kernel.  The port
-runs every expert on one device: it has no counterpart of the
-reference's expert-parallel arguments.
+as the reference leaves them to XLA outside any Pallas kernel.
+
+``moe_apply`` is written over *local* arrays, as the reference's: on a
+mesh (``launch/spmd.py::make_sharded_moe_fn``) a rank passes the expert
+weights it owns and its first expert id (``expert_offset``, EP over the
+model axis), or every expert with d_ff-sliced weights (expert tensor
+parallelism), and the caller sums the partial outputs over the model
+axis.  Capacity comes from the local token count ``T``.
 """
 from __future__ import annotations
 
@@ -27,17 +32,20 @@ from repro_torch.models.layers import dense_init
 
 
 def moe_apply(
-    lp: dict,                  # router [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D]
+    lp: dict,                  # router [D, E]; w_gate/w_up [E_loc, D, F_loc]; w_down [E_loc, F_loc, D]
     x,                         # [T, D] token activations
     *,
     n_experts: int,
     top_k: int,
     act,                       # callable activation (on gate)
+    expert_offset: int = 0,    # first expert id owned locally
     capacity_factor: float = 1.25,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y [T, D], aux load-balance loss, an f32 scalar)."""
+    """Returns (y [T, D] local partial output, aux load-balance loss, an
+    f32 scalar)."""
     T, D = x.shape
     E, K = n_experts, top_k
+    E_loc = lp["w_gate"].shape[0]
 
     probs = torch.softmax((x @ lp["router"]).float(), dim=-1)           # [T, E]
     # lax.top_k order: descending, ties to the lower index
@@ -51,14 +59,15 @@ def moe_apply(
     onehot = (flat_e[:, None] == torch.arange(E, device=x.device)[None]).to(torch.int32)
     my_pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
 
-    keep = my_pos < C
-    n_slots = E * C
-    slot = torch.where(keep, flat_e * C + my_pos,
+    local_e = flat_e - expert_offset
+    keep = (my_pos < C) & (local_e >= 0) & (local_e < E_loc)
+    n_slots = E_loc * C
+    slot = torch.where(keep, local_e * C + my_pos,
                        torch.full_like(my_pos, n_slots))                # overflow -> trash
 
     buf = torch.zeros((n_slots + 1, D), dtype=x.dtype, device=x.device)
     buf[slot] = x.repeat_interleave(K, dim=0)       # kept slots are distinct
-    h = buf[:n_slots].reshape(E, C, D)
+    h = buf[:n_slots].reshape(E_loc, C, D)
 
     g = act(torch.bmm(h, lp["w_gate"])) * torch.bmm(h, lp["w_up"])
     y_exp = torch.bmm(g, lp["w_down"]).reshape(n_slots, D)

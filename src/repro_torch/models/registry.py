@@ -30,9 +30,11 @@ class Model:
     module: Any
     cache_kind: str
 
-    def init(self, generator: torch.Generator, dtype=None, device=None):
+    def init(self, generator: torch.Generator, dtype=None, device=None, **kw):
+        """The family's ``init_params``; ``kw`` (the transformer family's
+        ``tp``) is passed on."""
         return self.module.init_params(self.cfg, generator,
-                                       dtype or torch.float32, device)
+                                       dtype or torch.float32, device, **kw)
 
     def train_logits(self, params, batch, **kw):
         return self.module.train_logits(params, self.cfg, batch, **kw)

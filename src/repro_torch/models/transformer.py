@@ -33,6 +33,21 @@ through ``ops.flash_attention_ckpt`` (K2's forward with its
 log-normalizer, a recompute backward) and carries the MoE aux loss; with
 ``remat`` each layer is a ``torch.utils.checkpoint`` region, recomputed
 in the backward (K2 then launches twice a layer and step).
+
+**On a mesh** (``prefill``, ``decode``, ``mixed`` and ``forward_hidden``
+with a ``policy`` from ``models/sharding.py``) the same code runs on
+this rank's local shards, Megatron-style: ``params`` are the rank's
+slices (``launch/shardings.py::shard_params`` of the ``tp``-padded tree),
+q/k/v and the pools hold its ``H_p/tp`` and ``KV_p/tp`` heads (k/v of a
+model with fewer KV heads than ``tp`` replicated into padded slots, as
+``gqa_layout`` says), ``wo`` and the FFN (``w_down``, or the MoE through
+``moe_fn``, ``launch/spmd.py``) are row-parallel with one ``all_reduce``
+over ``model`` each, ``embed`` is a masked lookup of the rank's vocab
+rows plus an ``all_reduce`` and ``unembed`` its logits plus an
+``all_gather``, so every rank returns the full ``Vp`` logits of its
+data shard's rows.  Batch rows and pools are the rank's data shard; the
+attention hooks (``attn_fn``) make block tables pool-local.  Nothing
+crosses the data axis.  With ``policy=None`` nothing of this runs.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ from repro_torch.models.layers import (NEG_INF, NO_WINDOW, act_fn,
                                        dense_init, head_rms_norm, mlp_apply,
                                        mlp_init, rms_norm, rope, softcap)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.sharding import all_gather, all_reduce
 
 VOCAB_PAD = 256
 
@@ -104,14 +120,15 @@ def layer_windows(cfg) -> np.ndarray:
 
 # ----------------------------------------------------------------- init ----
 def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
-                device=None):
+                device=None, tp: int = 1):
     """Random parameters with the reference's shapes and init scales
     (``transformer.py::init_params``), drawn from ``generator`` (the
     numbers differ from JAX's; tests hand both packages the same weights
-    through ``models.convert.params_from_jax``)."""
+    through ``models.convert.params_from_jax``).  ``tp`` pads the q heads
+    (``wq``/``wo``) as ``gqa_layout`` does; pad columns are zero."""
     device = resolve_device(device)
     D, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
-    H_p, KV_p, q_map, _, _ = gqa_layout(cfg.n_heads, cfg.n_kv_heads)
+    H_p, KV_p, q_map, _, _ = gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
     Vp = pad_vocab(cfg.vocab_size)
     out_scale = 1.0 / math.sqrt(2 * L)
 
@@ -176,8 +193,23 @@ def maybe_remat(fn, x, remat: bool):
 
 
 # ------------------------------------------------------------- embedding ---
-def embed(params, cfg, tokens):
-    x = params["embed"][tokens]
+def _vocab_start(table, policy):
+    """First vocab id of this rank's rows of an embedding table."""
+    return 0 if policy is None else policy.index("model") * table.shape[0]
+
+
+def embed(params, cfg, tokens, policy=None):
+    """Token rows of ``embed``; on a mesh, the rank's vocab rows masked to
+    the tokens they hold, summed over ``model``."""
+    table = params["embed"]
+    if policy is None:
+        x = table[tokens]
+    else:
+        local = tokens.long() - _vocab_start(table, policy)
+        hit = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)]
+        x = all_reduce(torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device)), policy)
     if cfg.emb_scale_by_sqrt_dim:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -191,9 +223,10 @@ def vision_prefix(params, cfg, patches):
     return h @ p["w2"]
 
 
-def unembed(params, cfg, x):
+def unembed(params, cfg, x, policy=None):
     """x [..., D] -> f32 logits [..., Vp]: the final softcap, if any, then
-    the padded vocab columns set to NEG_INF.
+    the padded vocab columns set to NEG_INF.  On a mesh each rank computes
+    its vocab columns, gathered over ``model`` in rank order.
 
     The reference asks XLA for f32 output from the product
     (``preferred_element_type``).  Here f32 weights multiply in f32; on
@@ -210,10 +243,11 @@ def unembed(params, cfg, x):
         logits = x2.float() @ table.float().t()
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
-    Vp = table.shape[0]
-    if Vp != cfg.vocab_size:
-        logits[:, cfg.vocab_size:] = NEG_INF
-    return logits.reshape(*x.shape[:-1], Vp)
+    pad = cfg.vocab_size - _vocab_start(table, policy)   # first padded local column
+    if pad < table.shape[0]:
+        logits[:, max(pad, 0):] = NEG_INF
+    logits = all_gather(logits, policy, dim=-1)
+    return logits.reshape(*x.shape[:-1], logits.shape[-1])
 
 
 # ----------------------------------------------------------- block pieces --
@@ -234,32 +268,64 @@ def _attn_scale(cfg):
     return cfg.attn_scale_override or (1.0 / math.sqrt(cfg.head_dim))
 
 
-def _head_mask(cfg, device, dtype):
-    """[H_p] 0/1 mask of padded q heads, or None when no head is padded
-    (always, at tp=1)."""
-    mask = gqa_layout(cfg.n_heads, cfg.n_kv_heads)[4]
+def _rank_slice(a, tp, policy):
+    """This rank's block of a per-head array (all of it without a policy)."""
+    if policy is None:
+        return a
+    n = len(a) // tp
+    return a[policy.index("model") * n:(policy.index("model") + 1) * n]
+
+
+def _head_mask(cfg, device, dtype, tp=1, policy=None):
+    """[H_p] (this rank's [H_p / tp] on a mesh) 0/1 mask of padded q heads,
+    or None when no head is padded (always, at tp=1)."""
+    mask = _rank_slice(gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)[4], tp, policy)
     return None if mask.all() else torch.as_tensor(mask, dtype=dtype, device=device)
 
 
-def _o_proj(cfg, lp, o, head_mask):
+def _kv_index(cfg, device, tp=1, policy=None):
+    """Indices into k/v's heads (``wk``/``wv``'s) of the padded KV heads
+    (this rank's on a mesh), or None when they are those heads as they
+    are: KV divides ``tp`` (then ``wk``/``wv`` shard along heads) or tp = 1."""
+    if policy is not None and policy.tp != tp:
+        raise ValueError(f"tp={tp} but the mesh's model axis has {policy.tp} ranks")
+    if cfg.n_kv_heads % tp == 0:
+        return None
+    kv_map = _rank_slice(gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)[3], tp, policy)
+    return torch.as_tensor(kv_map, dtype=torch.long, device=device)
+
+
+def _expand_kv(t, kv_index):
+    """k/v [..., KV, hd] -> the padded heads [..., KV_p(/tp), hd]."""
+    return t if kv_index is None else t.index_select(-2, kv_index)
+
+
+def _o_proj(cfg, lp, o, head_mask, policy=None):
     if head_mask is not None:
         o = o * head_mask[:, None]
-    return o.flatten(-2) @ lp["wo"].reshape(-1, cfg.d_model)
+    return all_reduce(o.flatten(-2) @ lp["wo"].reshape(-1, cfg.d_model), policy)
 
 
-def _ffn(cfg, lp, x2d):
+def _ffn(cfg, lp, x2d, policy=None, moe_fn=None):
     """x2d [T, D] -> (y2d [T, D], aux): the MLP (aux None), or the MoE
     over all T tokens at once (expert capacity depends on T, as in the
-    reference) with its load-balancing aux loss."""
+    reference) with its load-balancing aux loss.  On a mesh the MLP's
+    partial sums are reduced over ``model`` and the MoE is ``moe_fn``
+    (``launch/spmd.py::make_sharded_moe_fn``, which reduces them)."""
     if cfg.is_moe:
+        if moe_fn is not None:
+            return moe_fn(lp["moe"], x2d)
+        if policy is not None:
+            raise ValueError("an MoE model on a mesh needs moe_fn="
+                             "launch.spmd.make_sharded_moe_fn(...)")
         act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
         return moe_apply(lp["moe"], x2d, n_experts=cfg.n_experts,
                          top_k=cfg.top_k, act=act,
                          capacity_factor=cfg.moe_capacity_factor)
-    return mlp_apply(lp["mlp"], x2d, cfg.mlp_act), None
+    return all_reduce(mlp_apply(lp["mlp"], x2d, cfg.mlp_act), policy), None
 
 
-def _residuals(cfg, lp, x, attn_out, return_aux=False):
+def _residuals(cfg, lp, x, attn_out, return_aux=False, policy=None, moe_fn=None):
     """The rest of a block after attention: x [..., D] plus the (post-
     normed) attention output, then plus the (post-normed) FFN.  With
     ``return_aux``, (x, the FFN's aux loss or None); serving drops it."""
@@ -267,7 +333,7 @@ def _residuals(cfg, lp, x, attn_out, return_aux=False):
         attn_out = rms_norm(attn_out, lp["ln1b"], cfg.norm_eps)
     x = x + attn_out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y, aux = _ffn(cfg, lp, h2.reshape(-1, h2.shape[-1]))
+    y, aux = _ffn(cfg, lp, h2.reshape(-1, h2.shape[-1]), policy, moe_fn)
     y = y.reshape(h2.shape)
     if cfg.post_attn_norm:
         y = rms_norm(y, lp["ln2b"], cfg.norm_eps)
@@ -276,25 +342,28 @@ def _residuals(cfg, lp, x, attn_out, return_aux=False):
 
 # ------------------------------------------------------- full-seq forward --
 def _seq_block(cfg, lp, window, positions, kv_lens, head_mask, x, *,
-               attend=None, kv_fake_quant=None):
+               attend=None, kv_fake_quant=None, kv_index=None, policy=None,
+               moe_fn=None):
     """One layer on full sequences. x [B, T, D].  ``attend`` has
     ``ops.flash_attention``'s signature (None: that;
     ``ops.flash_attention_ckpt`` for training).  Returns (x, FFN aux or
-    None, k, v)."""
+    None, k, v) with k/v in the padded KV heads."""
     q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
     q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = _expand_kv(rope(k, positions, cfg.rope_theta), kv_index)
+    v = _expand_kv(v, kv_index)
     ka, va = ((k, v) if kv_fake_quant is None
               else (kv_fake_quant(k), kv_fake_quant(v)))
     attend = attend or ops.flash_attention
     o = attend(q, ka, va, kv_lens, scale=_attn_scale(cfg), causal=True,
                window=window, softcap=cfg.attn_logit_softcap)
-    x, aux = _residuals(cfg, lp, x, _o_proj(cfg, lp, o, head_mask), return_aux=True)
+    x, aux = _residuals(cfg, lp, x, _o_proj(cfg, lp, o, head_mask, policy),
+                        return_aux=True, policy=policy, moe_fn=moe_fn)
     return x, aux, k, v
 
 
 def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
-                   kv_fake_quant=None):
+                   kv_fake_quant=None, tp=1, policy=None, moe_fn=None):
     """Run the layer stack on full sequences. x [B, T, D]; positions
     [B, T] must be a per-row offset plus ``arange(T)`` (attention masks
     causally by sequence index, which is then the same as by position).
@@ -305,17 +374,20 @@ def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
     so the monolithic prefill attends to the values the chunked paths
     re-read from quantized pages.
 
-    Returns (hidden [B, T, D], (k, v) each [L, B, T, KV_p, hd] or None).
+    Returns (hidden [B, T, D], (k, v) each [L, B, T, KV_p, hd] or None;
+    on a mesh this rank's [L, B, T, KV_p / tp, hd]).
     """
     B, T, _ = x.shape
     windows = layer_windows(cfg)
-    head_mask = _head_mask(cfg, x.device, x.dtype)
+    head_mask = _head_mask(cfg, x.device, x.dtype, tp, policy)
+    kv_index = _kv_index(cfg, x.device, tp, policy)
     kv_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
     ks, vs = [], []
     for l in range(cfg.n_layers):
         x, _, k, v = _seq_block(cfg, layer_params(params["blocks"], l),
                                 int(windows[l]), positions, kv_lens, head_mask, x,
-                                kv_fake_quant=kv_fake_quant)
+                                kv_fake_quant=kv_fake_quant, kv_index=kv_index,
+                                policy=policy, moe_fn=moe_fn)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -359,20 +431,23 @@ def train_logits(params, cfg, batch, *, remat=False):
     return unembed(params, cfg, hidden), aux
 
 
-def prefill(params, cfg, tokens, *, patches=None, kv_fake_quant=None):
+def prefill(params, cfg, tokens, *, patches=None, kv_fake_quant=None, tp=1,
+            policy=None, moe_fn=None):
     """Full-prompt prefill. tokens [B, S]; for the VLM family, optional
     ``patches`` [B, Np, d_vision] become a prefix of Np positions.
 
-    Returns (last_logits [B, Vp], (k, v) each [L, B, S_tot, KV_p, hd]).
+    Returns (last_logits [B, Vp], (k, v) each [L, B, S_tot, KV_p, hd]);
+    on a mesh, the rank's rows and its KV heads.
     """
-    x = embed(params, cfg, tokens)
+    x = embed(params, cfg, tokens, policy)
     if cfg.family == "vlm" and patches is not None:
         x = torch.cat([vision_prefix(params, cfg, patches), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     hidden, kv = forward_hidden(params, cfg, x, positions, collect_kv=True,
-                                kv_fake_quant=kv_fake_quant)
-    return unembed(params, cfg, hidden[:, -1]), kv
+                                kv_fake_quant=kv_fake_quant, tp=tp,
+                                policy=policy, moe_fn=moe_fn)
+    return unembed(params, cfg, hidden[:, -1], policy), kv
 
 
 # ------------------------------------------------------------ page writes --
@@ -441,6 +516,14 @@ def _paged_attention_for(pages):
             else ops.paged_attention)
 
 
+def _pool_local(attn_fn, block_table, pages):
+    """The block table as ``attn_fn`` reads it: a mesh hook
+    (``launch/spmd.py``) makes global page ids pool-local; others read
+    it as it is.  Page writes use the same table."""
+    local = getattr(attn_fn, "local_table", None)
+    return block_table if local is None else local(block_table, pages)
+
+
 def write_kv_token(kpg, vpg, k, v, block_table, seq_lens, active=None):
     """Scatter one new token per sequence into the page pool, in place.
 
@@ -468,20 +551,22 @@ def write_kv_chunk(kpg, vpg, k, v, block_table, start, lens):
 
 # ------------------------------------------------------------------ decode -
 def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
-           active=None, attn_fn=None):
+           active=None, attn_fn=None, tp=1, policy=None, moe_fn=None):
     """One decode step. tokens [B]; pages [L, N, ps, KV_p, hd] fp or an
     int8 ``{"q", "s"}`` pool (written in place).
 
     attn_fn: a paged attention with ``ops.paged_attention``'s signature
-    over one layer's pages (default: K1 for fp pools, K3 for int8 pools).
+    over one layer's pages (default: K1 for fp pools, K3 for int8 pools;
+    on a mesh ``launch/spmd.py::make_sharded_decode_attn``).
     Returns (logits [B, Vp], (k_pages, v_pages)).
     """
     attn_fn = attn_fn or _paged_attention_for(k_pages)
     windows = layer_windows(cfg)
-    x = embed(params, cfg, tokens)                   # [B, D]
-    head_mask = _head_mask(cfg, x.device, x.dtype)
+    x = embed(params, cfg, tokens, policy)           # [B, D]
+    head_mask = _head_mask(cfg, x.device, x.dtype, tp, policy)
+    kv_index = _kv_index(cfg, x.device, tp, policy)
     # per-step index work, shared by every layer
-    bt = block_table.to(torch.int32)
+    bt = _pool_local(attn_fn, block_table.to(torch.int32), k_pages)
     pos = seq_lens.to(torch.int32)                   # next position == current len
     kv_lens = pos + 1
     dest = token_dest(bt, pos, active, *_pool_geometry(k_pages))
@@ -491,17 +576,19 @@ def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
         q = rope(q[:, None], pos[:, None], cfg.rope_theta)       # [B,1,H_p,hd]
         k = rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        _write(kpg, vpg, k, v, dest)
+        _write(kpg, vpg, _expand_kv(k, kv_index), _expand_kv(v, kv_index), dest)
         o = attn_fn(q, kpg, vpg, bt, kv_lens, pos,
                     scale=_attn_scale(cfg), window=int(windows[l]),
                     softcap=cfg.attn_logit_softcap)
-        x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o[:, 0], head_mask))
+        x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o[:, 0], head_mask, policy),
+                       policy=policy, moe_fn=moe_fn)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return unembed(params, cfg, x), (k_pages, v_pages)
+    return unembed(params, cfg, x, policy), (k_pages, v_pages)
 
 
 # ------------------------------------------------------------------- mixed -
-def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
+def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None, tp=1,
+          policy=None, moe_fn=None):
     """Splitwiser fused step: prefill chunks + decode tokens in ONE step.
 
     mb keys (tensors on the pools' device):
@@ -518,7 +605,10 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
     decode tokens; attention splits by phase.  ``attn_fn`` is an optional
     ``{"decode": fn, "chunk": fn}`` of paged attentions with
     ``ops.paged_attention``'s signature (default: K1 for fp pools, K3 for
-    int8 ``{"q", "s"}`` pools).  Pages are written in place.
+    int8 ``{"q", "s"}`` pools; on a mesh ``launch/spmd.py``'s hooks, and
+    ``mb`` holds the rank's data shard's streams and decode rows, so the
+    MoE's capacity comes from that shard's tokens).  Pages are written in
+    place.
 
     Returns (p_logits [P, Vp] at each chunk's last valid token,
              d_logits [B, Vp], (k_pages, v_pages)).
@@ -532,12 +622,14 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
     D = cfg.d_model
     ps, trash = _pool_geometry(k_pages)
 
-    x = torch.cat([embed(params, cfg, mb["p_tokens"]).reshape(P * C, D),
-                   embed(params, cfg, mb["d_tokens"])], dim=0)   # [P*C+B, D]
-    head_mask = _head_mask(cfg, x.device, x.dtype)
+    x = torch.cat([embed(params, cfg, mb["p_tokens"], policy).reshape(P * C, D),
+                   embed(params, cfg, mb["d_tokens"], policy)], dim=0)   # [P*C+B, D]
+    head_mask = _head_mask(cfg, x.device, x.dtype, tp, policy)
+    kv_index = _kv_index(cfg, x.device, tp, policy)
     # per-step index work, shared by every layer
     i32 = torch.int32
-    p_table, d_table = mb["p_table"].to(i32), mb["d_table"].to(i32)
+    p_table = _pool_local(chunk_attn, mb["p_table"].to(i32), k_pages)
+    d_table = _pool_local(decode_attn, mb["d_table"].to(i32), k_pages)
     p_start, p_lens = mb["p_start"].to(i32), mb["p_lens"].to(i32)
     d_lens = mb["d_lens"].to(i32)
     p_pos = p_start[:, None] + torch.arange(C, device=x.device, dtype=i32)[None]
@@ -549,6 +641,7 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
         lp = layer_params(params["blocks"], l)
         kpg, vpg = _layer_pages(k_pages, l), _layer_pages(v_pages, l)
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))  # shared GEMM
+        k, v = _expand_kv(k, kv_index), _expand_kv(v, kv_index)
         H_p, KV = q.shape[1], k.shape[1]
         qp, qd = q[: P * C].reshape(P, C, H_p, -1), q[P * C:][:, None]
         kp, kd = k[: P * C].reshape(P, C, KV, -1), k[P * C:]
@@ -569,20 +662,21 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None):
         o_d = decode_attn(qd, kpg, vpg, d_table, d_kv_lens, d_lens, **kw)
 
         o = torch.cat([o_p.reshape(P * C, H_p, -1), o_d[:, 0]], dim=0)
-        x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o, head_mask))  # shared GEMMs
+        x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o, head_mask, policy),  # shared GEMMs
+                       policy=policy, moe_fn=moe_fn)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     last = torch.clamp(p_lens.long() - 1, 0, C - 1)
     xp_last = x[: P * C].reshape(P, C, D)[torch.arange(P, device=x.device), last]
-    p_logits = unembed(params, cfg, xp_last)
-    d_logits = unembed(params, cfg, x[P * C:])
+    p_logits = unembed(params, cfg, xp_last, policy)
+    d_logits = unembed(params, cfg, x[P * C:], policy)
     return p_logits, d_logits, (k_pages, v_pages)
 
 
 # -------------------------------------------------------------- page utils -
 def init_pages(cfg, n_pages, page_size, dtype=torch.float32, device=None,
-               n_layers=None):
-    _, KV_p, _, _, _ = gqa_layout(cfg.n_heads, cfg.n_kv_heads)
+               n_layers=None, tp=1):
+    _, KV_p, _, _, _ = gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
     L = n_layers if n_layers is not None else cfg.n_layers
     shape = (L, n_pages, page_size, KV_p, cfg.head_dim)
     device = resolve_device(device)

@@ -198,3 +198,25 @@ print("clean")
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_mesh_modules_load_no_jax_or_reference_module():
+    """The mesh path's four modules (``launch/{mesh,shardings,spmd}.py``,
+    ``models/sharding.py``) in a fresh interpreter: nothing of JAX or the
+    reference is loaded and no environment variable is set."""
+    code = """
+import os, sys
+env = dict(os.environ)
+from repro_torch.launch import mesh, shardings, spmd
+from repro_torch.models import sharding
+assert dict(os.environ) == env
+assert mesh.make_production_mesh() == ((16, 16), ("data", "model"))
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro.")))
+assert not bad, bad
+print("clean")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
