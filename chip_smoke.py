@@ -160,8 +160,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (``python -m repro_torch.analysis.lint src/repro_torch``) in a
      subprocess, started with the run, must exit 0;
  10. the mesh (``launch/{mesh,shardings,spmd}.py``, ``models/sharding.py``):
-     the transformer family's sharded prefill, decode and mixed steps
-     through ``launch/steps.py``'s cells with a mesh, f32, pages of 16
+     the sharded prefill, decode and mixed steps of every family but
+     grok-1 through ``launch/steps.py``'s cells with a mesh, f32, pages of 16
      tokens.  First NCCL at world size 1 in this process (one card: NCCL
      refuses two ranks on one device), mesh (1, 1): qwen3-0.6b at full
      width and depth, fp pages, 16 sequences of 128-1024 prompt tokens
@@ -186,6 +186,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      max, a code off by more than one is fatal, and a greedy token may
      differ only in a near tie (the one-card step's top two logits closer
      than the steps' logit gap; counted).
+     The other four families on the mesh, each case also at (1, 2) and
+     (2, 1) over gloo, f32, fp pages, 4 sequences: zamba2-7b at full width
+     and 13 layer-units (11 Mamba2 units with K4 on each rank's heads, 56
+     of 112 at tp = 2; 2 shared-attention invocations with K2 on 16 of
+     its 32 heads of d = 112 and K1 on pool layers 0 and 1), 256-token
+     prompts, also at NCCL (1, 1) in this process; rwkv6-7b at full width
+     and 4 layers, 256-token prompts (no hand-written kernel: its WKV
+     scan is torch ops); seamless-m4t-medium at full width and depth, 1024
+     frames and 64-token prompts (K2 non-causal in the encoder on 8 of 16
+     heads, over the rank's cross K/V, K1 in decode); internvl2-2b at full
+     width and 4 layers behind its 256-patch prefix, 128-token prompts
+     (8 q / 4 kv heads of d = 128 a rank; prefill, decode and mixed
+     steps as qwen3's).  The hybrid, rwkv6 and seamless prefill their
+     rows as one batch and take 8 decode steps; their caches (pools, conv
+     and SSM states, rwkv6's state, cross K/V) are held to the one-card
+     tensor's slice at 1e-5 of its max on top of the one-card step's own
+     one-ulp floor (its gap to itself with every embedding value moved by
+     one f32 ulp; the phase's header says why) after the prefill and
+     after the decode steps.
      Logged per rank: the step walls, the collectives a step with their
      bytes, the backend.
 
@@ -3427,9 +3446,8 @@ def phase_sampling(torch, lint=None):
 
 
 # ------------------------------------------------------------ phase 10 ---
-# the mesh: the transformer family's sharded serving steps (tensor
-# parallel over "model", data parallel over "data", the MoE expert
-# parallel) over torch.distributed.  One card: NCCL at world size 1 in this
+# the mesh: the sharded serving steps (tensor parallel over "model", data
+# parallel over "data", the MoE expert parallel) over torch.distributed.  One card: NCCL at world size 1 in this
 # process (NCCL refuses two ranks on one device), then two ranks as two
 # processes on the one card over gloo, whose collectives are staged
 # through host memory.  A case: arch, config overrides (a cut depth), mesh
@@ -3447,18 +3465,43 @@ def phase_sampling(torch, lint=None):
 # within MESH_INT8_TOL of their max, and a greedy token may differ only
 # where the one-card step's top two logits lie closer than the two steps'
 # logits do (a near tie, counted).
+# The caches of the hybrid, rwkv6 and seamless (mesh_state_case) are held
+# to MESH_PAGE_TOL on top of the one-card step's own f32 floor, measured in
+# the same run: that step's gap to itself when every embedding value moves
+# by one f32 ulp.  At tensor parallel the mesh's row-parallel sums round
+# differently from the one-card GEMMs at every layer; zamba2's random
+# Mamba2 stack carries that much further than qwen3's layers do: at full
+# width and 13 layer-units a one-ulp move of the embeddings alone moves the
+# one-card step's caches by 5.2e-6 to 1.0e-5 of their max and its logits by
+# 7.7e-6, and the (1, 2) mesh's caches lay 7.5e-6 to 1.3e-5 from the
+# one-card step's (PERF.md).  At (2, 1) and on NCCL (1, 1) the mesh
+# computes the one-card step exactly (gaps 0).
 MESH_PS, MESH_DECODE, MESH_MIXED, MESH_CHUNK, MESH_STREAMS = 16, 8, 2, 128, 2
 MESH_LOGIT_TOL = {"nccl": 1e-5, "gloo": 1e-4}      # of max |logit| of the one-card step
 MESH_PAGE_TOL = 1e-5                               # of max |page value| of the one-card pool
 MESH_INT8_TOL = 1e-2                               # int8 pages: logits and scales
-NCCL_CASES = (("qwen3-0.6b", {}, ((1, 1),), "fp", 16, (128, 1024)),)
+# The other families (mesh_state_case) prefill their n sequences as one
+# batch of one length (the range's ends are equal): the zamba2 hybrid at 13
+# layer-units (2 shared-attention invocations, pool layers 0 and 1; 11
+# Mamba2 units), rwkv6 at 4 layers, seamless-m4t-medium at full depth after
+# 1024 frames; internvl2 runs mesh_case behind its 256-patch prefix.
 GLOO_SHAPES = ((1, 2), (2, 1))
+HYBRID_CASE = ("zamba2-7b", {"n_layers": 13}, GLOO_SHAPES, "fp", 4, (256, 256))
+NCCL_CASES = (("qwen3-0.6b", {}, ((1, 1),), "fp", 16, (128, 1024)),
+              HYBRID_CASE[:2] + (((1, 1),),) + HYBRID_CASE[3:])
 GLOO_CASES = (("qwen3-0.6b", {}, GLOO_SHAPES, "fp", 8, (128, 512)),
               ("qwen3-0.6b", {"n_layers": 2}, GLOO_SHAPES, "int8", 8, (128, 512)),
-              ("olmoe-1b-7b", {"n_layers": 4}, GLOO_SHAPES, "fp", 8, (128, 512)))
+              ("olmoe-1b-7b", {"n_layers": 4}, GLOO_SHAPES, "fp", 8, (128, 512)),
+              HYBRID_CASE,
+              ("rwkv6-7b", {"n_layers": 4}, GLOO_SHAPES, "fp", 4, (256, 256)),
+              ("seamless-m4t-medium", {}, GLOO_SHAPES, "fp", 4, (64, 64)),
+              ("internvl2-2b", {"n_layers": 4}, GLOO_SHAPES, "fp", 4, (128, 128)))
 MESH_KERNELS = {"fp": ("flash_attention", "paged_attention_decode", "paged_attention_chunk"),
                 "int8": ("flash_attention", "paged_attention_int8_decode",
-                         "paged_attention_int8_chunk")}
+                         "paged_attention_int8_chunk"),
+                "hybrid": ("ssd_scan", "flash_attention", "paged_attention_decode"),
+                "ssm": (),                      # the WKV scan is no hand-written kernel
+                "encdec": ("flash_attention", "paged_attention_decode")}
 
 
 def _put(pool, kv, table_row, S, ps):
@@ -3528,7 +3571,13 @@ def mesh_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
     prompts = [rs.randint(2, cfg.vocab_size, size=n) for n in lens]
     streams = torch.as_tensor(rs.randint(2, cfg.vocab_size, (MESH_STREAMS, MESH_CHUNK * MESH_MIXED)),
                               device="cuda")
-    pmax = -(-(len_range[1] + MESH_DECODE + MESH_MIXED) // ps)
+    # internvl2: each prompt behind its patch prefix
+    n_p = cfg.n_vision_patches if cfg.family == "vlm" else 0
+    patches = (torch.randn(n_seqs, n_p, cfg.d_vision, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+               if n_p else None)
+    ctx = lens + n_p                                  # positions a prompt fills
+    pmax = -(-(len_range[1] + n_p + MESH_DECODE + MESH_MIXED) // ps)
     spages = -(-MESH_CHUNK * MESH_MIXED // ps)
     b_loc, p_loc = n_seqs // nd, MESH_STREAMS // nd
     n_loc = b_loc * pmax + p_loc * spages + 1         # + the shard's trash page
@@ -3538,8 +3587,9 @@ def mesh_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
     stream_table = torch.cat([dd * n_loc + b_loc * pmax + ar(p_loc * spages).reshape(p_loc, spages)
                               for dd in range(nd)]).to("cuda", torch.int32)
     rows, srows = range(d * b_loc, (d + 1) * b_loc), slice(d * p_loc, (d + 1) * p_loc)
-    bt, st = seq_table[d * b_loc:(d + 1) * b_loc], stream_table[srows]
-    lens_t = torch.as_tensor(lens[d * b_loc:(d + 1) * b_loc], device="cuda", dtype=torch.int32)
+    # this shard's rows as tensors of their own: the kernels take 16-byte aligned tables
+    bt, st = seq_table[d * b_loc:(d + 1) * b_loc].clone(), stream_table[srows].clone()
+    lens_t = torch.as_tensor(ctx[d * b_loc:(d + 1) * b_loc], device="cuda", dtype=torch.int32)
     _, KV_p, _, _, _ = T.gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
     kvl = KV_p // tp
 
@@ -3565,9 +3615,10 @@ def mesh_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
         for j, i in enumerate(rows):
             t0 = time.perf_counter()
             lg, (k, v) = cells["prefill"]["fn"](local, torch.as_tensor(prompts[i], device="cuda")[None],
+                                                patches[i:i + 1] if n_p else None,
                                                 kv_fake_quant=fq)
-            _put(kp, k[:, 0], bt[j] % n_loc, int(lens[i]), ps)     # pool-local page ids
-            _put(vp, v[:, 0], bt[j] % n_loc, int(lens[i]), ps)
+            _put(kp, k[:, 0], bt[j] % n_loc, int(ctx[i]), ps)      # pool-local page ids
+            _put(vp, v[:, 0], bt[j] % n_loc, int(ctx[i]), ps)
             torch.cuda.synchronize()
             walls["prefill"].append(time.perf_counter() - t0)
             rec["prefill"].append(lg[0])
@@ -3626,9 +3677,9 @@ def mesh_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
     with torch.inference_mode():
         for j, i in enumerate(rows):
             lg, (k, v) = T.prefill(full, cfg, torch.as_tensor(prompts[i], device="cuda")[None],
-                                   kv_fake_quant=fq)
-            _put(gk, k[:, 0], bt[j], int(lens[i]), ps)
-            _put(gv, v[:, 0], bt[j], int(lens[i]), ps)
+                                   patches=patches[i:i + 1] if n_p else None, kv_fake_quant=fq)
+            _put(gk, k[:, 0], bt[j], int(ctx[i]), ps)
+            _put(gv, v[:, 0], bt[j], int(ctx[i]), ps)
             check("prefill", j, rec["prefill"][j], lg[0])
         for step in range(MESH_DECODE):
             lg, _ = T.decode(full, cfg, rec["tokens"][step].to(torch.int32), gk, gv, bt, lens_t + step)
@@ -3656,7 +3707,7 @@ def mesh_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
     del full, gk, gv
     res = dict(label=label, backend=backend, mesh=[nd, tp], rank=torch.distributed.get_rank(),
                arch=arch, n_layers=cfg.n_layers, pages=pages, rows=b_loc, streams=p_loc,
-               prompt_lens=[int(lens[i]) for i in rows], launches=launches,
+               prompt_lens=[int(lens[i]) for i in rows], patches=n_p, launches=launches,
                steps=b_loc + MESH_DECODE + MESH_MIXED, logit_gap=gaps, page_gap=page_gap,
                int8_flips=flips, int8_near_ties=near_ties, prefill_wall_s=walls["prefill"],
                decode_wall_s=walls["decode"], mixed_wall_s=walls["mixed"],
@@ -3665,6 +3716,213 @@ def mesh_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
                "NCCL at world size 1")
     log(f"phase 10 {json.dumps(res)}")
     return res
+
+
+def mesh_state_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
+    """One mesh path of the zamba2 hybrid, rwkv6 or seamless-m4t-medium on
+    this rank: a prefill of ``n_seqs`` prompts of ``len_range[0]`` tokens as
+    one batch (seamless after ``encoder_seq`` frames) and MESH_DECODE greedy
+    decode steps through ``launch/steps.py``'s sharded cells, f32, fp pages
+    of MESH_PS tokens; launch counters zeroed before and read after.  Then
+    the one-card steps on the full weights over this rank's data shard's
+    rows, fed the same tokens.  Fatal: logits beyond ``MESH_LOGIT_TOL`` of
+    max |logit|, a greedy token that differs, the rank's caches (pools, the
+    hybrid's conv and SSM states, rwkv6's state, the cross K/V) beyond
+    ``MESH_PAGE_TOL`` of max |value| of the one-card tensor's slice, on
+    top of that tensor's own one-ulp floor (``one_card_ulp_floor``), after
+    prefill and after decode, a kernel of ``MESH_KERNELS[family]`` not
+    launched.  Every gap is logged before a failure is raised."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.shardings import param_pspecs, shard_params, shard_tensor
+    from repro_torch.models import encdec, hybrid, rwkv, sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    if pages != "fp" or len_range[0] != len_range[1]:
+        raise ValueError(f"{arch}: fp pages and prompts of one length, not {pages} {len_range}")
+    cfg = replace(get_config(arch), **over)
+    fam, S, ps = cfg.family, len_range[0], MESH_PS
+    policy = sharding.Policy(sharding.make_rules(), mesh)
+    nd, tp, d, m = policy.size("data"), policy.tp, policy.index("data"), policy.index("model")
+    label = (f"mesh {backend} {nd}x{tp} {arch}" + (f" {cfg.n_layers} layers" if over else "")
+             + f" rank {torch.distributed.get_rank()}")
+    cells = dict(prefill=steps.build_prefill(arch, mesh=mesh, cfg=cfg)["fn"],
+                 decode=steps.build_decode(arch, mesh=mesh, cfg=cfg)["fn"])
+    full = get_model(arch, cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                                     torch.float32, "cuda", tp=tp)
+    local = shard_params(full, param_pspecs(full, cfg, tp=tp), policy)
+    b_loc = n_seqs // nd
+    rows = slice(d * b_loc, (d + 1) * b_loc)
+    rs = np.random.RandomState(1)
+    tokens = torch.as_tensor(rs.randint(2, cfg.vocab_size, (n_seqs, S)), device="cuda")[rows]
+    inputs = (tokens,)
+    if fam == "encdec":
+        frames = torch.randn(n_seqs, cfg.encoder_seq, cfg.d_model, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(2)) * 0.3
+        inputs = (frames[rows], tokens)
+    pmax = -(-(S + MESH_DECODE) // ps)
+    n_loc = b_loc * pmax + 1                          # + the shard's trash page
+    bt = torch.arange(b_loc * pmax, device="cuda", dtype=torch.int32).reshape(b_loc, pmax)
+    bt = bt + d * n_loc                               # global page ids of this shard
+    lens = torch.full((b_loc,), S, device="cuda", dtype=torch.int32)
+    specs = steps.CACHE_SPECS
+
+    def model_only(spec):        # the one-card tensors hold this shard's rows only
+        return tuple(None if ax == "data" else ax for ax in spec)
+
+    def caches(out):
+        """name -> (tensor, placement) of a prefill's caches, pools built."""
+        if fam == "ssm":
+            return {f"state {k}": (v, specs["rwkv"][k]) for k, v in out[1].items()}
+        k, v = out[1]
+        pools = {}
+        for name, kv in (("k pool", k), ("v pool", v)):
+            kvh = kv.shape[3]
+            pool = torch.zeros((kv.shape[0], n_loc, ps, kvh, cfg.head_dim), device="cuda")
+            for j in range(b_loc):
+                _put(pool, kv[:, j], bt[j] % n_loc, S, ps)
+            pools[name] = (pool, specs["pages"])
+        if fam == "hybrid":
+            conv, ssm_st = out[2]
+            pools.update({f"conv {n}": (c, specs["conv"][n]) for n, c in conv.items()})
+            pools["ssm"] = (ssm_st, specs["ssm"])
+        else:
+            pools.update({"cross k": (out[2][0], specs["cross"]),
+                          "cross v": (out[2][1], specs["cross"])})
+        return pools
+
+    def step(fn, params, c, tok, i, table):
+        """One decode step over the caches ``c`` (written in place, rwkv6's
+        state replaced) with page table ``table``; its logits."""
+        if fam == "ssm":
+            lg, st = fn(params, tok, {n[len("state "):]: t for n, (t, _) in c.items()})
+            c.update({f"state {k}": (v, specs["rwkv"][k]) for k, v in st.items()})
+            return lg
+        kp, vp = c["k pool"][0], c["v pool"][0]
+        if fam == "hybrid":
+            conv = {n: c[f"conv {n}"][0] for n in ("x", "B", "C")}
+            return fn(params, tok, conv, c["ssm"][0], kp, vp, table, lens + i)[0]
+        return fn(params, tok, kp, vp, c["cross k"][0], c["cross v"][0], table, lens + i)[0]
+
+    # --- the mesh path: launch counters zeroed just before, read just after
+    walls = dict(prefill=[], decode=[])
+    rec = dict(decode=[], tokens=[])
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        zero_launches()
+        c0 = dict(sharding.counts)
+        t0 = time.perf_counter()
+        out = cells["prefill"](local, *inputs)
+        mine = caches(out)
+        torch.cuda.synchronize()
+        walls["prefill"].append(time.perf_counter() - t0)
+        rec["prefill"] = out[0]
+        prefill_caches = {n: t.clone() for n, (t, _) in mine.items()}
+        c1 = dict(sharding.counts)
+        tok = out[0][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        for i in range(MESH_DECODE):
+            rec["tokens"].append(tok)
+            t0 = time.perf_counter()
+            lg = step(cells["decode"], local, mine, tok, i, bt)
+            tok = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            walls["decode"].append(time.perf_counter() - t0)
+            rec["decode"].append(lg)
+        launches = read_launches()
+        c2 = dict(sharding.counts)
+    coll = {name: {k: (b.get(k, 0) - a.get(k, 0)) / n for k in b}
+            for name, (a, b, n) in dict(prefill=(c0, c1, 1), decode=(c1, c2, MESH_DECODE)).items()}
+    missing = [k for k in MESH_KERNELS[fam] if not launches[k]]
+    if missing:
+        fail(f"phase 10 {label}: {missing} not launched: {launches}")
+    del local
+
+    # --- the one-card steps on this rank's rows, fed the mesh's tokens; every
+    # gap is logged before a failure is raised
+    gaps = dict(prefill=0.0, decode=0.0)
+    cache_gaps, errors = {}, []
+
+    def check(kind, i, got, want):
+        gap = _logit_gap(got, want, cfg.vocab_size)
+        gaps[kind] = max(gaps[kind], gap)
+        if gap > MESH_LOGIT_TOL[backend]:
+            errors.append(f"{kind} step {i} logits {gap:.3e} of max |logit| from the "
+                          f"one-card step (tolerance {MESH_LOGIT_TOL[backend]})")
+        if not torch.equal(got[:, :cfg.vocab_size].argmax(-1), want[:, :cfg.vocab_size].argmax(-1)):
+            errors.append(f"{kind} step {i}: a greedy token differs from the one-card step's")
+
+    def cache_gap(got, want, name, spec):
+        """name -> gap of max |value| (pools: each layer too, trash pages out)."""
+        part = shard_tensor(want, model_only(spec), policy, name).double()
+        g = got.double()
+        if name.endswith("pool"):
+            g, part = g[:, :-1], part[:, :-1]
+        out = {name: float((g - part).abs().max() / part.abs().max())}
+        if name.endswith("pool"):
+            out.update({f"{name} L{l}": float((g[l] - part[l]).abs().max() / part[l].abs().max())
+                        for l in range(g.shape[0])})
+        return out
+
+    def check_caches(when, got, want):
+        for name, (t, spec) in want.items():
+            tol = MESH_PAGE_TOL + floor[name]
+            for key, gap in cache_gap(got[name], t, name, spec).items():
+                cache_gaps[f"{when} {key}"] = gap
+                if gap > tol and key == name:
+                    errors.append(f"{when} {name} {gap:.3e} of max |value| from the one-card "
+                                  f"tensor (tolerance {MESH_PAGE_TOL} + its floor "
+                                  f"{floor[name]:.3e})")
+
+    mod = {"hybrid": hybrid, "ssm": rwkv, "encdec": encdec}[fam]
+    kw = {"chunk": 64} if fam == "ssm" else {}
+    with torch.inference_mode():
+        ref = mod.prefill(full, cfg, *inputs, **kw)
+        check("prefill", 0, rec["prefill"], ref[0])
+        want = caches(ref)
+        # the one-card step's own f32 floor: the same prefill with every
+        # embedding value moved by one f32 ulp (x (1 +- 2^-23)), its gap to
+        # the prefill's caches (the header of this phase says why)
+        sign = torch.randint(0, 2, full["embed"].shape, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(3)) * 2 - 1
+        moved = mod.prefill(dict(full, embed=full["embed"] * (1 + sign * 2.0 ** -23)), cfg,
+                            *inputs, **kw)
+        floor = {"logits": _logit_gap(moved[0], ref[0], cfg.vocab_size)}
+        for name, (t, spec) in caches(moved).items():
+            floor.update(cache_gap(shard_tensor(t, model_only(spec), policy, name), want[name][0],
+                                   name, spec))
+        del moved
+        check_caches("prefill", prefill_caches, want)
+        one_card = dict(hybrid=lambda *a: hybrid.decode(full, cfg, *a),
+                        ssm=lambda *a: rwkv.decode(full, cfg, *a),
+                        encdec=lambda *a: encdec.decode(full, cfg, *a))[fam]
+        for i in range(MESH_DECODE):
+            lg = step(lambda _, *a: one_card(*a), None, want, rec["tokens"][i], i, bt % n_loc)
+            check("decode", i, rec["decode"][i], lg)
+        check_caches("decode", {n: t for n, (t, _) in mine.items()}, want)
+    del full, want, mine
+    res = dict(label=label, backend=backend, mesh=[nd, tp], rank=torch.distributed.get_rank(),
+               arch=arch, n_layers=cfg.n_layers, rows=b_loc, prompt_len=S,
+               frames=cfg.encoder_seq if fam == "encdec" else 0, launches=launches,
+               steps=1 + MESH_DECODE, logit_gap=gaps, cache_gap=cache_gaps,
+               one_card_ulp_floor=floor,
+               prefill_wall_s=walls["prefill"], decode_wall_s=walls["decode"],
+               collectives_a_step=coll,
+               note="two processes on one card, collectives staged through host (gloo)"
+               if backend == "gloo" else "NCCL at world size 1")
+    log(f"phase 10 {json.dumps(res)}")
+    if errors:
+        fail(f"phase 10 {label}: " + "; ".join(errors))
+    return res
+
+
+def mesh_run(torch, mesh, backend, case):
+    """One case of phase 10's lists on this rank: the transformer family
+    through ``mesh_case``, the others through ``mesh_state_case``."""
+    from repro_torch.configs import get_config
+    arch, over, _, pages, n, len_range = case
+    fn = mesh_case if get_config(arch).family in ("dense", "moe", "vlm") else mesh_state_case
+    return fn(torch, mesh, backend, arch, over, pages, n, len_range)
 
 
 def mesh_rank(rank, world, init, out_dir):
@@ -3681,10 +3939,9 @@ def mesh_rank(rank, world, init, out_dir):
         results = []
         meshes = {shape: make_mesh(shape, device_type="cuda", backend="gloo")
                   for shape in GLOO_SHAPES}
-        for arch, over, shapes, pages, n, len_range in GLOO_CASES:
-            for shape in shapes:
-                results.append(mesh_case(torch, meshes[shape], "gloo", arch, over, pages, n,
-                                         len_range))
+        for case in GLOO_CASES:
+            for shape in case[2]:
+                results.append(mesh_run(torch, meshes[shape], "gloo", case))
                 gc.collect()
                 torch.cuda.empty_cache()
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(results))
@@ -3706,10 +3963,11 @@ def phase_mesh(torch):
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv", rank=0, world_size=1)
         try:
-            for arch, over, shapes, pages, n, len_range in NCCL_CASES:
-                for shape in shapes:
-                    results.append(mesh_case(torch, make_mesh(shape), "nccl", arch, over, pages,
-                                             n, len_range))
+            for case in NCCL_CASES:
+                for shape in case[2]:
+                    results.append(mesh_run(torch, make_mesh(shape), "nccl", case))
+                    gc.collect()
+                    torch.cuda.empty_cache()
         finally:
             dist.destroy_process_group()
     gc.collect()

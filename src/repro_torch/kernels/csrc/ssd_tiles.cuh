@@ -1,6 +1,6 @@
 // K4's bf16 path on Hopper's tensor cores: the Mamba2 SSD chunk scan
 // with its four products on mma.sync (ssd_scan.cu's ssd_scan_bf16
-// launches it; the f32 path keeps ssd_scan.cu's CUDA-core kernel).
+// launches it; the f32 path runs ssd_tiles_f32.cuh's 3xTF32 kernel).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py
 // (`ssd_chunk_scan`, body `_kernel`) and computes ssd_scan.cu's function:

@@ -128,6 +128,33 @@ def opt_pspecs(param_specs):
     return {"mu": param_specs, "nu": param_specs, "count": ()}
 
 
+def local_shape(shape, spec, policy, name="tensor"):
+    """This rank's block of a global ``shape`` under placement ``spec``
+    (dims past the spec's entries whole)."""
+    out = list(shape)
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        n = policy.size(ax)
+        if shape[dim] % n:
+            raise ValueError(f"{name}: dim {dim} of {tuple(shape)} does not divide "
+                             f"over {ax!r} ({n})")
+        out[dim] = shape[dim] // n
+    return tuple(out)
+
+
+def shard_tensor(t, spec, policy, name="tensor"):
+    """This rank's contiguous block of the full tensor ``t`` under
+    placement ``spec``, copied; ``t`` itself without a policy."""
+    if policy is None:
+        return t
+    local = local_shape(t.shape, spec, policy, name)
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            t = t.narrow(dim, policy.index(ax) * local[dim], local[dim])
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def shard_params(params, specs, policy):
     """This rank's slice of every leaf of ``params`` (full tensors) under
     ``specs``: along each placed dim, the ``policy``'s rank's contiguous
@@ -136,17 +163,5 @@ def shard_params(params, specs, policy):
     if policy is None:
         return params
     flat = dict(_leaves(specs))
-
-    def cut(parts, t):
-        for dim, ax in enumerate(flat[parts]):
-            if ax is None:
-                continue
-            n = policy.size(ax)
-            if t.shape[dim] % n:
-                raise ValueError(f"{'/'.join(parts)}: dim {dim} of {tuple(t.shape)} "
-                                 f"does not divide over {ax!r} ({n})")
-            step = t.shape[dim] // n
-            t = t.narrow(dim, policy.index(ax) * step, step)
-        return t.clone(memory_format=torch.contiguous_format)
-
-    return _map(cut, params)
+    return _map(lambda parts, t: shard_tensor(t, flat[parts], policy, "/".join(parts)),
+                params)

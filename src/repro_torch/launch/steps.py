@@ -15,16 +15,20 @@ plus mixed_32k — the paper-representative Splitwiser fused step (16
 prompt streams x 2048-token chunks + 128 decode slots @32k).
 
 ``build_prefill``, ``build_decode`` and ``build_mixed`` take a ``mesh``
-(``launch/mesh.py``; ``None``: one card) for the transformer family,
-dense and MoE.  With one, ``fn`` is the rank's sharded step (tensor
-parallel over `model`, data parallel over `data`, the MoE
+(``launch/mesh.py``; ``None``: one card) for every family (``mixed``:
+the transformer family's).  With one, ``fn`` is the rank's sharded step
+(tensor parallel over `model`, data parallel over `data`, the MoE
 expert-parallel, ``launch/spmd.py``'s hooks), ``make_args`` draws this
-rank's arguments (its weight slices from the full ``tp``-padded draw, its
-data shard's rows, its local pools ``[L, N/n_data, ps, KV_p/tp, hd]``,
-whose values every rank draws alike) from the global pool of
-``_page_pool_shapes``, N holding a trash page per data shard.  ``args``
-are this rank's fake arguments.  The other families, the train step and the decode
-``2d`` scheme raise ``NotImplementedError`` for a mesh (ROADMAP queue 1).
+rank's arguments: its weight slices from the full ``tp``-padded draw,
+its data shard's rows of the tokens, frames and patches (drawn whole on
+every rank alike), and its local caches, drawn at their local shapes
+(values alike on every rank): pools ``[L, N/n_data, ps, KV_p/tp, hd]`` of
+the global pool of ``_page_pool_shapes`` (N holding a trash page per
+data shard), and the hybrid's conv/SSM states, rwkv's state and the
+decoder's cross K/V under ``CACHE_SPECS``, the reference's placements.
+``args`` are this rank's fake arguments.  The train step, the decode
+``2d`` scheme and a decode batch that does not divide over data > 1 raise
+``NotImplementedError`` for a mesh (ROADMAP queue 1, items 16 and 17).
 Donation has no counterpart (pools are written in place).  The two
 schemes that change the work stay: the vocab-tiled loss of the train
 step (``loss_impl="vtiled"``, the reference's ``+vtiled``) and int8 KV
@@ -37,7 +41,7 @@ import torch
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.launch import spmd
 from repro_torch.launch.costs import fake_mode
-from repro_torch.launch.shardings import param_pspecs, shard_params
+from repro_torch.launch.shardings import local_shape, param_pspecs, shard_params
 from repro_torch.models import encdec, hybrid, rwkv, ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_model
@@ -61,6 +65,22 @@ INT8_MOMENTS = {"grok-1-314b"}
 
 F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
 
+# Placements of the serving caches on a mesh (the reference's decode
+# in_shardings), one entry a leading dim, later dims whole: page pools
+# [L, N, ps, KV_p, hd]; the hybrid's conv states [n_mamba, B, W-1, C]
+# (x over model, B and C whole) and SSM states [n_mamba, B, H, P, N];
+# rwkv's x_tm/x_cm [L, B, D] and S [L, B, H, K, K]; cross K/V
+# [Ld, B, S_enc, KV_p, hd].
+CACHE_SPECS = {
+    "pages": (None, "data", None, "model", None),
+    "conv": {"x": (None, "data", None, "model"), "B": (None, "data", None, None),
+             "C": (None, "data", None, None)},
+    "ssm": (None, "data", "model", None, None),
+    "rwkv": {"x_tm": (None, "data", None), "x_cm": (None, "data", None),
+             "S": (None, "data", "model", None)},
+    "cross": (None, "data", None, "model", None),
+}
+
 
 def cell_supported(cfg, shape_name: str):
     if shape_name == "long_500k" and not cfg.supports_long_context:
@@ -83,17 +103,12 @@ class _Shard:
 
     def __init__(self, model, mesh):
         self.policy = None if mesh is None else Policy(make_rules(("data",), "model"), mesh)
-        if mesh is not None and model.cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{model.cfg.family} ({model.name}) has no sharded step yet: "
-                "ROADMAP queue 1, item 15")
         self.mesh, self.model = mesh, model
         self.tp = 1 if mesh is None else self.policy.tp
         self.n_data = 1 if mesh is None else self.policy.size("data")
-        self.kw = {} if mesh is None else dict(
-            tp=self.tp, policy=self.policy,
-            moe_fn=spmd.make_sharded_moe_fn(mesh, model.cfg, tp=self.tp)
-            if model.cfg.is_moe else None)
+        self.kw = {} if mesh is None else dict(tp=self.tp, policy=self.policy)
+        if mesh is not None and model.cfg.is_moe:
+            self.kw["moe_fn"] = spmd.make_sharded_moe_fn(mesh, model.cfg, tp=self.tp)
 
     def params(self, g, device):
         """The full ``tp``-padded draw, then this rank's slices of it."""
@@ -111,10 +126,19 @@ class _Shard:
         k = n // self.n_data
         return t[self.policy.index("data") * k:][:k] if self.n_data > 1 else t
 
-    def local_pool(self, shape):
-        """[L, N/n_data, ps, KV_p/tp, hd] of a global pool shape."""
-        L, N, ps, KV_p, hd = shape
-        return (L, N // self.n_data, ps, KV_p // self.tp, hd)
+    def local(self, shape, spec=CACHE_SPECS["pages"]):
+        """This rank's shape of a global cache ``shape`` placed by ``spec``
+        (a pool's: [L, N/n_data, ps, KV_p/tp, hd])."""
+        return shape if self.mesh is None else local_shape(shape, spec, self.policy)
+
+    def decode_attn(self, batch, kv_int8=False):
+        """The decode ``attn_fn`` (None on one card); a batch that does not
+        divide over the data shards is the reference's replicated batch,
+        not ported (``launch/spmd.py``)."""
+        if self.mesh is None:
+            return None
+        return spmd.make_sharded_decode_attn(self.mesh, shard_batch=batch % self.n_data == 0,
+                                             kv_int8=kv_int8)
 
 
 def _tokens(g, cfg, shape, device):
@@ -165,51 +189,46 @@ def build_train(arch, loss_impl="chunked"):
 def build_prefill(arch, shape_name="prefill_32k", mesh=None, cfg=None):
     """``cfg``: a config of ``arch`` to build instead of its own (a cut
     depth).  The transformer family's ``fn`` passes keywords on to
-    ``prefill`` (``kv_fake_quant``)."""
+    ``prefill`` (``kv_fake_quant``); rwkv6 prefills in chunks of 64, as
+    the reference's cell does."""
     model = get_model(arch, cfg)
     cfg = model.cfg
     sh = SHAPES[shape_name]
     B, S = sh["batch"], sh["seq"]
     shard = _Shard(model, mesh)
+    kw = shard.kw
 
-    def params(g, device):
-        return model.init(g, BF16, device)
+    if cfg.family in ("dense", "moe", "vlm"):
+        def fn(params, tokens, patches=None, **kw2):
+            return T.prefill(params, cfg, tokens, patches=patches, **kw, **kw2)
 
-    if cfg.family in ("dense", "moe"):
-        def fn(params, tokens, **kw):
-            return T.prefill(params, cfg, tokens, **shard.kw, **kw)
+        def make_args(g, device):
+            args = (shard.params(g, device),
+                    shard.rows(_tokens(g, cfg, (B, _text_len(cfg, S)), device)))
+            if cfg.family != "vlm":
+                return args
+            return args + (shard.rows(_normal(g, (B, cfg.n_vision_patches, cfg.d_vision),
+                                              BF16, device)),)
+    elif cfg.family == "encdec":
+        def fn(params, frames, tokens):
+            return encdec.prefill(params, cfg, frames, tokens, **kw)
+
+        def make_args(g, device):
+            frames = _normal(g, (B, cfg.encoder_seq, cfg.d_model), BF16, device, 0.3)
+            return (shard.params(g, device), shard.rows(frames),
+                    shard.rows(_tokens(g, cfg, (B, S), device)))
+    elif cfg.family == "hybrid":
+        def fn(params, tokens):
+            return hybrid.prefill(params, cfg, tokens, **kw)
 
         def make_args(g, device):
             return shard.params(g, device), shard.rows(_tokens(g, cfg, (B, S), device))
-    elif cfg.family == "vlm":
-        def fn(params, tokens, patches):
-            return T.prefill(params, cfg, tokens, patches=patches)
-
-        def make_args(g, device):
-            return (params(g, device), _tokens(g, cfg, (B, _text_len(cfg, S)), device),
-                    _normal(g, (B, cfg.n_vision_patches, cfg.d_vision), BF16, device))
-    elif cfg.family == "encdec":
-        def fn(params, frames, tokens):
-            return encdec.prefill(params, cfg, frames, tokens)
-
-        def make_args(g, device):
-            return (params(g, device),
-                    _normal(g, (B, cfg.encoder_seq, cfg.d_model), BF16, device, 0.3),
-                    _tokens(g, cfg, (B, S), device))
-    elif cfg.family == "hybrid":
-        def fn(params, tokens):
-            return hybrid.prefill(params, cfg, tokens)
-
-        def make_args(g, device):
-            return params(g, device), _tokens(g, cfg, (B, S), device)
     else:  # ssm
         def fn(params, tokens):
-            state = rwkv.init_state(cfg, tokens.shape[0], params["embed"].dtype,
-                                    tokens.device)
-            return rwkv.forward(params, cfg, tokens, state, chunk=64)
+            return rwkv.prefill(params, cfg, tokens, chunk=64, **kw)
 
         def make_args(g, device):
-            return params(g, device), _tokens(g, cfg, (B, S), device)
+            return shard.params(g, device), shard.rows(_tokens(g, cfg, (B, S), device))
     return _cell(fn, make_args, f"prefill B={B} S={S}"
                  + (f" mesh {tuple(mesh.shape)}" if mesh is not None else ""))
 
@@ -268,63 +287,71 @@ def build_decode(arch, shape_name="decode_32k", mesh=None, cfg=None, scheme="bas
     sh = SHAPES[shape_name]
     B, S = sh["batch"], sh["seq"]
     shard = _Shard(model, mesh)
+    attn = shard.decode_attn(B, kv8)
+    kw = shard.kw
+    mesh_note = f" mesh {tuple(mesh.shape)}" if mesh is not None else ""
 
-    def params(g, device):
-        return model.init(g, BF16, device)
+    def tables_lens(g, device, pg_shape, Pmax):
+        return (shard.rows(_tables(g, B, Pmax, pg_shape[1], device, shard.n_data)),
+                shard.rows(_full(B, S - 1, device)))
 
-    if cfg.family == "ssm":                   # rwkv: state cache only (one card)
+    if cfg.family == "ssm":                   # rwkv: state cache only
         def fn(params, tokens, state):
-            return rwkv.decode(params, cfg, tokens, state)
+            return rwkv.decode(params, cfg, tokens, state, **kw)
 
         def make_args(g, device):
-            return (params(g, device), _tokens(g, cfg, (B,), device),
-                    rwkv.init_state(cfg, B, BF16, device))
-        return _cell(fn, make_args, f"decode(state) B={B} ctx={S}")
+            return (shard.params(g, device), shard.rows(_tokens(g, cfg, (B,), device)),
+                    rwkv.init_state(cfg, B // shard.n_data, BF16, device, shard.tp))
+        return _cell(fn, make_args, f"decode(state) B={B} ctx={S}{mesh_note}")
 
     if cfg.family == "hybrid":
         n_attn, n_mamba, _, _, _ = hybrid.group_structure(cfg)
-        pg_shape, Pmax = _page_pool_shapes(cfg, B, S, n_layers=n_attn)
+        pg_shape, Pmax = _page_pool_shapes(cfg, B, S, n_layers=n_attn, tp=shard.tp,
+                                           n_data=shard.n_data)
 
         def fn(params, tokens, conv, ssm_st, kpg, vpg, bt, lens):
-            return hybrid.decode(params, cfg, tokens, conv, ssm_st, kpg, vpg, bt, lens)
+            return hybrid.decode(params, cfg, tokens, conv, ssm_st, kpg, vpg, bt, lens,
+                                 attn_fn=attn, **kw)
 
         def make_args(g, device):
             cs, ss = ssm.mamba2_state_shapes(cfg, B)
-            conv = {k: _normal(g, (n_mamba,) + v, BF16, device) for k, v in cs.items()}
-            return (params(g, device), _tokens(g, cfg, (B,), device), conv,
-                    _normal(g, (n_mamba,) + ss, F32, device),
-                    *_fp_pages(g, pg_shape, device),
-                    _tables(g, B, Pmax, pg_shape[1], device), _full(B, S - 1, device))
-        return _cell(fn, make_args, f"decode(hybrid) B={B} ctx={S} attn_layers={n_attn}")
+            conv = {k: _normal(g, shard.local((n_mamba,) + v, CACHE_SPECS["conv"][k]),
+                               BF16, device) for k, v in cs.items()}
+            return (shard.params(g, device), shard.rows(_tokens(g, cfg, (B,), device)), conv,
+                    _normal(g, shard.local((n_mamba,) + ss, CACHE_SPECS["ssm"]), F32, device),
+                    *_fp_pages(g, shard.local(pg_shape), device),
+                    *tables_lens(g, device, pg_shape, Pmax))
+        return _cell(fn, make_args, f"decode(hybrid) B={B} ctx={S} attn_layers={n_attn}"
+                     + mesh_note)
 
     if cfg.family == "encdec":
-        pg_shape, Pmax = _page_pool_shapes(cfg, B, S)
+        pg_shape, Pmax = _page_pool_shapes(cfg, B, S, tp=shard.tp, n_data=shard.n_data)
         cross_shape = (cfg.n_layers, B, cfg.encoder_seq) + pg_shape[3:]
 
         def fn(params, tokens, kpg, vpg, xk, xv, bt, lens):
-            return encdec.decode(params, cfg, tokens, kpg, vpg, xk, xv, bt, lens)
+            return encdec.decode(params, cfg, tokens, kpg, vpg, xk, xv, bt, lens,
+                                 attn_fn=attn, **kw)
 
         def make_args(g, device):
-            return (params(g, device), _tokens(g, cfg, (B,), device),
-                    *_fp_pages(g, pg_shape, device), *_fp_pages(g, cross_shape, device),
-                    _tables(g, B, Pmax, pg_shape[1], device), _full(B, S - 1, device))
-        return _cell(fn, make_args, f"decode(encdec) B={B} ctx={S}")
+            return (shard.params(g, device), shard.rows(_tokens(g, cfg, (B,), device)),
+                    *_fp_pages(g, shard.local(pg_shape), device),
+                    *_fp_pages(g, shard.local(cross_shape, CACHE_SPECS["cross"]), device),
+                    *tables_lens(g, device, pg_shape, Pmax))
+        return _cell(fn, make_args, f"decode(encdec) B={B} ctx={S}{mesh_note}")
 
     # transformer family
     pg_shape, Pmax = _page_pool_shapes(cfg, B, S, tp=shard.tp, n_data=shard.n_data)
-    attn = (spmd.make_sharded_decode_attn(mesh, kv_int8=kv8) if mesh is not None else None)
 
     def fn(params, tokens, kpg, vpg, bt, lens):
-        return T.decode(params, cfg, tokens, kpg, vpg, bt, lens, attn_fn=attn, **shard.kw)
+        return T.decode(params, cfg, tokens, kpg, vpg, bt, lens, attn_fn=attn, **kw)
 
     def make_args(g, device):
-        shape = shard.local_pool(pg_shape)
+        shape = shard.local(pg_shape)
         return (shard.params(g, device), shard.rows(_tokens(g, cfg, (B,), device)),
                 _pages(g, shape, kv8, device), _pages(g, shape, kv8, device),
-                shard.rows(_tables(g, B, Pmax, pg_shape[1], device, shard.n_data)),
-                shard.rows(_full(B, S - 1, device)))
+                *tables_lens(g, device, pg_shape, Pmax))
     return _cell(fn, make_args, f"decode B={B} ctx={S} pool={pg_shape} scheme={scheme}"
-                 + (f" mesh {tuple(mesh.shape)}" if mesh is not None else ""))
+                 + mesh_note)
 
 
 # ------------------------------------------------------------------ mixed --
@@ -352,7 +379,7 @@ def build_mixed(arch, shape_name="mixed_32k", scheme="baseline", mesh=None, cfg=
         return T.mixed(params, cfg, mb, kpg, vpg, attn_fn=attn, **shard.kw)
 
     def pages(g, device):
-        return _pages(g, shard.local_pool(pg_shape), kv8, device)
+        return _pages(g, shard.local(pg_shape), kv8, device)
 
     def make_args(g, device):
         # distinct pages; each data shard's rows: its streams, then its decode rows

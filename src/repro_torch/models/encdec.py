@@ -19,10 +19,19 @@ paged attention (K1) for the decoder's self-attention in decode.  K2
 masks by index positions; that is exact here: the encoder and
 cross-attention are non-causal with no window, so positions never enter
 their masks, and the decoder's causal prefill numbers queries and keys
-alike from 0.  There is no tensor parallelism (the reference's
-``tp``/``policy``): at tp = 1 the padded head layout is the identity, so
-no head is masked or replicated.  The cross K/V are built once from the
-encoder output (``build_cross_kv``) and read by every decoder pass.
+alike from 0.  The cross K/V are built once from the encoder output
+(``build_cross_kv``) and read by every decoder pass.
+
+On a mesh (``encode``, ``build_cross_kv``, ``prefill`` and ``decode``
+with ``tp`` and a ``policy`` from ``models/sharding.py``) each rank runs
+its shards of the ``tp``-padded tree (``init_params(..., tp=)``), as
+``transformer.py`` does: its ``H_p / tp`` q heads and ``KV_p / tp`` KV
+heads in every attention (k/v of fewer KV heads than ``tp`` expanded
+into its padded slots), ``wo`` and the MLPs row-parallel with one
+``all_reduce`` each, the embedding a vocab-parallel lookup (no scale, as
+the reference's) and the logits gathered over ``model``.  Self-K/V, the
+pools and the cross K/V ``[Ld, B, S_enc, KV_p / tp, hd]`` hold the rank's
+rows and KV heads.  With ``policy=None`` nothing of this runs.
 """
 from __future__ import annotations
 
@@ -35,24 +44,29 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
                                        rms_norm, rope)
+from repro_torch.models.sharding import all_reduce
 
 
-def _attn_init(generator, cfg, L, dtype, device, out_scale):
-    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+def _attn_init(generator, cfg, L, dtype, device, out_scale, tp):
+    D, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    H_p, _, q_map, _, _ = T.gqa_layout(cfg.n_heads, KV, tp)
 
     def dense(shape, fan_in, scale=1.0):
         return dense_init(generator, (L,) + shape, fan_in, dtype, device, scale)
 
-    return {"wq": dense((D, H, hd), D), "wk": dense((D, KV, hd), D),
-            "wv": dense((D, KV, hd), D), "wo": dense((H, hd, D), H * hd, out_scale)}
+    wq = dense((D, H_p, hd), D)
+    wq *= torch.as_tensor(q_map >= 0, dtype=dtype, device=device)[None, None, :, None]
+    return {"wq": wq, "wk": dense((D, KV, hd), D),
+            "wv": dense((D, KV, hd), D), "wo": dense((H_p, hd, D), H_p * hd, out_scale)}
 
 
 def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
-                device=None):
+                device=None, tp: int = 1):
     """Random parameters with the reference's shapes and init scales,
     drawn from ``generator`` in the reference's order (the numbers differ
     from JAX's; tests hand both packages the same weights through
-    ``models.convert.params_from_jax``)."""
+    ``models.convert.params_from_jax``).  ``tp`` pads the q heads
+    (``wq``/``wo``) as ``gqa_layout`` does; pad columns are zero."""
     device = resolve_device(device)
     D = cfg.d_model
     Le, Ld = cfg.n_encoder_layers, cfg.n_layers
@@ -65,11 +79,11 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
         return mlp_init(generator, D, cfg.d_ff, cfg.mlp_act, dtype, device, scale,
                         stack=(L,))
 
-    enc_attn = _attn_init(generator, cfg, Le, dtype, device, s_enc)
+    enc_attn = _attn_init(generator, cfg, Le, dtype, device, s_enc, tp)
     enc_blocks = {"ln1": zeros(Le, D), "attn": enc_attn, "ln2": zeros(Le, D),
                   "mlp": mlp(Le, s_enc)}
-    dec_self = _attn_init(generator, cfg, Ld, dtype, device, s_dec)
-    dec_cross = _attn_init(generator, cfg, Ld, dtype, device, s_dec)
+    dec_self = _attn_init(generator, cfg, Ld, dtype, device, s_dec, tp)
+    dec_cross = _attn_init(generator, cfg, Ld, dtype, device, s_dec, tp)
     dec_blocks = {"ln1": zeros(Ld, D), "self": dec_self, "lnx": zeros(Ld, D),
                   "cross": dec_cross, "ln2": zeros(Ld, D), "mlp": mlp(Ld, s_dec)}
     return {
@@ -90,7 +104,19 @@ def _full_lens(x, n):
     return torch.full((x.shape[0],), n, dtype=torch.int32, device=x.device)
 
 
-def encode(params, cfg, frames, *, enc_valid_len=None, attend=None):
+def _heads(cfg, x, tp, policy):
+    """(head mask, KV index) of ``transformer.py`` for this rank."""
+    return (T._head_mask(cfg, x.device, x.dtype, tp, policy),
+            T._kv_index(cfg, x.device, tp, policy))
+
+
+def _mlp(lp, x, cfg, policy):
+    return all_reduce(mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                cfg.mlp_act), policy)
+
+
+def encode(params, cfg, frames, *, enc_valid_len=None, attend=None, tp=1,
+           policy=None):
     """frames [B, S_enc, D] (stub frontend output) -> [B, S_enc, D].
     ``enc_valid_len`` [B]: keys at or past it are masked (None: all).
     ``attend``: ``ops.flash_attention`` (None) or, training,
@@ -99,65 +125,72 @@ def encode(params, cfg, frames, *, enc_valid_len=None, attend=None):
     B, S, _ = frames.shape
     pos = torch.arange(S, device=frames.device)[None].expand(B, S)
     kv_lens = _full_lens(frames, S) if enc_valid_len is None else enc_valid_len
+    head_mask, kv_index = _heads(cfg, frames, tp, policy)
     x = frames
     for l in range(cfg.n_encoder_layers):
         lp = T.layer_params(params["enc_blocks"], l)
         q, k, v = T._qkv(cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps))
         q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
+        k = T._expand_kv(rope(k, pos, cfg.rope_theta), kv_index)
         # non-causal, no window: K2's index positions mask only by kv_lens
-        o = attend(q, k, v, kv_lens, scale=_scale(cfg), causal=False)
-        x = x + T._o_proj(cfg, lp["attn"], o, None)
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.mlp_act)
+        o = attend(q, k, T._expand_kv(v, kv_index), kv_lens, scale=_scale(cfg),
+                   causal=False)
+        x = x + T._o_proj(cfg, lp["attn"], o, head_mask, policy)
+        x = x + _mlp(lp, x, cfg, policy)
     return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
 
 
-def build_cross_kv(params, cfg, enc_out):
+def build_cross_kv(params, cfg, enc_out, tp=1, policy=None):
     """Per-decoder-layer cross K/V from the encoder output.
 
-    Returns (xk, xv) [Ld, B, S_enc, KV, hd] (not roped: cross-attention
-    uses raw keys; rope is self-attention only here).
+    Returns (xk, xv) [Ld, B, S_enc, KV_p, hd] (on a mesh the rank's
+    KV_p / tp; not roped: cross-attention uses raw keys; rope is
+    self-attention only here).
     """
     cross = params["dec_blocks"]["cross"]
-    return (torch.einsum("bsd,ldhk->lbshk", enc_out, cross["wk"]).contiguous(),
-            torch.einsum("bsd,ldhk->lbshk", enc_out, cross["wv"]).contiguous())
+    kv_index = T._kv_index(cfg, enc_out.device, tp, policy)
+    return tuple(T._expand_kv(torch.einsum("bsd,ldhk->lbshk", enc_out, cross[w]),
+                              kv_index).contiguous() for w in ("wk", "wv"))
 
 
-def _cross_attention(cfg, ap, hx, xk, xv, kv_lens, attend=None):
+def _cross_attention(cfg, ap, hx, xk, xv, kv_lens, attend=None, head_mask=None,
+                     policy=None):
     """hx [B, T, D] against one layer's cross K/V [B, S_enc, KV, hd];
     non-causal, no window: K2's index positions mask only by kv_lens."""
     attend = attend or ops.flash_attention
     D = hx.shape[-1]
     qx = (hx @ ap["wq"].reshape(D, -1)).reshape(*hx.shape[:-1], -1, cfg.head_dim)
     o = attend(qx, xk, xv, kv_lens, scale=_scale(cfg), causal=False)
-    return T._o_proj(cfg, ap, o, None)
+    return T._o_proj(cfg, ap, o, head_mask, policy)
 
 
 def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False,
-                 attend=None):
+                 attend=None, tp=1, policy=None):
     """The decoder over whole prompts from position 0. tokens [B, T];
     cross_kv from ``build_cross_kv``; ``attend`` as in :func:`encode`.
-    Returns (hidden [B, T, D], (k, v) self-KV each [Ld, B, T, KV, hd] or
+    Returns (hidden [B, T, D], (k, v) self-KV each [Ld, B, T, KV_p, hd] or
     None)."""
     attend = attend or ops.flash_attention
     xk, xv = cross_kv
-    x = params["embed"][tokens]
+    x = T.embed_rows(params["embed"], tokens, policy)
     B, Tn, _ = x.shape
     pos = torch.arange(Tn, device=x.device)[None].expand(B, Tn)
     self_lens, cross_lens = _full_lens(x, Tn), _full_lens(x, xk.shape[2])
+    head_mask, kv_index = _heads(cfg, x, tp, policy)
     ks, vs = [], []
     for l in range(cfg.n_layers):
         lp = T.layer_params(params["dec_blocks"], l)
         q, k, v = T._qkv(cfg, lp["self"], rms_norm(x, lp["ln1"], cfg.norm_eps))
         q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
+        k = T._expand_kv(rope(k, pos, cfg.rope_theta), kv_index)
+        v = T._expand_kv(v, kv_index)
         # causal, queries and keys both at positions 0..T-1: K2's index
         # positions are these positions
         o = attend(q, k, v, self_lens, scale=_scale(cfg), causal=True)
-        x = x + T._o_proj(cfg, lp["self"], o, None)
+        x = x + T._o_proj(cfg, lp["self"], o, head_mask, policy)
         x = x + _cross_attention(cfg, lp["cross"], rms_norm(x, lp["lnx"], cfg.norm_eps),
-                                 xk[l], xv[l], cross_lens, attend)
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.mlp_act)
+                                 xk[l], xv[l], cross_lens, attend, head_mask, policy)
+        x = x + _mlp(lp, x, cfg, policy)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -181,31 +214,38 @@ def train_logits(params, cfg, batch, *, remat=False):
     return T.unembed(params, cfg, hidden), torch.zeros((), device=hidden.device)
 
 
-def prefill(params, cfg, frames, tokens):
+def prefill(params, cfg, frames, tokens, *, tp=1, policy=None):
     """Encoder pass + decoder prompt prefill.
 
-    Returns (last_logits, (k, v) self-KV [Ld,B,T,KV,hd],
-             (xk, xv) cross-KV [Ld,B,S_enc,KV,hd]).
+    Returns (last_logits, (k, v) self-KV [Ld,B,T,KV_p,hd],
+             (xk, xv) cross-KV [Ld,B,S_enc,KV_p,hd]); on a mesh the
+    rank's rows and KV heads.
     """
-    cross = build_cross_kv(params, cfg, encode(params, cfg, frames))
-    hidden, kv = _decoder_seq(params, cfg, tokens, cross, collect_kv=True)
-    return T.unembed(params, cfg, hidden[:, -1]), kv, cross
+    cross = build_cross_kv(params, cfg, encode(params, cfg, frames, tp=tp, policy=policy),
+                           tp, policy)
+    hidden, kv = _decoder_seq(params, cfg, tokens, cross, collect_kv=True, tp=tp,
+                              policy=policy)
+    return T.unembed(params, cfg, hidden[:, -1], policy), kv, cross
 
 
 def decode(params, cfg, tokens, k_pages, v_pages, cross_k, cross_v,
-           block_table, seq_lens, *, attn_fn=None, enc_valid_len=None):
+           block_table, seq_lens, *, attn_fn=None, enc_valid_len=None, tp=1,
+           policy=None):
     """One decoder token step.
 
-    tokens [B]; pages [Ld, N, ps, KV, hd], written in place; cross_k/v
-    [Ld, B, S_enc, KV, hd]; ``enc_valid_len`` [B] masks cross keys at or
-    past it (None: all).  ``attn_fn``: a paged attention with ``ops.paged_attention``'s
-    signature over one layer's pages (default: K1).
+    tokens [B]; pages [Ld, N, ps, KV_p, hd], written in place; cross_k/v
+    [Ld, B, S_enc, KV_p, hd]; ``enc_valid_len`` [B] masks cross keys at or
+    past it (None: all).  ``attn_fn``: a paged attention with
+    ``ops.paged_attention``'s signature over one layer's pages (default:
+    K1; on a mesh ``launch/spmd.py::make_sharded_decode_attn``, whose
+    pool-local table the page writes use too).
     Returns (logits [B, Vp], (k_pages, v_pages)).
     """
     attn_fn = attn_fn or ops.paged_attention
-    x = params["embed"][tokens]                              # [B, D]
+    x = T.embed_rows(params["embed"], tokens, policy)        # [B, D]
+    head_mask, kv_index = _heads(cfg, x, tp, policy)
     # per-step index work, shared by every layer
-    bt = block_table.to(torch.int32)
+    bt = T._pool_local(attn_fn, block_table.to(torch.int32), k_pages)
     pos = seq_lens.to(torch.int32)                           # next position
     kv_lens = pos + 1
     dest = T.token_dest(bt, pos, None, *T._pool_geometry(k_pages))
@@ -217,13 +257,14 @@ def decode(params, cfg, tokens, k_pages, v_pages, cross_k, cross_v,
         q = rope(q[:, None], pos[:, None], cfg.rope_theta)   # [B,1,H,hd]
         k = rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         kpg, vpg = k_pages[l], v_pages[l]
-        T._scatter(kpg, vpg, k, v, dest)
+        T._scatter(kpg, vpg, T._expand_kv(k, kv_index), T._expand_kv(v, kv_index), dest)
         o = attn_fn(q, kpg, vpg, bt, kv_lens, pos, scale=_scale(cfg), window=None,
                     softcap=None)
-        x = x + T._o_proj(cfg, lp["self"], o[:, 0], None)
+        x = x + T._o_proj(cfg, lp["self"], o[:, 0], head_mask, policy)
         x = x + _cross_attention(cfg, lp["cross"],
                                  rms_norm(x, lp["lnx"], cfg.norm_eps)[:, None],
-                                 cross_k[l], cross_v[l], cross_lens)[:, 0]
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg.mlp_act)
+                                 cross_k[l], cross_v[l], cross_lens,
+                                 head_mask=head_mask, policy=policy)[:, 0]
+        x = x + _mlp(lp, x, cfg, policy)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return T.unembed(params, cfg, x), (k_pages, v_pages)
+    return T.unembed(params, cfg, x, policy), (k_pages, v_pages)

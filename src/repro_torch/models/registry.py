@@ -31,8 +31,8 @@ class Model:
     cache_kind: str
 
     def init(self, generator: torch.Generator, dtype=None, device=None, **kw):
-        """The family's ``init_params``; ``kw`` (the transformer family's
-        ``tp``) is passed on."""
+        """The family's ``init_params``; ``kw`` (``tp``, which pads every
+        family's heads for a mesh, unused by rwkv6) is passed on."""
         return self.module.init_params(self.cfg, generator,
                                        dtype or torch.float32, device, **kw)
 

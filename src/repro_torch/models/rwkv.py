@@ -16,9 +16,16 @@ run (``init_state`` gives zeros in the params' dtype, as the
 reference's does).  The reference's ``lax.scan`` over layers is a Python
 loop that stacks the new states; no step writes its input state.  The
 WKV scan is plain PyTorch on every device: the reference's is jnp, not a
-Pallas kernel.  There is no tensor parallelism (``tp``/``policy``).
+Pallas kernel.
 ``train_logits`` is differentiable; with ``remat`` each layer is
 recomputed in the backward (``torch.utils.checkpoint``).
+
+On a mesh (``forward``/``prefill``/``decode``/``mixed`` with a
+``policy``; ``tp`` is accepted and unused, as in the reference: RWKV has
+no heads to pad) each rank runs its shards (``models/ssm.py``), its data
+shard's rows and a state of its heads (``init_state(..., tp=)``);
+``embed`` is a vocab-parallel lookup and ``head`` gives vocab-parallel
+logits gathered over ``model`` (``transformer.py``).
 """
 from __future__ import annotations
 
@@ -27,15 +34,18 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.layers import dense_init, rms_norm
-from repro_torch.models.transformer import layer_list, maybe_remat, pad_vocab, unembed
+from repro_torch.models.transformer import (embed_rows, layer_list, maybe_remat,
+                                            pad_vocab, unembed)
 
 
 def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
-                device=None):
+                device=None, tp: int = 1):
     """Random parameters with the reference's shapes and init scales,
     drawn from ``generator`` (the numbers differ from JAX's; tests hand
     both packages the same weights through
-    ``models.convert.params_from_jax``)."""
+    ``models.convert.params_from_jax``).  ``tp`` is unused: no heads to
+    pad."""
+    del tp
     device = resolve_device(device)
     Vp = pad_vocab(cfg.vocab_size)
     D = cfg.d_model
@@ -49,33 +59,34 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
     }
 
 
-def init_state(cfg, batch, dtype=torch.float32, device=None):
-    """Zero states ``{x_tm, x_cm: [L, B, D], S: [L, B, H, K, K]}``."""
+def init_state(cfg, batch, dtype=torch.float32, device=None, tp=1):
+    """Zero states ``{x_tm, x_cm: [L, B, D], S: [L, B, H, K, K]}``
+    (``H / tp`` heads with ``tp``: a model rank's)."""
     device = resolve_device(device)
-    shapes = ssm.rwkv6_state_shapes(cfg, batch)
+    shapes = ssm.rwkv6_state_shapes(cfg, batch, tp)
     return {k: torch.zeros((cfg.n_layers,) + v, dtype=dtype, device=device)
             for k, v in shapes.items()}
 
 
-def forward(params, cfg, tokens, state, *, chunk=32, return_all=False,
-            remat=False):
+def forward(params, cfg, tokens, state, *, chunk=32, policy=None,
+            return_all=False, remat=False):
     """tokens [B, T]; state stacked [L, ...]. Returns (logits, new_state):
     f32 logits [B, Vp] at the last token ([B, T, Vp] with
     ``return_all``).  ``remat``: each layer is a checkpoint region
     (training)."""
-    x = rms_norm(params["embed"][tokens], params["ln0"], cfg.norm_eps)
+    x = rms_norm(embed_rows(params["embed"], tokens, policy), params["ln0"], cfg.norm_eps)
     new = {k: [] for k in state}
     lps = layer_list(params["blocks"], cfg.n_layers)
     for l in range(cfg.n_layers):
         x, s2 = maybe_remat(lambda x, l=l: ssm.rwkv6_layer(      # l bound now: the
             lps[l], cfg, x, {k: t[l] for k, t in state.items()},  # backward reruns it
-            chunk=chunk), x, remat)
+            chunk=chunk, policy=policy), x, remat)
         for k, t in s2.items():
             new[k].append(t)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     if not return_all:
         x = x[:, -1]
-    return unembed(params, cfg, x), {k: torch.stack(t) for k, t in new.items()}
+    return unembed(params, cfg, x, policy), {k: torch.stack(t) for k, t in new.items()}
 
 
 def train_logits(params, cfg, batch, *, remat=False):
@@ -88,20 +99,23 @@ def train_logits(params, cfg, batch, *, remat=False):
     return logits, torch.zeros((), device=logits.device)
 
 
-def prefill(params, cfg, tokens, *, state=None):
-    """tokens [B, T], from ``state`` (None: zeros). Returns
-    (last_logits [B, Vp], state)."""
+def prefill(params, cfg, tokens, *, tp=1, policy=None, chunk=32, state=None):
+    """tokens [B, T], from ``state`` (None: zeros, of the rank's heads on
+    a mesh). Returns (last_logits [B, Vp], state)."""
+    del tp
     if state is None:
-        state = init_state(cfg, tokens.shape[0], params["embed"].dtype, tokens.device)
-    return forward(params, cfg, tokens, state)
+        state = init_state(cfg, tokens.shape[0], params["embed"].dtype, tokens.device,
+                           1 if policy is None else policy.tp)
+    return forward(params, cfg, tokens, state, chunk=chunk, policy=policy)
 
 
-def decode(params, cfg, tokens, state):
+def decode(params, cfg, tokens, state, *, tp=1, policy=None):
     """tokens [B] -> (logits [B, Vp], state). One recurrent step."""
-    return forward(params, cfg, tokens[:, None], state, chunk=1)
+    del tp
+    return forward(params, cfg, tokens[:, None], state, chunk=1, policy=policy)
 
 
-def mixed(params, cfg, mb, p_state, d_state):
+def mixed(params, cfg, mb, p_state, d_state, *, tp=1, policy=None):
     """Splitwiser step for the state-cache family: prefill chunks and
     decode tokens in one call.  The projection GEMMs are not merged
     across phases (the token shift and the scan separate the phases
@@ -109,8 +123,9 @@ def mixed(params, cfg, mb, p_state, d_state):
     mb: p_tokens [P, C]; d_tokens [B].
     Returns (p_logits [P, Vp], d_logits [B, Vp], p_state, d_state).
     """
+    del tp
     p_logits, p_state = forward(params, cfg, mb["p_tokens"], p_state,
-                                chunk=min(32, mb["p_tokens"].shape[1]))
+                                chunk=min(32, mb["p_tokens"].shape[1]), policy=policy)
     d_logits, d_state = forward(params, cfg, mb["d_tokens"][:, None], d_state,
-                                chunk=1)
+                                chunk=1, policy=policy)
     return p_logits, d_logits, p_state, d_state

@@ -24,6 +24,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import layers
+
 Axis = Union[None, str, Tuple[str, ...]]
 
 # collectives issued in this process: "<kind>" calls and "<kind>_bytes"
@@ -104,6 +106,19 @@ def all_reduce(x, policy: Optional[Policy], axis: str = "model"):
     counts["all_reduce_bytes"] += x.numel() * x.element_size()
     dist.all_reduce(x, group=policy.groups[axis])
     return x
+
+
+def rms_norm(x, w, eps, policy: Optional[Policy]):
+    """``layers.rms_norm`` over a last dim sharded over `model` (each rank
+    holds its ``x`` and ``w`` columns): the mean of squares adds the
+    ranks' partial sums, one ``all_reduce`` of a ``[..., 1]`` tensor.
+    Without a policy it is ``layers.rms_norm`` itself."""
+    if policy is None:
+        return layers.rms_norm(x, w, eps)
+    xf = x.float()
+    ss = all_reduce(xf.square().sum(-1, keepdim=True), policy)
+    y = xf * torch.rsqrt(ss / (x.shape[-1] * policy.tp) + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
 
 
 def all_gather(x, policy: Optional[Policy], axis: str = "model", dim: int = -1):

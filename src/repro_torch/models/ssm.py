@@ -12,6 +12,21 @@ chunkwise WKV scan ``rwkv6_wkv_chunk``, plain PyTorch on every device
 (the reference's scan is jnp under ``lax.scan``, not a Pallas kernel);
 decode is the same scan at ``chunk=1``.
 All decay exponentials are exp(delta log P) with delta log P <= 0.
+
+On a mesh (a ``policy`` from ``models/sharding.py``) both blocks run on
+the rank's shards, as ``launch/shardings.py`` places them.  Mamba2: the
+rank's ``d_in / tp`` channels of ``wz``/``wx``/``conv_x``/``norm``/
+``out_proj`` are its ``ssm_heads / tp`` heads (a split head raises
+``ValueError``); ``wB``/``wC``/``wdt`` and the per-head vectors stay
+whole, and the rank takes its heads' slice of ``wdt``, ``A_log``,
+``D_skip`` and ``dt_bias``; the gated norm sums its mean of squares over
+``model`` and ``out_proj``'s partial sums are reduced.  RWKV-6: the
+rank's ``D / tp`` channels of ``wr``/``wk``/``wv``/``wg`` are its heads
+(``u``, ``w0``, ``w_b``, ``ln_x`` are its slices), the token-shift mixes
+and ``w_a`` stay whole, and ``wo`` and the channel mix's ``wv`` are
+row-parallel with one ``all_reduce`` each.  States hold the rank's heads
+(``*_state_shapes(..., tp=)``).  With ``policy=None`` nothing of this
+runs.
 """
 from __future__ import annotations
 
@@ -22,7 +37,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.launch.costs import kernel_region
+from repro_torch.models import sharding
 from repro_torch.models.layers import dense_init, head_rms_norm, rms_norm
+from repro_torch.models.sharding import all_reduce
 
 
 # Projections are stored separately (z/x/B/C/dt), as in the reference.
@@ -91,6 +108,33 @@ def mamba2_chunk_scan(xh, Bc, Cc, la, h0, chunk=64):
     return ops.ssd_chunk_scan(xh, la, Bc, Cc, h0, chunk=chunk)
 
 
+def mamba2_heads(cfg, tp=1, rank=0):
+    """(first head, heads) of model rank ``rank`` of ``tp``: the Mamba2
+    heads its ``d_in / tp`` channels hold.  Raises ``ValueError`` where
+    those channels would split a head."""
+    d_in, H = cfg.ssm_expand * cfg.d_model, cfg.ssm_heads
+    if H % tp or d_in % tp:
+        raise ValueError(
+            f"Mamba2 over tp={tp}: d_in={d_in} channels in {H} heads of "
+            f"{d_in // H} do not split into whole heads a rank")
+    return rank * (H // tp), H // tp
+
+
+def _head_params(lp, cfg, policy):
+    """``lp`` with ``wdt``, ``A_log``, ``D_skip`` and ``dt_bias`` cut to
+    this rank's heads (``lp`` as it is without a policy), and that head
+    count."""
+    if policy is None:
+        return lp, cfg.ssm_heads
+    h0, n = mamba2_heads(cfg, policy.tp, policy.index("model"))
+    if lp["wx"].shape[-1] * policy.tp != cfg.ssm_expand * cfg.d_model:
+        raise ValueError(f"wx {tuple(lp['wx'].shape)} is not a 1/{policy.tp} "
+                         "shard of d_in over model")
+    cut = {"wdt": lp["wdt"][..., h0:h0 + n]}
+    cut.update({k: lp[k][h0:h0 + n] for k in ("A_log", "D_skip", "dt_bias")})
+    return dict(lp, **cut), n
+
+
 def _dt_decay(lp, dt):
     """softplus(dt + dt_bias) [.., H] f32 and A = exp(A_log) [H] f32.
     (torch's softplus is the identity above 20, JAX's is not: the two
@@ -99,14 +143,14 @@ def _dt_decay(lp, dt):
     return dt, torch.exp(lp["A_log"].float())
 
 
-def mamba2_block(lp, cfg, x, conv_state, ssm_state, chunk=64):
+def mamba2_block(lp, cfg, x, conv_state, ssm_state, chunk=64, policy=None):
     """Full-sequence (chunked) Mamba2 block. x [B,T,D].
 
     conv_state: dict(x [B,W-1,d_in], B [B,W-1,N], C [B,W-1,N]);
-    ssm_state [B,H,P,N] f32 or None (zeros).
-    Returns (y [B,T,D], new_conv_state, new_ssm_state).
+    ssm_state [B,H,P,N] f32 or None (zeros); on a mesh d_in and H are
+    the rank's.  Returns (y [B,T,D], new_conv_state, new_ssm_state).
     """
-    H = cfg.ssm_heads
+    lp, H = _head_params(lp, cfg, policy)
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
     z, (xc, Bc, Cc), dt = _mamba_proj(lp, h, cfg)
     xc, sx = _causal_conv(xc, conv_state["x"], lp["conv_x"], lp["conv_b_x"])
@@ -119,16 +163,18 @@ def mamba2_block(lp, cfg, x, conv_state, ssm_state, chunk=64):
                                      Bc, Cc, la, ssm_state, chunk)
     y = y + xh * lp["D_skip"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(*x.shape[:-1], -1)                           # [B,T,d_in]
-    y = rms_norm(y * F.silu(z), lp["norm"], cfg.norm_eps)
-    return x + y @ lp["out_proj"], {"x": sx, "B": sB, "C": sC}, ssm_state
+    y = sharding.rms_norm(y * F.silu(z), lp["norm"], cfg.norm_eps, policy)
+    return (x + all_reduce(y @ lp["out_proj"], policy), {"x": sx, "B": sB, "C": sC},
+            ssm_state)
 
 
-def mamba2_decode(lp, cfg, x, conv_state, ssm_state):
-    """One-token recurrent Mamba2 step. x [B,D].
+def mamba2_decode(lp, cfg, x, conv_state, ssm_state, policy=None):
+    """One-token recurrent Mamba2 step. x [B,D]; on a mesh the states
+    hold the rank's channels and heads.
 
     Returns (y [B,D], new_conv_state, new_ssm_state).
     """
-    H = cfg.ssm_heads
+    lp, H = _head_params(lp, cfg, policy)
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
     z, (xc, Bc, Cc), dt = _mamba_proj(lp, h, cfg)
 
@@ -148,18 +194,22 @@ def mamba2_decode(lp, cfg, x, conv_state, ssm_state):
     y = torch.einsum("bhpn,bn->bhp", h_new, Cc.float())
     y = y + xh.float() * lp["D_skip"].float()[None, :, None]
     y = y.reshape(x.shape[0], -1).to(x.dtype)
-    y = rms_norm(y * F.silu(z), lp["norm"], cfg.norm_eps)
-    return x + y @ lp["out_proj"], {"x": sx, "B": sB, "C": sC}, h_new.to(ssm_state.dtype)
+    y = sharding.rms_norm(y * F.silu(z), lp["norm"], cfg.norm_eps, policy)
+    return (x + all_reduce(y @ lp["out_proj"], policy), {"x": sx, "B": sB, "C": sC},
+            h_new.to(ssm_state.dtype))
 
 
-def mamba2_state_shapes(cfg, batch):
-    """(conv_state shape dict, ssm_state shape)."""
+def mamba2_state_shapes(cfg, batch, tp=1):
+    """(conv_state shape dict, ssm_state shape); with ``tp``, a model
+    rank's: its d_in / tp channels of ``x`` and its heads (``B``/``C``
+    whole)."""
     d_in = cfg.ssm_expand * cfg.d_model
     Pd = d_in // cfg.ssm_heads
+    _, H = mamba2_heads(cfg, tp)
     W = cfg.ssm_conv_width
-    conv = {"x": (batch, W - 1, d_in), "B": (batch, W - 1, cfg.ssm_state),
+    conv = {"x": (batch, W - 1, d_in // tp), "B": (batch, W - 1, cfg.ssm_state),
             "C": (batch, W - 1, cfg.ssm_state)}
-    return conv, (batch, cfg.ssm_heads, Pd, cfg.ssm_state)
+    return conv, (batch, H, Pd, cfg.ssm_state)
 
 
 # ====================================================================== RWKV6
@@ -249,14 +299,24 @@ def rwkv6_wkv_chunk(r, k, v, lw, u, S0, chunk=32):
     return o, S
 
 
-def rwkv6_tmix(lp, cfg, x, x_last, S0, chunk=32):
-    """Time-mix over a span. x [B,T,D]; x_last [B,D]; S0 [B,H,K,V].
+def _rwkv_heads(lp, cfg, policy):
+    """This rank's WKV heads: ``wr``'s output columns over the head dim."""
+    D, hd = cfg.d_model, cfg.rwkv_head_dim
+    tp = 1 if policy is None else policy.tp
+    if (D // hd) % tp or lp["wr"].shape[-1] * tp != D:
+        raise ValueError(f"RWKV-6 over tp={tp}: wr {tuple(lp['wr'].shape)} is not "
+                         f"the rank's whole heads of {D // hd} heads of {hd}")
+    return lp["wr"].shape[-1] // hd
+
+
+def rwkv6_tmix(lp, cfg, x, x_last, S0, chunk=32, policy=None):
+    """Time-mix over a span. x [B,T,D]; x_last [B,D]; S0 [B,H,K,V]
+    (on a mesh the rank's heads).
 
     Returns (out [B,T,D], new_x_last [B,D], S_out f32).
     """
-    D = cfg.d_model
     hd = cfg.rwkv_head_dim
-    H = D // hd
+    H = _rwkv_heads(lp, cfg, policy)
     xp = _shifted(x, x_last)
     rx, kx, vx, gx, wx = (_lerp(x, xp, lp[m])
                           for m in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"))
@@ -271,32 +331,35 @@ def rwkv6_tmix(lp, cfg, x, x_last, S0, chunk=32):
     o, S_out = rwkv6_wkv_chunk(r, k, v, lw, lp["u"], S0, chunk)
     # per-head RMS norm (RWKV's GroupNorm over heads)
     o = head_rms_norm(o.to(x.dtype), lp["ln_x"].reshape(H, hd), cfg.norm_eps)
-    o = o.reshape(*x.shape[:-1], D) * g.to(x.dtype)
-    return o @ lp["wo"], x[:, -1], S_out
+    o = o.reshape(*x.shape[:-1], H * hd) * g.to(x.dtype)
+    return all_reduce(o @ lp["wo"], policy), x[:, -1], S_out
 
 
-def rwkv6_cmix(lp, cfg, x, x_last):
+def rwkv6_cmix(lp, cfg, x, x_last, policy=None):
     """Channel-mix. Returns (out [B,T,D], new_x_last)."""
     xp = _shifted(x, x_last)
     rx, kx = _lerp(x, xp, lp["mu_r"]), _lerp(x, xp, lp["mu_k"])
     r = torch.sigmoid(rx @ lp["wr"])
     kk = torch.square(F.relu(kx @ lp["wk"]))
-    return r * (kk @ lp["wv"]), x[:, -1]
+    return r * all_reduce(kk @ lp["wv"], policy), x[:, -1]
 
 
-def rwkv6_layer(lp, cfg, x, state, chunk=32):
+def rwkv6_layer(lp, cfg, x, state, chunk=32, policy=None):
     """One RWKV6 layer over a span. state = dict(x_tm, x_cm [B,D], S [B,H,K,V])."""
     o, x_tm, S = rwkv6_tmix(lp["tmix"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
-                            state["x_tm"], state["S"], chunk)
+                            state["x_tm"], state["S"], chunk, policy)
     x = x + o
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    o2, x_cm = rwkv6_cmix(lp["cmix"], cfg, h, state["x_cm"])
+    o2, x_cm = rwkv6_cmix(lp["cmix"], cfg, h, state["x_cm"], policy)
     x = x + o2
     return x, {"x_tm": x_tm, "x_cm": x_cm, "S": S}
 
 
-def rwkv6_state_shapes(cfg, batch):
+def rwkv6_state_shapes(cfg, batch, tp=1):
+    """State shapes; with ``tp``, a model rank's (its heads of ``S``)."""
     D = cfg.d_model
     hd = cfg.rwkv_head_dim
     H = D // hd
-    return {"x_tm": (batch, D), "x_cm": (batch, D), "S": (batch, H, hd, hd)}
+    if H % tp:
+        raise ValueError(f"RWKV-6 over tp={tp}: {H} heads do not split evenly")
+    return {"x_tm": (batch, D), "x_cm": (batch, D), "S": (batch, H // tp, hd, hd)}

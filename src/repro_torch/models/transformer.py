@@ -198,18 +198,22 @@ def _vocab_start(table, policy):
     return 0 if policy is None else policy.index("model") * table.shape[0]
 
 
-def embed(params, cfg, tokens, policy=None):
-    """Token rows of ``embed``; on a mesh, the rank's vocab rows masked to
-    the tokens they hold, summed over ``model``."""
-    table = params["embed"]
+def embed_rows(table, tokens, policy=None):
+    """Rows of ``table`` [V(/tp), D] for ``tokens``; on a mesh, the rank's
+    vocab rows masked to the tokens they hold, summed over ``model``."""
     if policy is None:
-        x = table[tokens]
-    else:
-        local = tokens.long() - _vocab_start(table, policy)
-        hit = (local >= 0) & (local < table.shape[0])
-        x = table[local.clamp(0, table.shape[0] - 1)]
-        x = all_reduce(torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                                   device=x.device)), policy)
+        return table[tokens]
+    local = tokens.long() - _vocab_start(table, policy)
+    hit = (local >= 0) & (local < table.shape[0])
+    x = table[local.clamp(0, table.shape[0] - 1)]
+    return all_reduce(torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device)), policy)
+
+
+def embed(params, cfg, tokens, policy=None):
+    """Token rows of ``embed`` (vocab-parallel on a mesh, ``embed_rows``),
+    scaled by sqrt(d_model) where the config says so."""
+    x = embed_rows(params["embed"], tokens, policy)
     if cfg.emb_scale_by_sqrt_dim:
         x = x * math.sqrt(cfg.d_model)
     return x

@@ -4,8 +4,8 @@
 - Placements: ``param_pspecs`` equals the reference's leaf for leaf for
   every assigned arch, at the production profile (tp = 16, FSDP over 16
   data ranks) and at tp = 2, on the reference's parameter shapes
-  (``jax.eval_shape``, no devices); every placed dim divides, and the
-  transformer family's ``init_params(tp=16)`` has the reference's shapes.
+  (``jax.eval_shape``, no devices); every placed dim divides, and every
+  family's ``init_params(tp=16)`` has the reference's shapes.
 - Entry points: ``make_mesh`` needs a card unless asked for the CPU, and
   its backend is explicit.
 - Whole steps, reduced qwen3 (vocab 200): prefill, 4 greedy decode steps,
@@ -83,8 +83,7 @@ def test_param_pspecs_match_reference(arch, profile):
     assert n_placed > 0
 
 
-@pytest.mark.parametrize("arch", [a for a in ASSIGNED
-                                  if jax_get_model(a).cfg.family in ("dense", "moe", "vlm")])
+@pytest.mark.parametrize("arch", ASSIGNED)
 def test_init_params_padded_shapes_match_reference(arch):
     """The port's ``init_params(tp=16)`` has the reference's padded
     shapes, and ``shard_params`` cuts them into the sixteenth a rank its

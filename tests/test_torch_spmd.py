@@ -19,7 +19,7 @@ model on a mesh against the reference, on the CPU.
   across shards; ``spmd.py`` says why the port does not).  Logits within
   1e-4, greedy tokens and so the drops equal, pages within 1e-5 a shard.
 - The schemes not ported raise ``NotImplementedError`` naming their
-  ROADMAP item.
+  ROADMAP item; the other four families' sharded cells build.
 """
 import dataclasses
 import os
@@ -214,9 +214,15 @@ def test_schemes_not_ported_raise(meshes):
         spmd.make_sharded_moe_fn(mesh, cfg, tp=1, fsdp_gather=True)
     with pytest.raises(NotImplementedError, match="item 16"):
         steps.build_cell("qwen3-0.6b", "train_4k", mesh)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        steps.build_decode("qwen3-0.6b", scheme="2d", mesh=mesh)
+    # the other four families' cells build on the 1 x 1 mesh (ROADMAP item 15)
     for arch in ("zamba2-7b", "rwkv6-7b", "seamless-m4t-medium", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            steps.build_prefill(arch, mesh=mesh)
+        cells = [steps.build_prefill(arch, mesh=mesh), steps.build_decode(arch, mesh=mesh)]
+        if arch == "internvl2-2b":
+            cells.append(steps.build_mixed(arch, mesh=mesh))
+        for cell in cells:
+            assert cell["note"].endswith("mesh (1, 1)"), cell["note"]
     hook = spmd.make_sharded_decode_attn(mesh, kv_int8=True)
     with pytest.raises(TypeError, match="kv_int8=True"):
         hook(torch.zeros(1, 1, 2, 16), torch.zeros(4, 4, 1, 16), torch.zeros(4, 4, 1, 16),
