@@ -6,7 +6,7 @@
     python3 chip_smoke.py --train-only  # phases 1-2 and 7: build + training
     python3 chip_smoke.py --roofline-only  # phases 1-2 and 8: build + roofline
     python3 chip_smoke.py --sampling-only  # phases 1-2 and 9: build + sampled decoding
-    python3 chip_smoke.py --mesh-only   # phases 1-2 and 10: build + the mesh
+    python3 chip_smoke.py --mesh-only   # phases 1-2, 10 and 11: build + the mesh
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: device name and count, ``nvidia-smi`` name and power limit,
@@ -207,6 +207,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      after the decode steps.
      Logged per rank: the step walls, the collectives a step with their
      bytes, the backend.
+ 11. mesh training (``launch/steps.py::train_mesh``, the sharded train
+     step of the transformer family), f32 with TF32 off, in the same
+     process groups as phase 10: NCCL at world size 1, mesh (1, 1),
+     qwen3-0.6b at full width and depth, B = 4 x T = 512, the ``tp``
+     scheme, 3 steps; then on the two gloo ranks qwen3-0.6b at full width
+     and 4 of 28 layers, B = 4 x T = 256, 2 steps, at (1, 2) and (2, 1)
+     (``tp``: at (2, 1) every weight FSDP'd over data) and at (1, 2) in the
+     ``fsdp`` scheme, and olmoe-1b-7b at full width and 2 of 16 layers, B =
+     2 x T = 256, at (1, 2) (EP: 32 of 64 experts a rank) and (2, 1)
+     (experts FSDP'd, ``fsdp_gather``).  Each rank also runs the one-card step
+     (``make_grad_fn``/``apply_grads``) on the full state of the same seed
+     and the same batch (its MoE routed over each data shard's rows, and
+     its loss holding this rank's data shard's aux term with the
+     gradient of the shards' mean, as the mesh's and the reference's);
+     both optimizers then take the one-card gradients (as phase 7's
+     cross-device check).  Fatal at every step: the loss or the gnorm of
+     the mesh's own gradients beyond 1e-5 relative, a gradient leaf
+     beyond 1e-4 of the one-card leaf's max |g|, the params beyond 1e-4 of
+     the one-card params' slice, K2's training forward not launched.
+     Logged per rank: each step's wall, the collectives a step by kind
+     with their bytes, the peak memory, the gaps, K2's launches.
 
 Parts of phases 4-7 log their wall as ``time <part>: <s> s``.  The last
 three lines of standard output are the ``{"kernels": [...]}``
@@ -3587,8 +3608,8 @@ def mesh_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
     stream_table = torch.cat([dd * n_loc + b_loc * pmax + ar(p_loc * spages).reshape(p_loc, spages)
                               for dd in range(nd)]).to("cuda", torch.int32)
     rows, srows = range(d * b_loc, (d + 1) * b_loc), slice(d * p_loc, (d + 1) * p_loc)
-    # this shard's rows as tensors of their own: the kernels take 16-byte aligned tables
-    bt, st = seq_table[d * b_loc:(d + 1) * b_loc].clone(), stream_table[srows].clone()
+    # this shard's rows: views at a row offset, which the kernels take unaligned
+    bt, st = seq_table[d * b_loc:(d + 1) * b_loc], stream_table[srows]
     lens_t = torch.as_tensor(ctx[d * b_loc:(d + 1) * b_loc], device="cuda", dtype=torch.int32)
     _, KV_p, _, _, _ = T.gqa_layout(cfg.n_heads, cfg.n_kv_heads, tp)
     kvl = KV_p // tp
@@ -3916,6 +3937,145 @@ def mesh_state_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
     return res
 
 
+# phase 11: mesh training.  A case: arch, config overrides (a cut depth),
+# mesh shape, scheme, B, T, steps.
+TRAIN_NCCL_CASES = (("qwen3-0.6b", {}, (1, 1), "tp", 4, 512, 3),)
+TRAIN_GLOO_CASES = (("qwen3-0.6b", {"n_layers": 4}, (1, 2), "tp", 4, 256, 2),
+                    ("qwen3-0.6b", {"n_layers": 4}, (2, 1), "tp", 4, 256, 2),
+                    ("qwen3-0.6b", {"n_layers": 4}, (1, 2), "fsdp", 4, 256, 2),
+                    ("olmoe-1b-7b", {"n_layers": 2}, (1, 2), "tp", 2, 256, 2),
+                    ("olmoe-1b-7b", {"n_layers": 2}, (2, 1), "tp", 2, 256, 2))
+TRAIN_MESH_TOL = dict(loss=1e-5, gnorm=1e-5, grad=1e-4, params=1e-4)
+
+
+def shard_moe_fn(torch, cfg, n_data, d):
+    """The one-card counterpart of the mesh's MoE hook at ``n_data`` data
+    shards: each shard's rows routed over their own capacity; the aux
+    loss's value data shard ``d``'s, its gradient that of the shards'
+    mean (the mesh's and the reference's)."""
+    from repro_torch.models.layers import act_fn
+    from repro_torch.models.moe import moe_apply
+    act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
+
+    def fn(lp, x2d):
+        ys, auxs = [], []
+        for part in x2d.chunk(n_data):
+            y, a = moe_apply(lp, part, n_experts=cfg.n_experts, top_k=cfg.top_k, act=act,
+                             capacity_factor=cfg.moe_capacity_factor)
+            ys.append(y)
+            auxs.append(a)
+        mean = torch.stack(auxs).mean()
+        return torch.cat(ys), mean + (auxs[d] - mean).detach()
+    return fn
+
+
+def mesh_train_case(torch, mesh, backend, arch, over, scheme, B, T, n_steps):
+    """One phase-11 case on this rank (see the header): the mesh's train
+    steps, each checked against the one-card step on the full state."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_train_data_fn
+    from repro_torch.launch import steps
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.models import sharding
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw_init, clip_by_global_norm
+    from repro_torch.train.trainer import apply_grads, init_state, make_grad_fn
+    cfg = replace(get_config(arch), **over)
+    model = get_model(arch, cfg)
+    tp, policy, moe_fn = steps.train_mesh(model, mesh, scheme)
+    nd, nm = policy.size("data"), policy.size("model")
+    label = (f"mesh train {backend} {nd}x{nm} {scheme} {arch}"
+             + (f" {cfg.n_layers} layers" if over else "") + f" rank {torch.distributed.get_rank()}")
+    tcfg = TrainConfig(global_batch=B, seq_len=T, warmup_steps=0, total_steps=10,
+                       remat=True, loss_impl="chunked")
+    full = init_state(model, torch.Generator(device="cuda").manual_seed(0), tcfg,
+                      device="cuda", tp=tp)
+    specs = policy.params
+    local = {"params": shard_params(full["params"], specs, policy)}
+    local["opt"] = adamw_init(local["params"], False, specs, policy)
+    names = leaf_names(local["params"])
+    data_fn = make_train_data_fn(cfg, tcfg)
+    n_b, i_b = policy.size(policy.batch_axis), policy.index(policy.batch_axis)
+    one_moe = shard_moe_fn(torch, cfg, nd, policy.index("data")) if cfg.is_moe else None
+    one_grad = make_grad_fn(model, tcfg, tp=tp, moe_fn=one_moe)
+    mesh_grad = make_grad_fn(model, tcfg, tp=tp, policy=policy, moe_fn=moe_fn)
+    gaps = dict(loss=0.0, gnorm=0.0, grad=0.0, params=0.0)
+    grad_leaf, walls, mesh_launches, coll = "", [], {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    def one_card_step(batch):
+        """The one-card step on the full state: (loss, gnorm, each leaf's max
+        |g|, the gradients sliced to this rank's shards); the full
+        gradients freed."""
+        nonlocal full
+        l1, g1 = one_grad(full["params"], batch)
+        gmax = {n: float(g.abs().max()) for n, g in zip(names, _leaves(g1))}
+        g1_local = shard_params(g1, specs, policy)
+        full, gn1, _ = apply_grads(tcfg, full, g1)
+        return l1, gn1, gmax, g1_local
+
+    for i in range(n_steps):
+        batch = {k: v.to("cuda") for k, v in data_fn(i).items()}
+        l1, gn1, gmax, g1_local = in_turns(torch, one_card_step, batch)
+        rows = {k: v[i_b * (B // n_b):(i_b + 1) * (B // n_b)] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        zero_launches()
+        c0 = dict(sharding.counts)
+        t0 = time.perf_counter()
+        lm, gm = mesh_grad(local["params"], rows)
+        local = apply_grads(tcfg, local, g1_local, policy)[0]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        for k, v in read_launches().items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + v
+        for k, v in sharding.counts.items():
+            coll[k] = coll.get(k, 0) + (v - c0.get(k, 0)) / n_steps
+        gnm = clip_by_global_norm(gm, tcfg.grad_clip, specs, policy)[1]   # its own gradients
+        torch.cuda.empty_cache()          # for the other rank's one-card step
+        gaps["loss"] = max(gaps["loss"], abs(float(lm) - float(l1)) / abs(float(l1)))
+        gaps["gnorm"] = max(gaps["gnorm"], abs(float(gnm) - float(gn1)) / abs(float(gn1)))
+        for n, a, b in zip(names, _leaves(gm), _leaves(g1_local)):
+            gap = float((a - b).abs().max()) / max(gmax[n], 1e-30)
+            if gap >= gaps["grad"]:
+                gaps["grad"], grad_leaf = gap, n
+        want = shard_params(full["params"], specs, policy)
+        gaps["params"] = max(gaps["params"], max(
+            float((a - b).abs().max()) for a, b in zip(_leaves(local["params"]),
+                                                      _leaves(want))))
+        del gm, g1_local, want
+    res = dict(label=label, backend=backend, mesh=[nd, nm], scheme=scheme, tp=tp,
+               rank=torch.distributed.get_rank(), arch=arch, n_layers=cfg.n_layers,
+               batch=B, seq=T, steps=n_steps, step_wall_s=walls, gaps=gaps, grad_leaf=grad_leaf,
+               collectives_a_step={k: v for k, v in coll.items() if v},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+               launches={k: v for k, v in mesh_launches.items() if v},
+               note=("collectives staged through host (gloo); the peak holds the one-card "
+                     "state too" if backend == "gloo" else
+                     "NCCL at world size 1; the peak holds the one-card state too"))
+    log(f"phase 11 {json.dumps(res)}")
+    bad = {k: v for k, v in gaps.items() if not v <= TRAIN_MESH_TOL[k]}
+    if bad:
+        fail(f"phase 11 {label}: beyond {TRAIN_MESH_TOL}: {bad} (grad leaf {grad_leaf})")
+    if not mesh_launches.get("flash_attention_lse"):
+        fail(f"phase 11 {label}: K2's training forward not launched: {mesh_launches}")
+    del full, local
+    return res
+
+
+def in_turns(torch, fn, *args):
+    """``fn(*args)`` on each rank of the world in turn, the cache released
+    after each: the gloo ranks share the one card, and each one-card
+    step holds a second full training state while it runs (olmoe-1b-7b's
+    two full-width layers: ~13 GB of f32 state, as much again while AdamW
+    writes the new one)."""
+    out = None
+    for r in range(torch.distributed.get_world_size()):
+        if r == torch.distributed.get_rank():
+            out = fn(*args)
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return out
+
+
 def mesh_run(torch, mesh, backend, case):
     """One case of phase 10's lists on this rank: the transformer family
     through ``mesh_case``, the others through ``mesh_state_case``."""
@@ -3944,15 +4104,25 @@ def mesh_rank(rank, world, init, out_dir):
                 results.append(mesh_run(torch, meshes[shape], "gloo", case))
                 gc.collect()
                 torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train = []
+        for arch, over, shape, *rest in TRAIN_GLOO_CASES:
+            train.append(mesh_train_case(torch, meshes[shape], "gloo", arch, over, *rest))
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"time phase 11 gloo rank {rank}: {time.perf_counter() - t0:.1f} s")
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(results))
+        Path(out_dir, f"train{rank}.json").write_text(json.dumps(train))
     finally:
         dist.destroy_process_group()
 
 
 def phase_mesh(torch):
-    """Phase 10: NCCL at one rank in this process, then two gloo ranks
-    spawned on the card.  Returns each rank's path (label -> launches and
-    steps) for the kernels line."""
+    """Phases 10 and 11: NCCL at one rank in this process, then two gloo
+    ranks spawned on the card, each running the serving cases, then the
+    training cases.  Returns each rank's serving path (label -> launches
+    and steps) for the kernels line, and phase 11's results (label ->
+    result)."""
     import tempfile
     import torch.distributed as dist
     import torch.multiprocessing as mp
@@ -3968,6 +4138,10 @@ def phase_mesh(torch):
                     results.append(mesh_run(torch, make_mesh(shape), "nccl", case))
                     gc.collect()
                     torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            train = [mesh_train_case(torch, make_mesh(shape), "nccl", arch, over, *rest)
+                     for arch, over, shape, *rest in TRAIN_NCCL_CASES]
+            log(f"time phase 11 nccl: {time.perf_counter() - t1:.1f} s")
         finally:
             dist.destroy_process_group()
     gc.collect()
@@ -3981,8 +4155,9 @@ def phase_mesh(torch):
             fail(f"phase 10: a gloo rank failed: {e}")
         for r in range(2):
             results += json.loads(Path(tmp, f"rank{r}.json").read_text())
-    log(f"time phase 10 gloo (two ranks on the card): {time.perf_counter() - t1:.1f} s")
-    return {r["label"]: r for r in results}
+            train += json.loads(Path(tmp, f"train{r}.json").read_text())
+    log(f"time phases 10-11 gloo (two ranks on the card): {time.perf_counter() - t1:.1f} s")
+    return {r["label"]: r for r in results}, {r["label"]: r for r in train}
 
 
 # ------------------------------------------------------------------ main ---
@@ -4064,7 +4239,7 @@ def main() -> int:
     ap.add_argument("--sampling-only", action="store_true",
                     help="build, then the sampled-decoding phase only (phases 1, 2 and 9)")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="build, then the mesh phase only (phases 1, 2 and 10)")
+                    help="build, then the mesh phases only (phases 1, 2, 10 and 11)")
     ap.add_argument("--train-determinism", metavar="DIR",
                     help=argparse.SUPPRESS)   # phase 7's subprocess (train_determinism)
     args = ap.parse_args()
@@ -4201,11 +4376,12 @@ def main() -> int:
     paths["qwen3 f32 sampled"] = phase_sampling(torch, lint)
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 10. the mesh, with the earlier phases' models released
+    # 10-11. the mesh, serving then training, with the earlier phases' models released
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(phase_mesh(torch))
-    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    mesh_paths, mesh_train = phase_mesh(torch)
+    paths.update(mesh_paths)
+    log(f"phases 10-11 done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -4242,6 +4418,11 @@ def main() -> int:
             device_ms=c["device_ms"], library_device_ms=c["library_device_ms"],
             **(train_launches(train, cases, kname)
                if kname in ("flash_attention", "ssd_scan") else {}),
+            **({"launches_mesh_train_by_rank": {
+                p: v["launches"].get("flash_attention_lse", 0) for p, v in mesh_train.items()},
+                "launches_mesh_train_per_step": {
+                p: v["launches"].get("flash_attention_lse", 0) / v["steps"]
+                for p, v in mesh_train.items()}} if kname == "flash_attention" else {}),
             cases=[{k: v for k, v in x.items() if k != "kernel"}
                    for x in cases if x["kernel"] == kname]))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -11,9 +11,11 @@ checkpoint.  numpy has no bfloat16: bf16 leaves are stored widened to
 f32 and listed in the manifest under ``bfloat16``, and ``load`` narrows
 them back.
 
-The reference's ``relayout_attention_params`` (re-laying padded GQA
-heads between tensor-parallel degrees) has no counterpart: the port has
-no tensor parallelism.
+``relayout_attention_params`` re-lays a transformer checkpoint's padded
+GQA heads (``wq``/``wo``) from one tensor-parallel degree's layout to
+another's, as the reference's does (elastic resharding).  On a mesh each
+rank's ``Trainer`` writes its own shards under ``ckpt_dir/rank<r>`` in
+this format (``train/trainer.py``).
 """
 from __future__ import annotations
 
@@ -175,3 +177,33 @@ class AsyncCheckpointer:
             self._thread = None
             if self._error is not None:
                 raise RuntimeError(f"checkpoint write failed: {self._error}") from self._error
+
+
+# --------------------------------------------------------------- elastic ---
+def relayout_attention_params(params, cfg, tp_from: int, tp_to: int):
+    """Re-layout padded GQA tensors (wq/wo) between TP degrees.
+
+    Real q heads are extracted with the source layout's q_map and
+    re-scattered with the target layout's (padded slots zero). All other
+    tensors are layout-independent and returned as they are. Works on the
+    transformer family's param tree (full tensors, not a rank's shards)."""
+    from repro_torch.models.transformer import gqa_layout
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    qm_from = torch.as_tensor(gqa_layout(H, KV, tp_from)[2], dtype=torch.long)
+    Hp_to, _, qm_to, _, _ = gqa_layout(H, KV, tp_to)
+    qm_to = torch.as_tensor(qm_to, dtype=torch.long)
+
+    def relayout(blocks):
+        wq, wo = blocks["wq"], blocks["wo"]               # [L, D, H_p, hd], [L, H_p, hd, D]
+        src = torch.zeros(H, dtype=torch.long)
+        real = qm_from >= 0
+        src[qm_from[real]] = torch.nonzero(real)[:, 0]      # real head -> source slot
+        src, pick, keep = (t.to(wq.device) for t in (src, qm_to.clamp(min=0), qm_to >= 0))
+        out = dict(blocks)
+        out["wq"] = torch.where(keep[None, None, :, None], wq[:, :, src][:, :, pick], 0)
+        out["wo"] = torch.where(keep[None, :, None, None], wo[:, src][:, pick], 0)
+        return out
+
+    out = dict(params)
+    out["blocks"] = relayout(params["blocks"])
+    return out

@@ -129,6 +129,20 @@ def check_cuda_args(tensors: Dict[str, torch.Tensor], int32: Sequence[str],
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def index_arg(t: torch.Tensor) -> torch.Tensor:
+    """An int32 index argument (a block table, ``kv_lens``, ``q_pos``) as
+    the C interface reads it: ``t`` itself when contiguous and 16-byte
+    aligned, else a contiguous copy (the allocator aligns it).  A row
+    slice of a ``[B, 25]`` table at a row not divisible by 4 is
+    contiguous at an offset of 4 bytes a row: the reference's kernels
+    take it, so the wrappers copy these small arguments where
+    ``check_cuda_args`` would refuse them; the float operands and the
+    pages are never copied."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 TRAIN_ROUTE = ("train attention through ops.flash_attention_ckpt (K2 with its "
                "log-normalizer and the recompute backward)")
 

@@ -107,30 +107,33 @@ def _launch(symbol, argtypes, q, k, v, kv_lens, outs, scale, causal, window,
 
 
 def _on_card(q, k, v, kv_lens, name):
-    """Check a call for the CUDA kernel; False for CPU tensors (the plain
-    version runs)."""
+    """Check a call for the CUDA kernel: ``kv_lens`` as the kernel reads it
+    (``build.index_arg``), or None for CPU tensors (the plain version
+    runs)."""
     _check(q, k, v, kv_lens)
     if q.device.type == "cpu":
-        return False
+        return None
     build.refuse_grad(name, (q, k, v), build.TRAIN_ROUTE)
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {q.device}")
+    kv_lens = build.index_arg(kv_lens)
     build.check_cuda_args(dict(q=q, k=k, v=v, kv_lens=kv_lens), ("kv_lens",),
                           q.dtype, q.shape[-1])
-    return True
+    return kv_lens
 
 
 def flash_attention(q, k, v, kv_lens, *, scale: float, causal: bool = True,
                     window=None, softcap=None):
     """Flash attention, forward (see the module docstring for layouts)."""
-    if not _on_card(q, k, v, kv_lens, "flash_attention"):
+    card_lens = _on_card(q, k, v, kv_lens, "flash_attention")
+    if card_lens is None:
         return flash_attention_plain(q, k, v, kv_lens, scale=scale,
                                      causal=causal, window=window,
                                      softcap=softcap)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _launch(_SYMBOLS[q.dtype], _ARGTYPES, q, k, v, kv_lens, (out,), scale,
+    _launch(_SYMBOLS[q.dtype], _ARGTYPES, q, k, v, card_lens, (out,), scale,
             causal, window, softcap)
     global launches
     launches += 1
@@ -143,7 +146,8 @@ def flash_attention_lse(q, k, v, kv_lens, *, scale: float, causal: bool = True,
     ``flash_attention_ckpt`` calls it inside its ``torch.autograd.Function``
     (whose forward runs without grad); called directly on the card with
     inputs that require grad, it raises as :func:`flash_attention` does."""
-    if not _on_card(q, k, v, kv_lens, "flash_attention_lse"):
+    card_lens = _on_card(q, k, v, kv_lens, "flash_attention_lse")
+    if card_lens is None:
         return flash_attention_lse_plain(q, k, v, kv_lens, scale=scale,
                                          causal=causal, window=window,
                                          softcap=softcap)
@@ -153,7 +157,7 @@ def flash_attention_lse(q, k, v, kv_lens, *, scale: float, causal: bool = True,
     lse = torch.empty(B, KV, H // KV, T, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    _launch(_LSE_SYMBOLS[q.dtype], _LSE_ARGTYPES, q, k, v, kv_lens, (out, lse),
+    _launch(_LSE_SYMBOLS[q.dtype], _LSE_ARGTYPES, q, k, v, card_lens, (out, lse),
             scale, causal, window, softcap)
     global launches_lse
     launches_lse += 1

@@ -223,6 +223,7 @@ def paged_attention(q, k_pages, v_pages, block_table, kv_lens, q_pos, *,
                       "it serves decode and chunks only: " + build.TRAIN_ROUTE)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, got {q.device}")
+    block_table, kv_lens, q_pos = (build.index_arg(t) for t in (block_table, kv_lens, q_pos))
     build.check_cuda_args(
         dict(q=q, k_pages=k_pages, v_pages=v_pages, block_table=block_table,
              kv_lens=kv_lens, q_pos=q_pos),

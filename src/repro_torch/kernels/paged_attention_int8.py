@@ -132,6 +132,7 @@ def paged_attention_int8(q, k_pages, k_scales, v_pages, v_scales, block_table,
                       "it serves int8 pages only: " + build.TRAIN_ROUTE)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_int8 runs on cpu or cuda, got {q.device}")
+    block_table, kv_lens, q_pos = (build.index_arg(t) for t in (block_table, kv_lens, q_pos))
     build.check_cuda_args(
         dict(q=q, k_pages=k_pages, k_scales=k_scales, v_pages=v_pages,
              v_scales=v_scales, block_table=block_table, kv_lens=kv_lens,

@@ -16,9 +16,14 @@ and gloo on ``cpu``; gloo on ``cuda`` (collectives staged through host
 memory, several ranks on one card) is used only when asked for by name.
 The default group must run the backend the mesh resolves to.
 
+The flattened ``("data", "model")`` axes of the training ``fsdp``
+scheme (batch and ZeRO-3 over every rank) are the whole mesh: the policy
+runs their collectives over the world group, whose ranks are in the
+mesh's row-major order (``models/sharding.py::Policy.group``).
+
 ``make_production_mesh`` gives the reference's production shape and axes
 only: building it needs that many ranks, which no machine of this port
-has yet (ROADMAP queue 1).
+has yet (ROADMAP queue 1, item 19).
 """
 from __future__ import annotations
 

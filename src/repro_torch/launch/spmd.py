@@ -24,7 +24,27 @@ own shards:
    one ``all_reduce`` of ``y`` over `model`.  Capacity comes from the
    local token count: the rank's data shard's tokens.  Every model rank
    routes the same tokens over the full router, so the reference's mean
-   of ``aux`` over `model` is the local value and needs no collective.
+   of ``aux`` over `model` is the local value and needs no collective
+   (``sharding.grad_mean`` divides its gradient by tp, as the mean's
+   would be).  Where the experts are FSDP'd over `data` (the training
+   cells, and grok-1-314b's serving cells: the reference's
+   ``fsdp_gather=True``), the model gathers them with the rest of their
+   layer by their placements (``sharding.gather_weights``, inside the
+   layer's remat region), so their gradients leave through a
+   reduce-scatter and the hook sees whole D dims either way.  In
+   training the hook is Megatron's region:
+   ``copy_to`` of the tokens and the router, ``reduce_from`` of ``y``.
+   The aux loss is each data shard's own, as the reference's: its
+   ``shard_map`` declares ``aux`` replicated over `data`
+   (``out_specs=P()``, ``check_rep=False``) while each data shard
+   computes its own, so the loss the reference reports holds data shard
+   0's aux and its gradient is that of the mean over the data shards
+   (``train/trainer.py::make_loss_fn`` does the same; ROADMAP queue 3,
+   "Expected").
+3. ``make_gathered_moe_fn``: the training ``fsdp`` scheme's MoE, which
+   the reference leaves to GSPMD (its ``moe_fn`` is None there): every
+   rank's tokens gathered over the batch axes, routed with the global
+   capacity, and the rank's rows of the output kept.
 
 In the mixed step the reference splits the concatenated ``[prefill;
 decode]`` token array into contiguous blocks over data, so at data > 1
@@ -33,17 +53,17 @@ are each shard's own streams and decode rows (its engine pins a stream
 to a shard), the one-card step on that shard's rows.  The two agree
 wherever no expert overflows.
 
-Not ported yet (ROADMAP queue 1): the decode ``2d`` scheme (``flat_f``:
-expert d_ff sharded over every axis, tokens replicated), replicated
-decode batches (``shard_batch=False`` over data > 1) and the training
-profile's FSDP weight gather (``fsdp_gather``).
+Not ported yet (ROADMAP queue 1, item 17): the decode ``2d`` scheme
+(``flat_f``: expert d_ff sharded over every axis, tokens replicated) and
+replicated decode batches (``shard_batch=False`` over data > 1).
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import act_fn
 from repro_torch.models.moe import moe_apply
-from repro_torch.models.sharding import Policy, all_reduce, make_rules
+from repro_torch.models import sharding
+from repro_torch.models.sharding import Policy, copy_to, grad_mean, make_rules, reduce_from
 
 
 def _policy(mesh, data, model):
@@ -101,17 +121,15 @@ def make_sharded_chunk_attn(mesh, *, data=("data",), model="model",
 
 
 def make_sharded_moe_fn(mesh, cfg, *, tp: int, data=("data",), model="model",
-                        flat_f=False, fsdp_gather=False):
+                        flat_f=False):
     """EP/expert-TP MoE: local dispatch + expert GEMMs + one all_reduce.
-    ``lp`` holds the rank's expert slices (``launch/shardings.py``)."""
+    ``lp`` holds the rank's expert slices (``launch/shardings.py``), their
+    FSDP'd dims already gathered by the model (the reference's
+    ``fsdp_gather``)."""
     if flat_f:
         raise NotImplementedError(
             "the decode 2d scheme (flat_f: expert d_ff over every axis) is not "
             "ported: ROADMAP queue 1, item 17")
-    if fsdp_gather:
-        raise NotImplementedError(
-            "the training profile's FSDP expert gather (fsdp_gather) is not "
-            "ported: ROADMAP queue 1, item 16 (training with TP + FSDP)")
     policy = _policy(mesh, data, model)
     if policy.size(model) != tp:
         raise ValueError(f"tp={tp} but the mesh's {model!r} axis has "
@@ -122,9 +140,31 @@ def make_sharded_moe_fn(mesh, cfg, *, tp: int, data=("data",), model="model",
     gate_act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
 
     def fn(lp, x2d):
-        y, aux = moe_apply(lp, x2d, n_experts=E, top_k=cfg.top_k, act=gate_act,
-                           expert_offset=offset,
+        lp = dict(lp, router=copy_to(lp["router"], policy, model))
+        y, aux = moe_apply(lp, copy_to(x2d, policy, model), n_experts=E, top_k=cfg.top_k,
+                           act=gate_act, expert_offset=offset,
                            capacity_factor=cfg.moe_capacity_factor)
-        return all_reduce(y, policy, model), aux
+        return reduce_from(y, policy, model), grad_mean(aux, policy, model)
+
+    return fn
+
+
+def make_gathered_moe_fn(policy, cfg):
+    """The training ``fsdp`` scheme's MoE (tp = 1, every weight whole after
+    the layer's gathers): the tokens of every rank of the batch axes
+    gathered in rank order (the global batch's order), routed over the
+    global capacity as the reference's one ``moe_apply`` on the global
+    batch, this rank's rows of ``y`` kept.  The gather's backward sums the
+    ranks' token gradients; ``aux`` is the global batch's, on every rank."""
+    axis = policy.batch_axis
+    gate_act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
+
+    def fn(lp, x2d):
+        y, aux = moe_apply(lp, sharding.fsdp_gather(x2d, policy, axis, 0),
+                           n_experts=cfg.n_experts,
+                           top_k=cfg.top_k, act=gate_act,
+                           capacity_factor=cfg.moe_capacity_factor)
+        k = x2d.shape[0]
+        return y[policy.index(axis) * k:][:k], aux
 
     return fn

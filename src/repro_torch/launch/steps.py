@@ -26,13 +26,25 @@ every rank alike), and its local caches, drawn at their local shapes
 the global pool of ``_page_pool_shapes`` (N holding a trash page per
 data shard), and the hybrid's conv/SSM states, rwkv's state and the
 decoder's cross K/V under ``CACHE_SPECS``, the reference's placements.
-``args`` are this rank's fake arguments.  The train step, the decode
-``2d`` scheme and a decode batch that does not divide over data > 1 raise
-``NotImplementedError`` for a mesh (ROADMAP queue 1, items 16 and 17).
-Donation has no counterpart (pools are written in place).  The two
-schemes that change the work stay: the vocab-tiled loss of the train
-step (``loss_impl="vtiled"``, the reference's ``+vtiled``) and int8 KV
-pages in the mixed step (``scheme="kv8"``).
+``args`` are this rank's fake arguments.  grok-1-314b's serving weights
+are FSDP'd over `data` as well (``SERVE_FSDP``, the reference's
+placements), and its layers gathered one at a time as they run
+(``models/transformer.py``).
+
+``build_train`` takes a mesh too, in the reference's two schemes:
+``tp`` (tensor parallel over `model`, every weight's second dim and the
+optimizer state ZeRO-3 over `data`) and ``fsdp`` (tp = 1: batch and
+ZeRO-3 over both axes, heads/ff/vocab/experts whole), for the
+transformer family (dense, MoE, vlm); ``train_mesh`` gives the step's
+``tp``, policy (its ``params`` the placements) and MoE hook
+(``optim/adamw.py::opt_specs`` places the moments).  The other
+families' sharded training raises ``NotImplementedError`` (ROADMAP queue
+1, item 16b), as do the decode ``2d`` scheme and a decode batch that
+does not divide over data > 1 (item 17).  Donation has no counterpart
+(pools are written in place).  The two schemes that change the work
+stay: the vocab-tiled loss of the train step (``loss_impl="vtiled"``,
+the reference's ``+vtiled``) and int8 KV pages in the mixed step
+(``scheme="kv8"``).
 """
 from __future__ import annotations
 
@@ -59,9 +71,10 @@ SHAPES = {
                       streams=16),
 }
 
-# archs that train with int8 AdamW moments (the reference's SERVE_FSDP:
-# weights too large for one chip's share)
-INT8_MOMENTS = {"grok-1-314b"}
+# archs whose weights exceed one chip's share at TP=16: ZeRO-3 weight
+# sharding over data even for serving, and int8 AdamW moments in training
+SERVE_FSDP = {"grok-1-314b"}
+INT8_MOMENTS = SERVE_FSDP
 
 F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
 
@@ -102,8 +115,14 @@ class _Shard:
     trivial)."""
 
     def __init__(self, model, mesh):
-        self.policy = None if mesh is None else Policy(make_rules(("data",), "model"), mesh)
         self.mesh, self.model = mesh, model
+        self.policy = None
+        if mesh is not None:
+            self.policy = Policy(make_rules(("data",), "model"), mesh)
+            n_data = self.policy.size("data")
+            if model.name in SERVE_FSDP and n_data > 1:       # weights FSDP'd over data
+                self.policy = Policy(self.policy.rules, mesh, params=_placements(
+                    model, self.policy.tp, n_data, "data"))
         self.tp = 1 if mesh is None else self.policy.tp
         self.n_data = 1 if mesh is None else self.policy.size("data")
         self.kw = {} if mesh is None else dict(tp=self.tp, policy=self.policy)
@@ -115,8 +134,8 @@ class _Shard:
         if self.mesh is None:
             return self.model.init(g, BF16, device)
         full = self.model.init(g, BF16, device, tp=self.tp)
-        return shard_params(full, param_pspecs(full, self.model.cfg, tp=self.tp),
-                            self.policy)
+        specs = self.policy.params or param_pspecs(full, self.model.cfg, tp=self.tp)
+        return shard_params(full, specs, self.policy)
 
     def rows(self, t, n=None):
         """This rank's data shard of ``t``'s rows."""
@@ -156,19 +175,77 @@ def _text_len(cfg, seq):
 
 
 # ------------------------------------------------------------------ train --
-def build_train(arch, loss_impl="chunked"):
+def _placements(model, tp, fsdp_size=1, fsdp=None):
+    """``param_pspecs`` of ``model``'s ``tp``-padded tree (shapes from a fake
+    draw)."""
+    with fake_mode():
+        shapes = model.init(torch.Generator().manual_seed(0), F32, "cpu", tp=tp)
+    return param_pspecs(shapes, model.cfg, tp=tp, fsdp_size=fsdp_size, fsdp=fsdp)
+
+
+def train_mesh(model, mesh, scheme="tp"):
+    """(tp, policy, moe_fn) of the reference's sharded train step on
+    ``mesh`` (``build_train``): ``tp`` tensor parallel over `model`, FSDP
+    over `data` (``make_rules(fsdp=True)``, weights placed by
+    ``param_pspecs(fsdp_size=n_data, fsdp="data")``, the MoE's experts
+    gathered with their layer, the reference's ``fsdp_gather=True``);
+    ``fsdp`` tp = 1 with batch, tokens, pages and the FSDP dim over the
+    flattened (data, model) axes and heads, kv heads, ff, vocab and
+    experts whole (the MoE over the gathered global batch,
+    ``spmd.make_gathered_moe_fn``).  The policy's ``params`` are the
+    placements."""
+    cfg = model.cfg
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"sharded training of {model.name} ({cfg.family} family) is not ported: "
+            "ROADMAP queue 1, item 16b")
+    if scheme not in ("tp", "fsdp"):
+        raise ValueError(f"scheme {scheme!r}: tp or fsdp")
+    names = mesh.mesh_dim_names
+    if scheme == "fsdp":
+        flat = tuple(names)
+        rules = dict(make_rules(("data",), "model", fsdp=True))
+        rules.update({k: flat for k in ("batch", "tokens", "pages", "fsdp")})
+        rules.update({k: None for k in ("heads", "kv_heads", "ff", "vocab", "experts")})
+        policy = Policy(rules, mesh)
+        specs = _placements(model, 1, policy.size(flat), flat)
+        policy = Policy(rules, mesh, params=specs)
+        moe_fn = spmd.make_gathered_moe_fn(policy, cfg) if cfg.is_moe else None
+        return 1, policy, moe_fn
+    rules = make_rules(("data",), "model", fsdp=True)
+    policy = Policy(rules, mesh)
+    tp, n_data = policy.tp, policy.size("data")
+    policy = Policy(rules, mesh, params=_placements(model, tp, n_data, "data"))
+    moe_fn = spmd.make_sharded_moe_fn(mesh, cfg, tp=tp) if cfg.is_moe else None
+    return tp, policy, moe_fn
+
+
+def build_train(arch, mesh=None, scheme="tp", loss_impl="chunked"):
     """The train step (remat, bf16 params) at train_4k; ``loss_impl``
-    "vtiled" is the reference's "+vtiled" scheme (fused vocab-tiled CE)."""
+    "vtiled" is the reference's "+vtiled" scheme (fused vocab-tiled CE).
+    With a ``mesh``, the rank's sharded step in ``scheme`` "tp" or "fsdp"
+    (``train_mesh``): ``make_args`` draws the full ``tp``-padded state
+    and keeps this rank's shards, and this rank's rows of the batch (its
+    data shard's; the ``fsdp`` scheme's over both axes)."""
     model = get_model(arch)
     cfg = model.cfg
     sh = SHAPES["train_4k"]
     B, S = sh["batch"], sh["seq"]
     tcfg = TrainConfig(global_batch=B, seq_len=S, remat=True,
                        int8_moments=(arch in INT8_MOMENTS), loss_impl=loss_impl)
-    step = make_train_step(model, tcfg)
+    tp, policy, moe_fn = (1, None, None) if mesh is None else train_mesh(model, mesh, scheme)
+    step = make_train_step(model, tcfg, tp=tp, policy=policy, moe_fn=moe_fn)
+
+    def rows(t):
+        if policy is None:
+            return t
+        n, i = policy.size(policy.batch_axis), policy.index(policy.batch_axis)
+        if t.shape[0] % n:
+            raise ValueError(f"{t.shape[0]} rows do not divide over {n} batch shards")
+        return t[i * (t.shape[0] // n):][:t.shape[0] // n]
 
     def make_args(g, device):
-        state = init_state(model, g, tcfg, BF16, device)
+        state = init_state(model, g, tcfg, BF16, device, tp=tp, policy=policy)
         n = _text_len(cfg, S)
         batch = {"tokens": _tokens(g, cfg, (B, n), device),
                  "labels": _tokens(g, cfg, (B, n), device)}
@@ -178,11 +255,12 @@ def build_train(arch, loss_impl="chunked"):
         if cfg.family == "vlm":
             batch["patches"] = _normal(g, (B, cfg.n_vision_patches, cfg.d_vision),
                                        BF16, device)
-        return state, batch
+        return state, {k: rows(v) for k, v in batch.items()}
 
     return _cell(step, make_args,
                  f"train_step B={B} S={S} remat loss={loss_impl} "
-                 f"int8_mom={tcfg.int8_moments}")
+                 f"int8_mom={tcfg.int8_moments}"
+                 + (f" scheme={scheme} mesh {tuple(mesh.shape)}" if mesh is not None else ""))
 
 
 # ---------------------------------------------------------------- prefill --
@@ -407,10 +485,7 @@ def build_cell(arch, shape_name, mesh=None):
         return None, why
     kind = SHAPES[shape_name]["kind"]
     if kind == "train":
-        if mesh is not None:
-            raise NotImplementedError("the sharded train step (TP + FSDP) is not "
-                                      "ported: ROADMAP queue 1, item 16")
-        return build_train(arch), ""
+        return build_train(arch, mesh), ""
     if kind == "prefill":
         return build_prefill(arch, shape_name, mesh), ""
     if kind == "decode":

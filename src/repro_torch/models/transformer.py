@@ -48,6 +48,20 @@ rows plus an ``all_reduce`` and ``unembed`` its logits plus an
 data shard's rows.  Batch rows and pools are the rank's data shard; the
 attention hooks (``attn_fn``) make block tables pool-local.  Nothing
 crosses the data axis.  With ``policy=None`` nothing of this runs.
+
+Weights the policy's placements (``Policy.params``) shard off the
+tensor-parallel axis — ZeRO-3/FSDP over ``data``: grok-1-314b's serving
+cells and every training cell, or over every axis in the ``fsdp``
+training scheme — are gathered one layer at a time just before the
+layer runs (``sharding.gather_weights``), inside the layer's remat
+region in training, so a gathered layer dies with it and is gathered
+again in the recompute; the embedding table just before the lookup and
+the loss.  **Training on a mesh** differentiates through the collectives:
+``copy_to`` at the input of each column-parallel product and on the
+replicated weights used on the rank's heads (qk-norm scales, k/v of
+fewer KV heads than ``tp``), ``reduce_from`` after each row-parallel
+one, ``fsdp_gather``'s reduce-scatter for the FSDP'd gradients
+(``models/sharding.py``).
 """
 from __future__ import annotations
 
@@ -65,7 +79,8 @@ from repro_torch.models.layers import (NEG_INF, NO_WINDOW, act_fn,
                                        dense_init, head_rms_norm, mlp_apply,
                                        mlp_init, rms_norm, rope, softcap)
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.sharding import all_gather, all_reduce
+from repro_torch.models.sharding import (copy_to, gather_from, gather_weight,
+                                         gather_weights, layer_specs, reduce_from)
 
 VOCAB_PAD = 256
 
@@ -195,7 +210,19 @@ def maybe_remat(fn, x, remat: bool):
 # ------------------------------------------------------------- embedding ---
 def _vocab_start(table, policy):
     """First vocab id of this rank's rows of an embedding table."""
-    return 0 if policy is None else policy.index("model") * table.shape[0]
+    return 0 if policy is None else policy.tp_index * table.shape[0]
+
+
+def _table_spec(policy, name):
+    """The placement of table ``name`` ("embed" or "head"), or None."""
+    return None if policy is None or policy.params is None else policy.params.get(name)
+
+
+def table_of(params, policy=None, name=None):
+    """The unembedding table (``head``, else the tied ``embed``; ``name``
+    picks one), its FSDP'd dims gathered: [Vp(/tp), D]."""
+    name = name or ("head" if "head" in params else "embed")
+    return gather_weight(params[name], _table_spec(policy, name), policy)
 
 
 def embed_rows(table, tokens, policy=None):
@@ -206,14 +233,14 @@ def embed_rows(table, tokens, policy=None):
     local = tokens.long() - _vocab_start(table, policy)
     hit = (local >= 0) & (local < table.shape[0])
     x = table[local.clamp(0, table.shape[0] - 1)]
-    return all_reduce(torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                                  device=x.device)), policy)
+    return reduce_from(torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device)), policy)
 
 
 def embed(params, cfg, tokens, policy=None):
     """Token rows of ``embed`` (vocab-parallel on a mesh, ``embed_rows``),
     scaled by sqrt(d_model) where the config says so."""
-    x = embed_rows(params["embed"], tokens, policy)
+    x = embed_rows(table_of(params, policy, "embed"), tokens, policy)
     if cfg.emb_scale_by_sqrt_dim:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -237,8 +264,8 @@ def unembed(params, cfg, x, policy=None):
     the card bf16 weights go through ``torch.mm(..., out_dtype=float32)``
     (bf16 inputs, f32 accumulation and output); on the CPU they are
     upcast first."""
-    table = params["head"] if "head" in params else params["embed"]
-    x2 = x.reshape(-1, x.shape[-1])
+    table = table_of(params, policy)
+    x2 = copy_to(x.reshape(-1, x.shape[-1]), policy)
     if table.dtype == torch.float32:
         logits = x2.float() @ table.t()
     elif x2.device.type == "cuda":
@@ -250,13 +277,14 @@ def unembed(params, cfg, x, policy=None):
     pad = cfg.vocab_size - _vocab_start(table, policy)   # first padded local column
     if pad < table.shape[0]:
         logits[:, max(pad, 0):] = NEG_INF
-    logits = all_gather(logits, policy, dim=-1)
+    logits = gather_from(logits, policy, dim=-1)
     return logits.reshape(*x.shape[:-1], logits.shape[-1])
 
 
 # ----------------------------------------------------------- block pieces --
 def _qkv(cfg, lp, x):
-    """x [..., D] -> q [..., H_p, hd], k/v [..., KV, hd]."""
+    """x [..., D] -> q [..., H_p, hd], k/v [..., KV, hd] (on a mesh:
+    ``x`` after ``copy_to``, ``lp`` after ``_tp_weights``)."""
     D, hd = x.shape[-1], cfg.head_dim
     lead = x.shape[:-1]
     q = (x @ lp["wq"].reshape(D, -1)).reshape(*lead, -1, hd)
@@ -277,7 +305,18 @@ def _rank_slice(a, tp, policy):
     if policy is None:
         return a
     n = len(a) // tp
-    return a[policy.index("model") * n:(policy.index("model") + 1) * n]
+    return a[policy.tp_index * n:(policy.tp_index + 1) * n]
+
+
+def _tp_weights(cfg, lp, policy):
+    """Layer weights replicated over the tensor-parallel axis but used on
+    the rank's heads, through ``copy_to`` so their gradients sum over it:
+    the qk-norm scales, and ``wk``/``wv`` where the KV heads do not shard
+    (fewer than ``tp``: each rank expands its own padded slots)."""
+    if policy is None or policy.tp_axis is None or not torch.is_grad_enabled():
+        return lp
+    names = ("q_norm", "k_norm") + (("wk", "wv") if cfg.n_kv_heads % policy.tp else ())
+    return {k: copy_to(v, policy) if k in names else v for k, v in lp.items()}
 
 
 def _head_mask(cfg, device, dtype, tp=1, policy=None):
@@ -307,7 +346,7 @@ def _expand_kv(t, kv_index):
 def _o_proj(cfg, lp, o, head_mask, policy=None):
     if head_mask is not None:
         o = o * head_mask[:, None]
-    return all_reduce(o.flatten(-2) @ lp["wo"].reshape(-1, cfg.d_model), policy)
+    return reduce_from(o.flatten(-2) @ lp["wo"].reshape(-1, cfg.d_model), policy)
 
 
 def _ffn(cfg, lp, x2d, policy=None, moe_fn=None):
@@ -326,7 +365,7 @@ def _ffn(cfg, lp, x2d, policy=None, moe_fn=None):
         return moe_apply(lp["moe"], x2d, n_experts=cfg.n_experts,
                          top_k=cfg.top_k, act=act,
                          capacity_factor=cfg.moe_capacity_factor)
-    return all_reduce(mlp_apply(lp["mlp"], x2d, cfg.mlp_act), policy), None
+    return reduce_from(mlp_apply(lp["mlp"], copy_to(x2d, policy), cfg.mlp_act), policy), None
 
 
 def _residuals(cfg, lp, x, attn_out, return_aux=False, policy=None, moe_fn=None):
@@ -352,7 +391,8 @@ def _seq_block(cfg, lp, window, positions, kv_lens, head_mask, x, *,
     ``ops.flash_attention``'s signature (None: that;
     ``ops.flash_attention_ckpt`` for training).  Returns (x, FFN aux or
     None, k, v) with k/v in the padded KV heads."""
-    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
+    q, k, v = _qkv(cfg, _tp_weights(cfg, lp, policy),
+                   copy_to(rms_norm(x, lp["ln1"], cfg.norm_eps), policy))
     q = rope(q, positions, cfg.rope_theta)
     k = _expand_kv(rope(k, positions, cfg.rope_theta), kv_index)
     v = _expand_kv(v, kv_index)
@@ -386,10 +426,11 @@ def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
     head_mask = _head_mask(cfg, x.device, x.dtype, tp, policy)
     kv_index = _kv_index(cfg, x.device, tp, policy)
     kv_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    wspecs = layer_specs(policy)
     ks, vs = [], []
     for l in range(cfg.n_layers):
-        x, _, k, v = _seq_block(cfg, layer_params(params["blocks"], l),
-                                int(windows[l]), positions, kv_lens, head_mask, x,
+        lp = gather_weights(layer_params(params["blocks"], l), wspecs, policy)
+        x, _, k, v = _seq_block(cfg, lp, int(windows[l]), positions, kv_lens, head_mask, x,
                                 kv_fake_quant=kv_fake_quant, kv_index=kv_index,
                                 policy=policy, moe_fn=moe_fn)
         if collect_kv:
@@ -399,40 +440,55 @@ def forward_hidden(params, cfg, x, positions, *, collect_kv=False,
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kv
 
 
-def _train_block(cfg, lp, window, positions, kv_lens, head_mask, x):
+def _train_block(cfg, lp, window, positions, kv_lens, head_mask, kv_index, policy,
+                 moe_fn, wspecs, x):
+    lp = gather_weights(lp, wspecs, policy)
     x, aux, _, _ = _seq_block(cfg, lp, window, positions, kv_lens, head_mask, x,
-                              attend=ops.flash_attention_ckpt)
+                              attend=ops.flash_attention_ckpt, kv_index=kv_index,
+                              policy=policy, moe_fn=moe_fn)
     return x, aux
 
 
-def train_hidden(params, cfg, batch, *, remat=False):
+def train_hidden(params, cfg, batch, *, tp=1, policy=None, moe_fn=None, remat=False):
     """batch: tokens [B, T] (+ patches [B, Np, d_vision] for vlm, a
     prefix of Np positions).  Returns (hidden [B, T_tot, D], aux: the
     MoE aux losses summed over layers, an f32 scalar (0 for dense)).
     Differentiable in ``params``; attention through
     ``ops.flash_attention_ckpt``; ``remat`` recomputes each layer in the
-    backward (the reference's ``jax.checkpoint`` of its scan body)."""
-    x = embed(params, cfg, batch["tokens"])
+    backward (the reference's ``jax.checkpoint`` of its scan body).
+
+    ``tp`` pads and masks the q heads as ``gqa_layout`` says (with no
+    policy, one process runs the padded layout: the tp = 8 relayout of a
+    checkpoint computes the tp = 1 function).  On a mesh (``policy``,
+    ``moe_fn`` as for ``prefill``) the rank runs its heads, its data
+    shard's rows and its gathered layers; the hidden state is replicated
+    over the tensor-parallel axis."""
+    x = embed(params, cfg, batch["tokens"], policy)
     if cfg.family == "vlm":
         x = torch.cat([vision_prefix(params, cfg, batch["patches"]), x], dim=1)
     B, Tn, _ = x.shape
     positions = torch.arange(Tn, device=x.device)[None].expand(B, Tn)
     kv_lens = torch.full((B,), Tn, dtype=torch.int32, device=x.device)
-    head_mask = _head_mask(cfg, x.device, x.dtype)
+    head_mask = _head_mask(cfg, x.device, x.dtype, tp, policy)
+    kv_index = _kv_index(cfg, x.device, tp, policy)
+    wspecs = layer_specs(policy)
     windows = layer_windows(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, lp in enumerate(layer_list(params["blocks"], cfg.n_layers)):
         x, a = maybe_remat(partial(_train_block, cfg, lp, int(windows[l]), positions,
-                                   kv_lens, head_mask), x, remat)
+                                   kv_lens, head_mask, kv_index, policy, moe_fn,
+                                   wspecs), x, remat)
         if a is not None:
             aux = aux + a
     return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
 
-def train_logits(params, cfg, batch, *, remat=False):
-    """(f32 logits [B, T_tot, Vp], aux) of :func:`train_hidden`."""
-    hidden, aux = train_hidden(params, cfg, batch, remat=remat)
-    return unembed(params, cfg, hidden), aux
+def train_logits(params, cfg, batch, *, tp=1, policy=None, moe_fn=None, remat=False):
+    """(f32 logits [B, T_tot, Vp], aux) of :func:`train_hidden` (on a mesh
+    every rank's logits whole, gathered over the tensor-parallel axis)."""
+    hidden, aux = train_hidden(params, cfg, batch, tp=tp, policy=policy, moe_fn=moe_fn,
+                               remat=remat)
+    return unembed(params, cfg, hidden, policy), aux
 
 
 def prefill(params, cfg, tokens, *, patches=None, kv_fake_quant=None, tp=1,
@@ -574,8 +630,9 @@ def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
     pos = seq_lens.to(torch.int32)                   # next position == current len
     kv_lens = pos + 1
     dest = token_dest(bt, pos, active, *_pool_geometry(k_pages))
+    wspecs = layer_specs(policy)
     for l in range(cfg.n_layers):
-        lp = layer_params(params["blocks"], l)
+        lp = gather_weights(layer_params(params["blocks"], l), wspecs, policy)
         kpg, vpg = _layer_pages(k_pages, l), _layer_pages(v_pages, l)
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
         q = rope(q[:, None], pos[:, None], cfg.rope_theta)       # [B,1,H_p,hd]
@@ -641,8 +698,9 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None, tp=1,
     p_dest = chunk_dest(p_table, p_start, p_lens, C, ps, trash)
     d_dest = token_dest(d_table, d_lens, mb["d_active"], ps, trash)
 
+    wspecs = layer_specs(policy)
     for l in range(cfg.n_layers):
-        lp = layer_params(params["blocks"], l)
+        lp = gather_weights(layer_params(params["blocks"], l), wspecs, policy)
         kpg, vpg = _layer_pages(k_pages, l), _layer_pages(v_pages, l)
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))  # shared GEMM
         k, v = _expand_kv(k, kv_index), _expand_kv(v, kv_index)

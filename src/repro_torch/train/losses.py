@@ -8,6 +8,21 @@ card).  ``lm_loss_from_hidden_vtiled`` loops over vocabulary tiles with
 an online logsumexp instead, inside a ``torch.autograd.Function`` whose
 backward is another vocab-tiled loop (the reference's ``custom_vjp``).
 Logits are f32: f32 weights multiply in f32, others are upcast first.
+
+**On a mesh** (``policy``, ``models/sharding.py``) both are vocab-parallel
+cross-entropies, Megatron's: the rank holds its ``Vp/tp`` rows of the
+table (gathered whole along D first where FSDP'd), ``hidden`` enters
+through ``copy_to``, and each token's logsumexp and label logit come from
+three all-reduces over the tensor-parallel axis of ``[tokens]``-sized
+vectors: the max (no gradient: the logsumexp does not depend on it), the
+sum of exps and the label logit (``reduce_from``, whose identity backward
+leaves each rank the gradient of its own columns).  The other choice, to
+gather each chunk's logits, would move ``(tp - 1)/tp`` of a ``[B, c, Vp]``
+f32 block a chunk (qwen3-0.6b at B = 4, c = 512: 1.2 GB) where these move
+``3 x B x c`` floats, and would hold the whole block on every rank.  The
+loss is the global mean: each rank divides its tokens' summed loss by
+the token count summed over the batch axes, and ``reduce_from`` over
+them gives every rank the global value with its own tokens' gradient.
 """
 from __future__ import annotations
 
@@ -15,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.costs import kernel_region
+from repro_torch.models.sharding import all_reduce, copy_to, reduce_from
 
 IGNORE = -100
 NEG_INF = -1e30
@@ -25,28 +41,52 @@ def _logits(h, table):
     return h.float() @ table.float().t()
 
 
-def _chunk_ce(hidden_c, labels_c, table, softcap, v_real):
-    """hidden_c [B, c, D]; labels_c [B, c] -> per-token loss [B, c]."""
+def _vocab_parallel(policy):
+    """(the policy, if its tensor-parallel axis splits the vocab; this
+    rank's first vocab id is then ``tp_index * Vp/tp``)."""
+    return policy if policy is not None and policy.tp_axis is not None else None
+
+
+def _chunk_ce(hidden_c, labels_c, table, softcap, v_real, policy=None):
+    """hidden_c [B, c, D]; labels_c [B, c] -> per-token loss [B, c]; on a
+    mesh ``table`` is the rank's vocab rows."""
     logits = _logits(hidden_c, table)
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    Vp = table.shape[0]
-    iota = torch.arange(Vp, device=logits.device)
-    if Vp != v_real:
+    Vl = table.shape[0]
+    v0 = 0 if policy is None else policy.tp_index * Vl
+    iota = torch.arange(Vl, device=logits.device) + v0
+    if v0 + Vl > v_real:
         logits = torch.where(iota < v_real, logits, NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
     lab = torch.where(labels_c[..., None] == iota, logits, 0.0).sum(-1)
-    return lse - lab
+    if policy is None:
+        return torch.logsumexp(logits, dim=-1) - lab
+    m = all_reduce(logits.detach().amax(-1), policy, op="max")
+    s = reduce_from(torch.exp(logits - m[..., None]).sum(-1), policy)
+    return m + torch.log(s) - reduce_from(lab, policy)
+
+
+def _global_mean(tot, cnt, policy):
+    """(tot / the token count summed over the batch axes, that count): each
+    rank's share of the global mean, summed over the batch axes by
+    ``reduce_from``; (tot / cnt, cnt) without a policy."""
+    if policy is None:
+        return tot / torch.clamp(cnt, min=1.0), cnt
+    n = all_reduce(cnt.detach().clone(), policy, policy.batch_axis)
+    return reduce_from(tot / torch.clamp(n, min=1.0), policy, policy.batch_axis), n
 
 
 def lm_loss_from_hidden(hidden, labels, table, *, softcap=None, v_real=None,
-                        chunk=512):
+                        chunk=512, policy=None):
     """hidden [B, T, D]; labels [B, T] (IGNORE = masked).
 
-    Returns (mean_loss, n_tokens), both f32 scalars.
+    Returns (mean_loss, n_tokens), both f32 scalars.  On a mesh: the
+    rank's rows and vocab rows of ``table``; the global mean and count.
     """
     B, T, D = hidden.shape
     v_real = v_real or table.shape[0]
+    vp = _vocab_parallel(policy)
+    hidden = copy_to(hidden, vp)
     c = min(chunk, T)
     pad = (-T) % c
     if pad:
@@ -57,10 +97,10 @@ def lm_loss_from_hidden(hidden, labels, table, *, softcap=None, v_real=None,
     for i in range((T + pad) // c):
         h, l = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         mask = l != IGNORE
-        ce = _chunk_ce(h, torch.where(mask, l, 0), table, softcap, v_real)
+        ce = _chunk_ce(h, torch.where(mask, l, 0), table, softcap, v_real, vp)
         tot = tot + torch.sum(ce * mask)
         cnt = cnt + torch.sum(mask)
-    return tot / torch.clamp(cnt, min=1.0), cnt
+    return _global_mean(tot, cnt, policy)
 
 
 # ------------------------------------------------- vocab-tiled fused CE ----
@@ -72,10 +112,10 @@ def _tiles(table, vtile):
 
 
 @kernel_region
-def _vtiled_ce_fwd(hidden2d, labels1d, table, softcap, v_real, vtile):
-    """(per-token lse - label logit [N], lse [N]) of hidden2d [N, D]
-    against table [Vp, D], one vocabulary tile at a time with an online
-    logsumexp."""
+def _vtiled_ce_fwd(hidden2d, labels1d, table, softcap, v_real, vtile, v0=0):
+    """(running max, sum of exps under it, label logit), each [N], of
+    hidden2d [N, D] against table [Vl, D] (vocab ids ``v0`` on), one
+    vocabulary tile at a time with an online logsumexp."""
     N, _ = hidden2d.shape
     h = hidden2d.float()
     m = torch.full((N,), NEG_INF, dtype=torch.float32, device=h.device)
@@ -86,18 +126,17 @@ def _vtiled_ce_fwd(hidden2d, labels1d, table, softcap, v_real, vtile):
         logits = _logits(h, tbl)
         if softcap:
             logits = torch.tanh(logits / softcap) * softcap
-        ids = ti * vtile + iota
+        ids = v0 + ti * vtile + iota
         logits = torch.where(ids < v_real, logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(-1))
         s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
         lab = lab + torch.where(ids == labels1d[:, None], logits, 0.0).sum(-1)
         m = m_new
-    lse = m + torch.log(torch.clamp(s, min=1e-30))
-    return lse - lab, lse
+    return m, s, lab
 
 
 @kernel_region
-def _vtiled_ce_bwd(hidden2d, labels1d, table, lse, g, softcap, v_real, vtile):
+def _vtiled_ce_bwd(hidden2d, labels1d, table, lse, g, softcap, v_real, vtile, v0=0):
     """(d hidden2d, d table) of the per-token loss for its cotangent g
     [N], recomputing each tile's logits."""
     h = hidden2d.float()
@@ -113,7 +152,7 @@ def _vtiled_ce_bwd(hidden2d, labels1d, table, lse, g, softcap, v_real, vtile):
             t = torch.tanh(logits / softcap)
             logits = t * softcap
             dcap = 1.0 - t.square()                   # d capped / d logits
-        ids = ti * vtile + iota
+        ids = v0 + ti * vtile + iota
         p = torch.where(ids < v_real, torch.exp(logits - lse[:, None]), 0.0)
         onehot = (ids == labels1d[:, None]).float()
         dlogits = gf[:, None] * (p - onehot)          # [N, vtile]
@@ -126,40 +165,50 @@ def _vtiled_ce_bwd(hidden2d, labels1d, table, lse, g, softcap, v_real, vtile):
 
 class _VtiledCE(torch.autograd.Function):
     """Per-token (lse - label logit) [N] of hidden2d [N, D] against table
-    [Vp, D], one vocabulary tile at a time; the backward recomputes each
+    [Vl, D], one vocabulary tile at a time; the backward recomputes each
     tile's logits (``_vtiled_ce_bwd`` of the reference).  Both loops are
-    kernel regions for ``launch/costs.py``, as the reference's scans are."""
+    kernel regions for ``launch/costs.py``, as the reference's scans are.
+    With a ``policy`` the table is the rank's vocab rows: the forward
+    combines the ranks' (max, sum of exps, label logit) over the
+    tensor-parallel axis, and the backward gives the hidden state's
+    gradient from the rank's columns alone (``copy_to`` sums it)."""
 
     @staticmethod
-    def forward(ctx, hidden2d, labels1d, table, softcap, v_real, vtile):
-        out, lse = _vtiled_ce_fwd(hidden2d, labels1d, table, softcap, v_real, vtile)
+    def forward(ctx, hidden2d, labels1d, table, softcap, v_real, vtile, policy):
+        v0 = 0 if policy is None else policy.tp_index * table.shape[0]
+        m, s, lab = _vtiled_ce_fwd(hidden2d, labels1d, table, softcap, v_real, vtile, v0)
+        if policy is not None:
+            m_all = all_reduce(m.clone(), policy, op="max")
+            s = all_reduce(s * torch.exp(m - m_all), policy)
+            lab, m = all_reduce(lab, policy), m_all
+        lse = m + torch.log(torch.clamp(s, min=1e-30))
         ctx.save_for_backward(hidden2d, labels1d, table, lse)
-        ctx.kw = (softcap, v_real, vtile)
-        return out
+        ctx.kw = (softcap, v_real, vtile, v0)
+        return lse - lab
 
     @staticmethod
     def backward(ctx, g):
         hidden2d, labels1d, table, lse = ctx.saved_tensors
         dh, dtable = _vtiled_ce_bwd(hidden2d, labels1d, table, lse, g, *ctx.kw)
-        return dh, None, dtable, None, None, None
+        return dh, None, dtable, None, None, None, None
 
 
 def lm_loss_from_hidden_vtiled(hidden, labels, table, *, softcap=None,
-                               v_real=None, vtile=8192):
+                               v_real=None, vtile=8192, policy=None):
     """Drop-in for :func:`lm_loss_from_hidden` with vocab-tiled fused CE;
-    ``vtile`` is halved until it divides the padded vocabulary."""
+    ``vtile`` is halved until it divides the (rank's) padded vocabulary."""
     B, T, D = hidden.shape
     v_real = v_real or table.shape[0]
     vtile = min(vtile, table.shape[0])
     while table.shape[0] % vtile:
         vtile //= 2
+    vp = _vocab_parallel(policy)
     mask = labels != IGNORE
     lab = torch.where(mask, labels, 0).reshape(-1)
-    ce = _VtiledCE.apply(hidden.reshape(B * T, D), lab, table,
-                         float(softcap) if softcap else 0.0, int(v_real), int(vtile))
+    ce = _VtiledCE.apply(copy_to(hidden, vp).reshape(B * T, D), lab, table,
+                         float(softcap) if softcap else 0.0, int(v_real), int(vtile), vp)
     ce = ce.reshape(B, T)
-    n = torch.sum(mask).float()
-    return torch.sum(ce * mask) / torch.clamp(n, min=1.0), n
+    return _global_mean(torch.sum(ce * mask), torch.sum(mask).float(), policy)
 
 
 def lm_loss(logits, labels, *, v_real=None):

@@ -216,6 +216,45 @@ def test_paged_kernel_empty_rows_and_stale_table(cuda):
     assert K1.paged_attention(*empty, scale=0.3).shape == (0, 4, 4, 16)
 
 
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("kernel", ["paged_attention", "paged_attention_int8", "flash_attention"])
+def test_kernels_take_unaligned_index_views(cuda, kernel, C):
+    """Row slices of a [B, 25] int32 table (internvl2's 25-page rows) at
+    an offset of one row, and kv_lens/q_pos sliced off by one element:
+    contiguous, not 16-byte aligned.  The reference's kernels take them;
+    K1, K3 and K2 launch on them (their wrappers copy such small index
+    arguments, never the float operands) and match the plain version on
+    the same views."""
+    rng = np.random.RandomState(11)
+    B, H, KV, d, ps, N, Pmax = 3, 4, 2, 64, 4, 110, 25
+    table = torch.from_numpy(rng.permutation(N - 1)[:(B + 1) * Pmax].reshape(B + 1, Pmax))
+    table = table.to("cuda", torch.int32)
+    pos = torch.from_numpy(rng.randint(0, Pmax * ps - C, size=B + 1)).to("cuda", torch.int32)
+    bt, q_pos, kv_lens = table[1:], pos[1:], (pos + C)[1:]
+    assert bt.is_contiguous() and bt.data_ptr() % 16 and q_pos.data_ptr() % 16
+    if kernel == "flash_attention":
+        q, k, v, _ = (x.cuda() for x in flash_inputs((B, C * 8, C * 8, H, KV, d, None, 1)))
+        lens = torch.tensor([0, C * 8, C * 8 - 3, C * 4], dtype=torch.int32, device="cuda")[1:]
+        assert lens.data_ptr() % 16
+        n = K2.launches
+        out = K2.flash_attention(q, k, v, lens, scale=0.2)
+        assert K2.launches == n + 1
+        assert _err(out, K2.flash_attention_plain(q, k, v, lens, scale=0.2)) <= TOL["float32"]
+        return
+    q = _rand(rng, B, C, H, d).cuda()
+    kpg, vpg = _rand(rng, N, ps, KV, d).cuda(), _rand(rng, N, ps, KV, d).cuda()
+    if kernel == "paged_attention":
+        mod, fn, plain, args = K1, K1.paged_attention, K1.paged_attention_plain, (q, kpg, vpg)
+    else:
+        (kq, ks), (vq, vs) = q8_kv(kpg), q8_kv(vpg)
+        mod, fn, plain = K3, K3.paged_attention_int8, K3.paged_attention_int8_plain
+        args = (q, kq, ks, vq, vs)
+    n = mod.launches
+    out = fn(*args, bt, kv_lens, q_pos, scale=0.2)
+    assert mod.launches == n + 1
+    assert _err(out, plain(*args, bt, kv_lens, q_pos, scale=0.2)) <= TOL["float32"]
+
+
 def _paged_int8(seed, B, C, H, KV, d, ps, N, Pmax, dtype):
     """K3's inputs: K1's, with the pages as int8 codes and f32 scales."""
     q, kpg, vpg, bt, lens, q_pos = _paged(seed, B, C, H, KV, d, ps, N, Pmax, torch.float32)
