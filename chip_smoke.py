@@ -204,11 +204,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      tensor's slice at 1e-5 of its max on top of the one-card step's own
      one-ulp floor (its gap to itself with every embedding value moved by
      one f32 ulp; the phase's header says why) after the prefill and
-     after the decode steps.
+     after the decode steps.  Then the decode ``2d`` scheme and the
+     replicated batch (``mesh_decode_case``): olmoe-1b-7b at 4 layers, B
+     = 8, ``2d`` at (1, 2) and (2, 1), and one row at (2, 1) of qwen3-0.6b
+     and zamba2-7b (13 units), 8 steps from random caches of 512 tokens,
+     held to the one-card step (logits, every row; the rank's caches).
      Logged per rank: the step walls, the collectives a step with their
      bytes, the backend.
  11. mesh training (``launch/steps.py::train_mesh``, the sharded train
-     step of the transformer family), f32 with TF32 off, in the same
+     step of every family), f32 with TF32 off, in the same
      process groups as phase 10: NCCL at world size 1, mesh (1, 1),
      qwen3-0.6b at full width and depth, B = 4 x T = 512, the ``tp``
      scheme, 3 steps; then on the two gloo ranks qwen3-0.6b at full width
@@ -216,7 +220,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (``tp``: at (2, 1) every weight FSDP'd over data) and at (1, 2) in the
      ``fsdp`` scheme, and olmoe-1b-7b at full width and 2 of 16 layers, B =
      2 x T = 256, at (1, 2) (EP: 32 of 64 experts a rank) and (2, 1)
-     (experts FSDP'd, ``fsdp_gather``).  Each rank also runs the one-card step
+     (experts FSDP'd, ``fsdp_gather``); zamba2-7b at one group of 6 of 81
+     layer-units (NCCL (1, 1) and gloo (1, 2)), rwkv6-7b at 2 layers and
+     seamless-m4t-medium whole ((1, 2), and (2, 1)), B = 2 x T = 256; and
+     qwen3 at 4 layers, (2, 1), ``microbatch=2``.  Each rank also runs the one-card step
      (``make_grad_fn``/``apply_grads``) on the full state of the same seed
      and the same batch (its MoE routed over each data shard's rows, and
      its loss holding this rank's data shard's aux term with the
@@ -224,10 +231,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
      both optimizers then take the one-card gradients (as phase 7's
      cross-device check).  Fatal at every step: the loss or the gnorm of
      the mesh's own gradients beyond 1e-5 relative, a gradient leaf
-     beyond 1e-4 of the one-card leaf's max |g|, the params beyond 1e-4 of
-     the one-card params' slice, K2's training forward not launched.
-     Logged per rank: each step's wall, the collectives a step by kind
-     with their bytes, the peak memory, the gaps, K2's launches.
+     beyond 1e-4 of the one-card leaf's max |g| (each of them, or beyond
+     4 times its own one-card one-ulp floor in that step where that is
+     larger: ``train_bound``), the params beyond 1e-4 of the one-card
+     params' slice, and a kernel of the
+     family's path (K2's training forward; the hybrid's K4 forward and
+     backward too) not launched.  Logged per rank: each step's wall, the
+     collectives a step by kind with their bytes, the peak memory, the
+     gaps and floors, the launches a step.  Then its witness
+     (``mesh_witness_rank``): rwkv6-7b's first step at (1, 2), at the
+     reference's own init and with its zero leaves drawn, mesh and one
+     card in f32 and in f64 (``.float()`` keeping f64), fatal if the f64
+     loss or a leaf strays beyond 1e-9; logged per leaf: the f32 gaps
+     and each f32 step's error against the f64 one.
 
 Parts of phases 4-7 log their wall as ``time <part>: <s> s``.  The last
 three lines of standard output are the ``{"kernels": [...]}``
@@ -3937,15 +3953,177 @@ def mesh_state_case(torch, mesh, backend, arch, over, pages, n_seqs, len_range):
     return res
 
 
+# The decode 2d scheme and the replicated decode batch (mesh_decode_case):
+# a case is arch, config overrides (phase 10's cut depths), mesh shapes,
+# scheme, batch.  olmoe-1b-7b's 2d scheme keeps the batch replicated over
+# data with its pages data-sharded (each rank attends its shard's rows and
+# gathers them) and every expert's d_ff over both axes; a batch of one row
+# over 2 data shards is replicated with its caches.
+MESH_DECODE_CTX = 512
+GLOO_DECODE_CASES = (("olmoe-1b-7b", {"n_layers": 4}, GLOO_SHAPES, "2d", 8),
+                     ("qwen3-0.6b", {}, ((2, 1),), "baseline", 1),
+                     ("zamba2-7b", {"n_layers": 13}, ((2, 1),), "baseline", 1))
+
+
+def mesh_decode_case(torch, mesh, backend, arch, over, scheme, B):
+    """MESH_DECODE greedy decode steps of ``B`` rows through
+    ``launch/steps.py``'s sharded decode cell of ``scheme`` (``2d``, or a
+    batch that does not divide over the data shards), f32, from random
+    pools (and the hybrid's random conv/SSM states) of MESH_DECODE_CTX
+    tokens of context; launch counters zeroed before and read after.  Then
+    the one-card step on the full weights and caches, every row, fed the
+    same tokens.  Fatal: logits beyond ``MESH_LOGIT_TOL`` of max |logit|, a
+    greedy token that differs, the rank's caches beyond ``MESH_PAGE_TOL``
+    of max |value| of the one-card caches' slice, K1's decode not
+    launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.shardings import shard_tensor
+    from repro_torch.models import hybrid, sharding, ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    cfg = replace(get_config(arch), **over)
+    model = get_model(arch, cfg)
+    name, S = "phase10_decode", MESH_DECODE_CTX
+    steps.SHAPES[name] = dict(kind="decode", seq=S, batch=B)
+    cell = steps.build_decode(arch, name, mesh=mesh, cfg=cfg, scheme=scheme)
+    shard = steps._Shard(model, mesh, batch=B, scheme=scheme)
+    policy = shard.policy
+    nd, tp = policy.size("data"), policy.tp
+    label = (f"mesh {backend} {nd}x{tp} {arch}" + (f" {cfg.n_layers} layers" if over else "")
+             + f" decode {scheme} B={B} rank {torch.distributed.get_rank()}")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    full = model.init(torch.Generator(device="cuda").manual_seed(0), torch.float32, "cuda", tp=tp)
+    local = shard.slice(full)
+    n_layers = hybrid.group_structure(cfg)[0] if cfg.family == "hybrid" else None
+    pg_shape, pmax = steps._page_pool_shapes(cfg, B, S, n_layers=n_layers, tp=tp,
+                                             n_data=shard.cache_data)
+
+    def spec_of(spec):
+        return spec if shard.caches_sharded else tuple(None if a == "data" else a for a in spec)
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, device="cuda") * 0.5
+    glob = {"kpool": (rand(pg_shape), steps.CACHE_SPECS["pages"]),
+            "vpool": (rand(pg_shape), steps.CACHE_SPECS["pages"])}
+    if cfg.family == "hybrid":
+        cs, ss = ssm.mamba2_state_shapes(cfg, B)
+        n_mamba = hybrid.group_structure(cfg)[1]
+        glob.update({f"conv {k}": (rand((n_mamba,) + v), steps.CACHE_SPECS["conv"][k])
+                     for k, v in cs.items()})
+        glob["ssm"] = (rand((n_mamba,) + ss), steps.CACHE_SPECS["ssm"])
+    mine = {k: shard_tensor(v, spec_of(sp), policy) for k, (v, sp) in glob.items()}
+    bt = steps._tables(g, B, pmax, pg_shape[1], "cuda", shard.cache_data)
+    lens = (S - 1 - 3 * torch.arange(B, device="cuda")).to(torch.int32)
+
+    def run(params, c, tok, step, fn):
+        if cfg.family == "hybrid":
+            conv = {k: c[f"conv {k}"] for k in ("x", "B", "C")}
+            return fn(params, tok, conv, c["ssm"], c["kpool"], c["vpool"], shard.rows(bt),
+                      shard.rows(lens) + step)[0]
+        return fn(params, tok, c["kpool"], c["vpool"], shard.rows(bt), shard.rows(lens) + step)[0]
+
+    one_card = ((lambda p, t, cv, sm, kp, vp, b, ln: hybrid.decode(p, cfg, t, cv, sm, kp, vp,
+                                                                     b, ln))
+                if cfg.family == "hybrid" else
+                (lambda p, t, kp, vp, b, ln: T.decode(p, cfg, t, kp, vp, b, ln)))
+    tok = torch.randint(2, cfg.vocab_size, (B,), generator=g, device="cuda", dtype=torch.int32)
+    toks, logits, walls = [], [], []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        zero_launches()
+        c0 = dict(sharding.counts)
+        for step in range(MESH_DECODE):
+            toks.append(tok)
+            t0 = time.perf_counter()
+            lg = run(local, mine, shard.rows(tok), step, cell["fn"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            logits.append(lg)
+            tok = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        launches = read_launches()
+        coll = {k: (v - c0.get(k, 0)) / MESH_DECODE for k, v in sharding.counts.items()
+                if v - c0.get(k, 0)}
+        errors, gaps = [], dict(decode=0.0, caches=0.0)
+        want_c = {k: v for k, (v, _) in glob.items()}
+        for step in range(MESH_DECODE):
+            want = run(full, want_c, toks[step], step, one_card)
+            gap = _logit_gap(logits[step], want, cfg.vocab_size)
+            gaps["decode"] = max(gaps["decode"], gap)
+            if gap > MESH_LOGIT_TOL[backend]:
+                errors.append(f"step {step} logits {gap:.3e} of max |logit|")
+            if not torch.equal(logits[step][:, :cfg.vocab_size].argmax(-1),
+                               want[:, :cfg.vocab_size].argmax(-1)):
+                errors.append(f"step {step}: a greedy token differs from the one-card step's")
+        for k, (v, sp) in glob.items():
+            w = shard_tensor(v, spec_of(sp), policy).double()
+            gap = float((mine[k].double() - w).abs().max() / w.abs().max())
+            gaps["caches"] = max(gaps["caches"], gap)
+            if gap > MESH_PAGE_TOL:
+                errors.append(f"{k} {gap:.3e} of max |value| from the one-card caches")
+    res = dict(label=label, backend=backend, mesh=[nd, tp], rank=torch.distributed.get_rank(),
+               arch=arch, n_layers=cfg.n_layers, scheme=scheme, batch=B, context=S,
+               batch_sharded=shard.batch_sharded, caches_sharded=shard.caches_sharded,
+               note_of_cell=cell["note"], launches=launches, steps=MESH_DECODE,
+               launches_per_step={k: v / MESH_DECODE for k, v in launches.items() if v},
+               gaps=gaps, decode_wall_s=walls, collectives_a_step=coll,
+               note="collectives staged through host (gloo)")
+    log(f"phase 10 {json.dumps(res)}")
+    if not launches["paged_attention_decode"]:
+        errors.append(f"K1's decode not launched: {launches}")
+    if errors:
+        fail(f"phase 10 {label}: " + "; ".join(errors))
+    del full, local, glob, mine
+    return res
+
+
 # phase 11: mesh training.  A case: arch, config overrides (a cut depth),
-# mesh shape, scheme, B, T, steps.
-TRAIN_NCCL_CASES = (("qwen3-0.6b", {}, (1, 1), "tp", 4, 512, 3),)
-TRAIN_GLOO_CASES = (("qwen3-0.6b", {"n_layers": 4}, (1, 2), "tp", 4, 256, 2),
-                    ("qwen3-0.6b", {"n_layers": 4}, (2, 1), "tp", 4, 256, 2),
-                    ("qwen3-0.6b", {"n_layers": 4}, (1, 2), "fsdp", 4, 256, 2),
-                    ("olmoe-1b-7b", {"n_layers": 2}, (1, 2), "tp", 2, 256, 2),
-                    ("olmoe-1b-7b", {"n_layers": 2}, (2, 1), "tp", 2, 256, 2))
+# mesh shape, scheme, B, T, steps, microbatch (0: none).  The zamba2
+# hybrid runs one group of its layer-units (5 Mamba2 + the shared
+# attention block), rwkv6 2 of its 32 layers, seamless-m4t-medium whole
+# after 1024 frames, their all-zero leaves drawn random
+# (``nonzero_leaves``); qwen3's microbatched case takes its rows of each
+# microbatch of 2 (one a data shard).  Every case logs the one-card
+# step's own one-ulp floor beside its gaps (``one_ulp_floor``).
+# rwkv6 at the reference's own init is phase 11's witness
+# (``mesh_witness_rank``).
+TRAIN_NCCL_CASES = (("qwen3-0.6b", {}, (1, 1), "tp", 4, 512, 3, 0),
+                    ("zamba2-7b", {"n_layers": 6}, (1, 1), "tp", 2, 256, 2, 0))
+TRAIN_GLOO_CASES = (("qwen3-0.6b", {"n_layers": 4}, (1, 2), "tp", 4, 256, 2, 0),
+                    ("qwen3-0.6b", {"n_layers": 4}, (2, 1), "tp", 4, 256, 2, 0),
+                    ("qwen3-0.6b", {"n_layers": 4}, (1, 2), "fsdp", 4, 256, 2, 0),
+                    ("olmoe-1b-7b", {"n_layers": 2}, (1, 2), "tp", 2, 256, 2, 0),
+                    ("olmoe-1b-7b", {"n_layers": 2}, (2, 1), "tp", 2, 256, 2, 0),
+                    ("zamba2-7b", {"n_layers": 6}, (1, 2), "tp", 2, 256, 2, 0),
+                    ("rwkv6-7b", {"n_layers": 2}, (1, 2), "tp", 2, 256, 2, 0),
+                    ("seamless-m4t-medium", {}, (1, 2), "tp", 2, 256, 2, 0),
+                    ("seamless-m4t-medium", {}, (2, 1), "tp", 2, 256, 2, 0),
+                    ("qwen3-0.6b", {"n_layers": 4}, (2, 1), "tp", 4, 256, 2, 2))
 TRAIN_MESH_TOL = dict(loss=1e-5, gnorm=1e-5, grad=1e-4, params=1e-4)
+# At each step the loss, the gradient norm and each gradient leaf are
+# held to TRAIN_MESH_TOL, or to TRAIN_FLOOR_MULT times that quantity's
+# own one-card floor in the same step where that is larger
+# (``one_ulp_floor``: the one-card step's move when every param moves by
+# one f32 ulp; a mesh's differently shaped GEMMs round several ulps
+# apart).  A leaf whose floor is under TRAIN_MESH_TOL / TRAIN_FLOOR_MULT
+# is held to TRAIN_MESH_TOL alone; the params after each step always
+# are.  Each case logs the quantities held above TRAIN_MESH_TOL
+# (``floor_bound``).
+TRAIN_FLOOR_MULT = 4
+
+
+def train_bound(key, floor):
+    """The bound of a phase-11 gap of kind ``key`` (loss, gnorm, grad)
+    whose one-card one-ulp floor in the same step is ``floor``."""
+    return max(TRAIN_MESH_TOL[key], TRAIN_FLOOR_MULT * floor)
+
+
+# the kernels each family's training path must launch on its ranks (the
+# WKV scan of rwkv6 is no hand-written kernel)
+TRAIN_MESH_KERNELS = {"dense": ("flash_attention_lse",), "moe": ("flash_attention_lse",),
+                      "vlm": ("flash_attention_lse",), "encdec": ("flash_attention_lse",),
+                      "hybrid": ("flash_attention_lse", "ssd_scan", "ssd_scan_bwd"),
+                      "ssm": ()}
 
 
 def shard_moe_fn(torch, cfg, n_data, d):
@@ -3969,9 +4147,11 @@ def shard_moe_fn(torch, cfg, n_data, d):
     return fn
 
 
-def mesh_train_case(torch, mesh, backend, arch, over, scheme, B, T, n_steps):
+def mesh_train_case(torch, mesh, backend, arch, over, scheme, B, T, n_steps, micro=0):
     """One phase-11 case on this rank (see the header): the mesh's train
-    steps, each checked against the one-card step on the full state."""
+    steps, each checked against the one-card step on the full state (with
+    ``micro``, both accumulate microbatches of that many rows, the mesh
+    over its rows of each)."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import make_train_data_fn
     from repro_torch.launch import steps
@@ -3979,44 +4159,61 @@ def mesh_train_case(torch, mesh, backend, arch, over, scheme, B, T, n_steps):
     from repro_torch.models import sharding
     from repro_torch.models.registry import get_model
     from repro_torch.optim import adamw_init, clip_by_global_norm
-    from repro_torch.train.trainer import apply_grads, init_state, make_grad_fn
+    from repro_torch.train.trainer import apply_grads, init_state, make_grad_fn, take_rows
     cfg = replace(get_config(arch), **over)
     model = get_model(arch, cfg)
     tp, policy, moe_fn = steps.train_mesh(model, mesh, scheme)
     nd, nm = policy.size("data"), policy.size("model")
     label = (f"mesh train {backend} {nd}x{nm} {scheme} {arch}"
-             + (f" {cfg.n_layers} layers" if over else "") + f" rank {torch.distributed.get_rank()}")
+             + (f" {cfg.n_layers} layers" if over else "") + (f" micro {micro}" if micro else "")
+             + f" rank {torch.distributed.get_rank()}")
     tcfg = TrainConfig(global_batch=B, seq_len=T, warmup_steps=0, total_steps=10,
-                       remat=True, loss_impl="chunked")
+                       remat=True, loss_impl="chunked", microbatch=micro)
     full = init_state(model, torch.Generator(device="cuda").manual_seed(0), tcfg,
                       device="cuda", tp=tp)
+    if cfg.family in ("hybrid", "ssm", "encdec"):
+        full["params"] = nonzero_leaves(torch, full["params"])
     specs = policy.params
     local = {"params": shard_params(full["params"], specs, policy)}
     local["opt"] = adamw_init(local["params"], False, specs, policy)
     names = leaf_names(local["params"])
     data_fn = make_train_data_fn(cfg, tcfg)
-    n_b, i_b = policy.size(policy.batch_axis), policy.index(policy.batch_axis)
     one_moe = shard_moe_fn(torch, cfg, nd, policy.index("data")) if cfg.is_moe else None
     one_grad = make_grad_fn(model, tcfg, tp=tp, moe_fn=one_moe)
     mesh_grad = make_grad_fn(model, tcfg, tp=tp, policy=policy, moe_fn=moe_fn)
     gaps = dict(loss=0.0, gnorm=0.0, grad=0.0, params=0.0)
-    grad_leaf, walls, mesh_launches, coll = "", [], {}, {}
+    floors = dict(loss=0.0, gnorm=0.0, grad=0.0)
+    grad_leaf, walls, mesh_launches, coll, step_gaps = "", [], {}, {}, []
+    floor_bound, errors = {}, []
     torch.cuda.reset_peak_memory_stats()
+
     def one_card_step(batch):
         """The one-card step on the full state: (loss, gnorm, each leaf's max
-        |g|, the gradients sliced to this rank's shards); the full
-        gradients freed."""
+        |g|, the gradients sliced to this rank's shards, the one-ulp floor
+        of the loss, gnorm and each gradient leaf); the full gradients
+        freed."""
         nonlocal full
         l1, g1 = one_grad(full["params"], batch)
         gmax = {n: float(g.abs().max()) for n, g in zip(names, _leaves(g1))}
+        floor = one_ulp_floor(torch, one_grad, full["params"], batch, l1, g1, gmax, tcfg)
         g1_local = shard_params(g1, specs, policy)
         full, gn1, _ = apply_grads(tcfg, full, g1)
-        return l1, gn1, gmax, g1_local
+        return l1, gn1, gmax, g1_local, floor
+
+    def hold(i, kind, name, gap, floor):
+        """Step ``i``'s gap of ``kind`` (loss, gnorm, grad: of leaf ``name``)
+        against its bound from this step's floor."""
+        bound = train_bound(kind, floor)
+        if bound > TRAIN_MESH_TOL[kind]:
+            floor_bound[f"{name} step {i}"] = [gap, floor, bound]
+        if not gap <= bound:
+            errors.append(f"step {i} {name} {gap:.3e} beyond {bound:.3e} (one-card floor "
+                          f"{floor:.3e})")
 
     for i in range(n_steps):
         batch = {k: v.to("cuda") for k, v in data_fn(i).items()}
-        l1, gn1, gmax, g1_local = in_turns(torch, one_card_step, batch)
-        rows = {k: v[i_b * (B // n_b):(i_b + 1) * (B // n_b)] for k, v in batch.items()}
+        l1, gn1, gmax, g1_local, floor = in_turns(torch, one_card_step, batch)
+        rows = take_rows(batch, policy, micro)
         torch.cuda.synchronize()
         zero_launches()
         c0 = dict(sharding.counts)
@@ -4031,34 +4228,92 @@ def mesh_train_case(torch, mesh, backend, arch, over, scheme, B, T, n_steps):
             coll[k] = coll.get(k, 0) + (v - c0.get(k, 0)) / n_steps
         gnm = clip_by_global_norm(gm, tcfg.grad_clip, specs, policy)[1]   # its own gradients
         torch.cuda.empty_cache()          # for the other rank's one-card step
-        gaps["loss"] = max(gaps["loss"], abs(float(lm) - float(l1)) / abs(float(l1)))
-        gaps["gnorm"] = max(gaps["gnorm"], abs(float(gnm) - float(gn1)) / abs(float(gn1)))
+        step = dict(loss=abs(float(lm) - float(l1)) / abs(float(l1)),
+                    gnorm=abs(float(gnm) - float(gn1)) / abs(float(gn1)), grad=0.0,
+                    floor_loss=floor["loss"], floor_gnorm=floor["gnorm"],
+                    floor_grad=max(floor["grad"].values()))
+        hold(i, "loss", "loss", step["loss"], floor["loss"])
+        hold(i, "gnorm", "gnorm", step["gnorm"], floor["gnorm"])
         for n, a, b in zip(names, _leaves(gm), _leaves(g1_local)):
             gap = float((a - b).abs().max()) / max(gmax[n], 1e-30)
+            hold(i, "grad", n, gap, floor["grad"][n])
+            step["grad"] = max(step["grad"], gap)
             if gap >= gaps["grad"]:
                 gaps["grad"], grad_leaf = gap, n
+        step_gaps.append(step)
+        for k in ("loss", "gnorm"):
+            gaps[k] = max(gaps[k], step[k])
+        for k in floors:
+            floors[k] = max(floors[k], step[f"floor_{k}"])
         want = shard_params(full["params"], specs, policy)
         gaps["params"] = max(gaps["params"], max(
             float((a - b).abs().max()) for a, b in zip(_leaves(local["params"]),
                                                       _leaves(want))))
         del gm, g1_local, want
+    if not gaps["params"] <= TRAIN_MESH_TOL["params"]:
+        errors.append(f"params {gaps['params']:.3e} beyond {TRAIN_MESH_TOL['params']}")
+    missing = [k for k in TRAIN_MESH_KERNELS[cfg.family] if not mesh_launches.get(k)]
+    if missing:
+        errors.append(f"{missing} not launched: {mesh_launches}")
     res = dict(label=label, backend=backend, mesh=[nd, nm], scheme=scheme, tp=tp,
                rank=torch.distributed.get_rank(), arch=arch, n_layers=cfg.n_layers,
-               batch=B, seq=T, steps=n_steps, step_wall_s=walls, gaps=gaps, grad_leaf=grad_leaf,
+               batch=B, seq=T, microbatch=micro, steps=n_steps,
+               step_wall_s=walls, gaps=gaps, step_gaps=step_gaps, grad_leaf=grad_leaf,
+               one_card_ulp_floor=floors, floor_bound=floor_bound, errors=errors,
                collectives_a_step={k: v for k, v in coll.items() if v},
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
                launches={k: v for k, v in mesh_launches.items() if v},
+               launches_per_step={k: v / n_steps for k, v in mesh_launches.items() if v},
                note=("collectives staged through host (gloo); the peak holds the one-card "
                      "state too" if backend == "gloo" else
                      "NCCL at world size 1; the peak holds the one-card state too"))
     log(f"phase 11 {json.dumps(res)}")
-    bad = {k: v for k, v in gaps.items() if not v <= TRAIN_MESH_TOL[k]}
-    if bad:
-        fail(f"phase 11 {label}: beyond {TRAIN_MESH_TOL}: {bad} (grad leaf {grad_leaf})")
-    if not mesh_launches.get("flash_attention_lse"):
-        fail(f"phase 11 {label}: K2's training forward not launched: {mesh_launches}")
     del full, local
     return res
+
+
+def train_errors(train):
+    """Fail the run if a phase-11 case (each logged first) failed."""
+    bad = [f"{r['label']}: " + "; ".join(r["errors"]) for r in train if r["errors"]]
+    if bad:
+        fail(f"phase 11, held to {TRAIN_MESH_TOL} or {TRAIN_FLOOR_MULT} x the one-card "
+             f"step's one-ulp floor: " + " | ".join(bad))
+
+
+def nonzero_leaves(torch, params):
+    """``params`` with every all-zero leaf (norm scales, the hybrid's LoRA
+    ``*b``, rwkv6's ``u``) drawn from N(0, 0.1^2), seeded, as the CPU tests
+    of the mesh draw them: each sharded piece then moves the step."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def fix(t):
+        return t + torch.randn(t.shape, generator=g, device="cuda") * 0.1 if not t.any() else t
+    return {k: nonzero_leaves(torch, v) if isinstance(v, dict) else fix(v)
+            for k, v in params.items()}
+
+
+def one_ulp_floor(torch, grad_fn, params, batch, loss, grads, gmax, tcfg):
+    """The one-card step's own f32 floor: the gaps of its loss, gradient
+    norm and of each gradient leaf (of that leaf's max |g|, by name) when
+    every parameter moves by one f32 ulp (times 1 + 2^-24, the sign drawn
+    from a fixed seed).  A well-conditioned step moves ~1e-6 of max |g|
+    (qwen3-0.6b); a step whose rounding the model amplifies moves more,
+    and a mesh's differently shaped GEMMs move it more than one ulp does
+    (``TRAIN_FLOOR_MULT``)."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.optim import clip_by_global_norm
+    g = torch.Generator(device=next(iter(_leaves(params))).device).manual_seed(7)
+    moved = tree_map(lambda p: p * (1 + 2.0 ** -24 * (2 * torch.randint(
+        0, 2, p.shape, generator=g, device=p.device) - 1)), params)
+    l2, g2 = grad_fn(moved, batch)
+    del moved
+    gn1 = clip_by_global_norm(grads, tcfg.grad_clip)[1]
+    gn2 = clip_by_global_norm(g2, tcfg.grad_clip)[1]
+    grad = {n: float((a - b).abs().max()) / max(gmax[n], 1e-30)
+            for n, a, b in zip(gmax, _leaves(grads), _leaves(g2))}
+    del g2
+    return dict(loss=abs(float(l2) - float(loss)) / abs(float(loss)),
+                gnorm=abs(float(gn2) - float(gn1)) / abs(float(gn1)), grad=grad)
 
 
 def in_turns(torch, fn, *args):
@@ -4074,6 +4329,139 @@ def in_turns(torch, fn, *args):
             torch.cuda.empty_cache()
         torch.distributed.barrier()
     return out
+
+
+@contextlib.contextmanager
+def f64_floats(torch):
+    """``Tensor.float()`` keeps float64 tensors as they are: the port's
+    paths that upcast to f32 with ``.float()`` then run a float64 state
+    in float64 end to end (the witness below; no kernel of rwkv6's path
+    is bypassed, it has none)."""
+    orig = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else orig(t, *a, **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+# phase 11's witness: rwkv6's first mesh step in f64, held to
+# MESH_F64_TOL (f64 rounds 2^29 times finer than f32: a sharding fault
+# stands out by orders of magnitude), at the reference's own init and
+# with its all-zero leaves drawn (``nonzero_leaves``)
+MESH_F64_TOL = 1e-9
+
+
+def mesh_witness_rank(rank, world, rdv, out_dir):
+    """rwkv6-7b at 2 layers, gloo (1, 2) ``tp``, B = 2 x T = 256 (phase
+    11's case): the first step's gradients of the mesh and of the one
+    card, in f32 and in f64, at the reference's own init and with its
+    zero leaves drawn.  Per leaf, of the
+    f64 one-card leaf's max |g|: mesh against one card in f64 (held to
+    MESH_F64_TOL, as the loss) and in f32 (phase 11's gap), each f32
+    step against the f64 one-card step (its own f32 error, also of the
+    one card a row at a time), and each f32 step against itself run again
+    (the card's run-to-run rounding)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.tree import tree_map, tree_zip_map
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_train_data_fn
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import init_state, make_grad_fn, take_rows
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=rdv, rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, 2), device_type="cuda", backend="gloo")
+        cfg = replace(get_config("rwkv6-7b"), n_layers=2)
+        model = get_model("rwkv6-7b", cfg)
+        tp, policy, moe_fn = steps.train_mesh(model, mesh, "tp")
+        specs = policy.params
+        tcfg = TrainConfig(global_batch=2, seq_len=256, warmup_steps=0, total_steps=10,
+                           remat=True, loss_impl="chunked")
+        batch = {k: v.to("cuda") for k, v in make_train_data_fn(cfg, tcfg)(0).items()}
+        rows = take_rows(batch, policy, 0)
+        one_grad = make_grad_fn(model, tcfg, tp=tp)
+        mesh_grad = make_grad_fn(model, tcfg, tp=tp, policy=policy, moe_fn=moe_fn)
+        init = init_state(model, torch.Generator(device="cuda").manual_seed(0), tcfg,
+                          device="cuda", tp=tp)["params"]
+        names = leaf_names(init)
+        pairs = {"mesh_vs_one_f64": ("mesh_f64", "one_f64"),
+                 "mesh_vs_one_f32": ("mesh_f32", "one_f32"),
+                 "one_f32_error": ("one_f32", "one_f64"),
+                 "mesh_f32_error": ("mesh_f32", "one_f64"),
+                 "one_f32_rerun": ("one_f32", "one_f32_rerun"),
+                 "mesh_f32_rerun": ("mesh_f32", "mesh_f32_rerun"),
+                 "one_rows_f32_error": ("one_rows_f32", "one_f64")}
+
+        def one(p):
+            l1, g1 = one_grad(p, batch)
+            return float(l1), list(_leaves(shard_params(g1, specs, policy))), [
+                float(x.abs().max()) for x in _leaves(g1)]
+
+        def one_rows(p):
+            """The one-card gradient a row at a time (the rows' mean: each
+            row holds as many tokens), sliced to this rank's shards."""
+            ga, gb = (one_grad(p, {k: v[j:j + 1] for k, v in batch.items()})[1]
+                      for j in range(2))
+            mean = tree_zip_map(lambda a, b: (a + b) / 2, ga, gb)
+            return list(_leaves(shard_params(mean, specs, policy)))
+        out = []
+        for variant in ("reference init", "zero leaves drawn"):
+            p32 = init if variant == "reference init" else nonzero_leaves(torch, init)
+            g, loss = {}, {}
+            for dt in ("f32", "f32_rerun", "f64"):
+                with f64_floats(torch):
+                    p = p32 if dt != "f64" else tree_map(lambda t: t.double(), p32)
+                    loss[f"one_{dt}"], g[f"one_{dt}"], gmax = in_turns(torch, one, p)
+                    lm, gm = mesh_grad(shard_params(p, specs, policy), rows)
+                    loss[f"mesh_{dt}"], g[f"mesh_{dt}"] = float(lm), list(_leaves(gm))
+                    if dt == "f32":
+                        g["one_rows_f32"] = in_turns(torch, one_rows, p)
+                    del p, gm
+                torch.cuda.empty_cache()
+            leaves = {n: {k: float((g[a][j].double() - g[b][j].double()).abs().max())
+                          / max(gmax[j], 1e-300) for k, (a, b) in pairs.items()}
+                      for j, n in enumerate(names)}
+            worst = {k: max(names, key=lambda n: leaves[n][k]) for k in pairs}
+            loss_f64 = abs(loss["mesh_f64"] - loss["one_f64"]) / abs(loss["one_f64"])
+            errors = [f"f64 {k} {v:.3e}" for k, v in (
+                ("loss", loss_f64), (worst["mesh_vs_one_f64"],
+                                     leaves[worst["mesh_vs_one_f64"]]["mesh_vs_one_f64"]))
+                if not v <= MESH_F64_TOL]
+            res = dict(label=f"mesh witness rwkv6-7b 2 layers gloo 1x2 tp {variant} rank {rank}",
+                       loss=loss, worst={k: [n, leaves[n][k]] for k, n in worst.items()},
+                       leaves={n: v for n, v in leaves.items() if max(v.values()) > 1e-5},
+                       errors=errors)
+            log(f"witness {json.dumps(res)}")
+            out.append(res)
+            del g, p32
+            torch.cuda.empty_cache()
+        del init
+        Path(out_dir, f"witness{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_witness():
+    """``mesh_witness_rank`` on two gloo ranks on the card; fails the run
+    if the mesh's f64 step strays from the one card's."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(mesh_witness_rank, args=(2, f"file://{tmp}/rdv", tmp), nprocs=2, join=True)
+        res = [r for k in range(2) for r in json.loads(Path(tmp, f"witness{k}.json").read_text())]
+    log(f"time phase 11 witness: {time.perf_counter() - t0:.1f} s")
+    bad = [f"{r['label']}: " + "; ".join(r["errors"]) for r in res if r["errors"]]
+    if bad:
+        fail(f"phase 11 witness, held to {MESH_F64_TOL} in f64: " + " | ".join(bad))
+    return res
 
 
 def mesh_run(torch, mesh, backend, case):
@@ -4105,6 +4493,15 @@ def mesh_rank(rank, world, init, out_dir):
                 gc.collect()
                 torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        for arch, over, shapes, scheme, B in GLOO_DECODE_CASES:
+            for shape in shapes:
+                results.append(mesh_decode_case(torch, meshes[shape], "gloo", arch, over,
+                                                scheme, B))
+                gc.collect()
+                torch.cuda.empty_cache()
+        log(f"time phase 10 decode 2d and replicated, gloo rank {rank}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         train = []
         for arch, over, shape, *rest in TRAIN_GLOO_CASES:
             train.append(mesh_train_case(torch, meshes[shape], "gloo", arch, over, *rest))
@@ -4113,6 +4510,7 @@ def mesh_rank(rank, world, init, out_dir):
         log(f"time phase 11 gloo rank {rank}: {time.perf_counter() - t0:.1f} s")
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(results))
         Path(out_dir, f"train{rank}.json").write_text(json.dumps(train))
+        train_errors(train)
     finally:
         dist.destroy_process_group()
 
@@ -4142,6 +4540,7 @@ def phase_mesh(torch):
             train = [mesh_train_case(torch, make_mesh(shape), "nccl", arch, over, *rest)
                      for arch, over, shape, *rest in TRAIN_NCCL_CASES]
             log(f"time phase 11 nccl: {time.perf_counter() - t1:.1f} s")
+            train_errors(train)
         finally:
             dist.destroy_process_group()
     gc.collect()
@@ -4157,6 +4556,7 @@ def phase_mesh(torch):
             results += json.loads(Path(tmp, f"rank{r}.json").read_text())
             train += json.loads(Path(tmp, f"train{r}.json").read_text())
     log(f"time phases 10-11 gloo (two ranks on the card): {time.perf_counter() - t1:.1f} s")
+    phase_mesh_witness()
     return {r["label"]: r for r in results}, {r["label"]: r for r in train}
 
 
@@ -4206,6 +4606,12 @@ KERNELS = {
         headline=("train B=4 T=1024 H=112", "float32"), train_only=True,
         library="none (no single PyTorch call computes the scan's backward)"),
 }
+
+
+# the launch counter of each kernel on phase 11's training paths: K2's
+# training forward, K4's forward and backward
+MESH_TRAIN_COUNTER = {"flash_attention": "flash_attention_lse", "ssd_scan": "ssd_scan",
+                      "ssd_scan_bwd": "ssd_scan_bwd"}
 
 
 def train_launches(train, cases, kname):
@@ -4419,10 +4825,11 @@ def main() -> int:
             **(train_launches(train, cases, kname)
                if kname in ("flash_attention", "ssd_scan") else {}),
             **({"launches_mesh_train_by_rank": {
-                p: v["launches"].get("flash_attention_lse", 0) for p, v in mesh_train.items()},
+                p: v["launches"].get(MESH_TRAIN_COUNTER[kname], 0)
+                for p, v in mesh_train.items()},
                 "launches_mesh_train_per_step": {
-                p: v["launches"].get("flash_attention_lse", 0) / v["steps"]
-                for p, v in mesh_train.items()}} if kname == "flash_attention" else {}),
+                p: v["launches"].get(MESH_TRAIN_COUNTER[kname], 0) / v["steps"]
+                for p, v in mesh_train.items()}} if kname in MESH_TRAIN_COUNTER else {}),
             cases=[{k: v for k, v in x.items() if k != "kernel"}
                    for x in cases if x["kernel"] == kname]))
     log(f"total {time.perf_counter() - t_start:.1f} s")

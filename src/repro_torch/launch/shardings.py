@@ -123,6 +123,22 @@ def param_pspecs(shapes_tree, cfg, *, tp: int, fsdp_size: int = 1,
     return _map(spec_for, shapes_tree)
 
 
+def flat_f_pspecs(param_specs, flat):
+    """The decode ``2d`` scheme's placements (the reference's
+    ``build_decode._2d_overrides``): every MoE expert weight's d_ff dim
+    over the ``flat`` axes (data and model), ``w_gate``/``w_up``'s last
+    dim and ``w_down``'s third, the rest of each left whole; every other
+    leaf as ``param_specs`` places it.  Nothing big sits on a contraction
+    dim, so no weight is ever gathered."""
+    def fix(parts, spec):
+        if "moe" in parts and parts[-1] in ("w_gate", "w_up"):
+            return (None, None, None, flat)
+        if "moe" in parts and parts[-1] == "w_down":
+            return (None, None, flat, None)
+        return spec
+    return _map(fix, param_specs)
+
+
 def opt_pspecs(param_specs):
     """Optimizer state specs: moments mirror params; count replicated."""
     return {"mu": param_specs, "nu": param_specs, "count": ()}

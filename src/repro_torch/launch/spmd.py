@@ -53,9 +53,15 @@ are each shard's own streams and decode rows (its engine pins a stream
 to a shard), the one-card step on that shard's rows.  The two agree
 wherever no expert overflows.
 
-Not ported yet (ROADMAP queue 1, item 17): the decode ``2d`` scheme
-(``flat_f``: expert d_ff sharded over every axis, tokens replicated) and
-replicated decode batches (``shard_batch=False`` over data > 1).
+The decode ``2d`` scheme (``launch/steps.py::build_decode``) keeps the
+batch replicated over data: its MoE is ``make_sharded_moe_fn(flat_f=
+True)`` (expert d_ff over every axis, one ``[T, D]`` all_reduce over
+all of them) and its attention ``make_sharded_decode_attn(
+rows_over="data")`` (each rank writes and attends its data shard's rows
+on its data-sharded pool, then gathers the output over data).  A decode
+batch that does not divide over data > 1 is replicated with its pool
+(the reference's ``shard_batch=False``): every data rank computes the
+whole step on its `model` shards.
 """
 from __future__ import annotations
 
@@ -74,16 +80,34 @@ def _policy(mesh, data, model):
 
 class ShardedPagedAttention:
     """``ops.paged_attention``'s signature over one layer of the rank's
-    local pool (K1 for fp pages, K3 for int8), given pool-local tables."""
+    local pool (K1 for fp pages, K3 for int8), given pool-local tables.
 
-    def __init__(self, kv_int8: bool):
-        self.kv_int8 = kv_int8
+    With ``rows_over`` (the decode ``2d`` scheme: the batch replicated
+    over that axis, the pages sharded over it) the model hands the hook
+    its shard's rows alone (``row_slice``: of the new K/V it writes, the
+    queries, lengths and positions; ``local_table`` keeps that shard's
+    rows of the table), and the hook gathers the attention output over
+    ``rows_over`` in rank order: every rank's output holds the whole
+    batch again."""
 
-    @staticmethod
-    def local_table(block_table, pages):
-        """Global page ids -> ids in the rank's pool of N_local pages."""
+    def __init__(self, kv_int8: bool, policy=None, rows_over=None):
+        self.kv_int8, self.policy, self.rows_over = kv_int8, policy, rows_over
+
+    def row_slice(self, n):
+        """This rank's rows of a batch of ``n`` (all of them unless the
+        batch is replicated over sharded pages)."""
+        if self.rows_over is None:
+            return slice(None)
+        k, d = self.policy.size(self.rows_over), self.policy.index(self.rows_over)
+        if n % k:
+            raise ValueError(f"{n} rows do not divide over {k} data shards")
+        return slice(d * (n // k), (d + 1) * (n // k))
+
+    def local_table(self, block_table, pages):
+        """Global page ids (of this rank's rows) -> ids in the rank's pool
+        of N_local pages."""
         codes = pages["q"] if isinstance(pages, dict) else pages
-        return block_table % codes.shape[1]
+        return block_table[self.row_slice(block_table.shape[0])] % codes.shape[1]
 
     def __call__(self, q, kpg, vpg, block_table, kv_lens, q_pos, *, scale,
                  window=None, softcap=None):
@@ -92,23 +116,28 @@ class ShardedPagedAttention:
                             f"{'int8' if isinstance(kpg, dict) else 'fp'} pages")
         kw = dict(scale=scale, window=window, softcap=softcap)
         if self.kv_int8:
-            return ops.paged_attention_int8(q, kpg["q"], kpg["s"], vpg["q"], vpg["s"],
-                                            block_table, kv_lens, q_pos, **kw)
-        return ops.paged_attention(q, kpg, vpg, block_table, kv_lens, q_pos, **kw)
+            o = ops.paged_attention_int8(q, kpg["q"], kpg["s"], vpg["q"], vpg["s"],
+                                         block_table, kv_lens, q_pos, **kw)
+        else:
+            o = ops.paged_attention(q, kpg, vpg, block_table, kv_lens, q_pos, **kw)
+        return (o if self.rows_over is None
+                else sharding.all_gather(o, self.policy, self.rows_over, 0))
 
 
-def make_sharded_decode_attn(mesh, *, data=("data",), model="model",
-                             shard_batch=True, kv_int8=False):
+def make_sharded_decode_attn(mesh, *, data=("data",), model="model", rows_over=None,
+                             kv_int8=False):
     """The decode step's ``attn_fn`` on the rank's local pool.
 
-    shard_batch=False is the reference's replicated decode batch with
-    pages sharded over data (its single-sequence long-context layout);
-    the port has it only where the data axis has one rank."""
+    ``rows_over="data"`` is the decode ``2d`` scheme's: the model's batch
+    replicated over data, the pages data-sharded, so the hook takes its
+    data shard's rows and gathers their output over data
+    (``ShardedPagedAttention``).  A batch replicated over data with its
+    pool (the reference's ``shard_batch=False``, its single-sequence
+    long-context layout) needs nothing of the hook: every data rank
+    attends the whole batch on its `model` heads over its whole pool."""
     policy = _policy(mesh, data, model)
-    if not shard_batch and policy.size(tuple(data)) > 1:
-        raise NotImplementedError(
-            "a decode batch replicated over data > 1 (shard_batch=False) is not "
-            "ported: ROADMAP queue 1, item 17 (the decode 2d scheme)")
+    if rows_over is not None and policy.size(rows_over) > 1:
+        return ShardedPagedAttention(kv_int8, policy, rows_over)
     return ShardedPagedAttention(kv_int8)
 
 
@@ -125,19 +154,31 @@ def make_sharded_moe_fn(mesh, cfg, *, tp: int, data=("data",), model="model",
     """EP/expert-TP MoE: local dispatch + expert GEMMs + one all_reduce.
     ``lp`` holds the rank's expert slices (``launch/shardings.py``), their
     FSDP'd dims already gathered by the model (the reference's
-    ``fsdp_gather``)."""
-    if flat_f:
-        raise NotImplementedError(
-            "the decode 2d scheme (flat_f: expert d_ff over every axis) is not "
-            "ported: ROADMAP queue 1, item 17")
+    ``fsdp_gather``).
+
+    ``flat_f`` is the decode ``2d`` scheme's (``launch/shardings.py::
+    flat_f_pspecs``): every expert's d_ff sliced over every mesh axis, the
+    tokens replicated (every rank routes them all over the full router,
+    capacity from them all), and the partial outputs summed by one
+    ``all_reduce`` of ``[T, D]`` over all the axes.  Its ``aux`` is the
+    reference's ``pmean`` over them: every rank computes the same value."""
     policy = _policy(mesh, data, model)
     if policy.size(model) != tp:
         raise ValueError(f"tp={tp} but the mesh's {model!r} axis has "
                          f"{policy.size(model)} ranks")
     E = cfg.n_experts
+    gate_act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
+    if flat_f:
+        axes = tuple(data) + (model,)
+
+        def flat_fn(lp, x2d):
+            y, aux = moe_apply(lp, x2d, n_experts=E, top_k=cfg.top_k, act=gate_act,
+                               capacity_factor=cfg.moe_capacity_factor)
+            return sharding.all_reduce(y, policy, axes), aux
+
+        return flat_fn
     ep = E % tp == 0
     offset = policy.index(model) * (E // tp) if ep else 0
-    gate_act = act_fn("silu" if cfg.mlp_act == "silu" else "gelu")
 
     def fn(lp, x2d):
         lp = dict(lp, router=copy_to(lp["router"], policy, model))

@@ -34,14 +34,15 @@ placements), and its layers gathered one at a time as they run
 ``build_train`` takes a mesh too, in the reference's two schemes:
 ``tp`` (tensor parallel over `model`, every weight's second dim and the
 optimizer state ZeRO-3 over `data`) and ``fsdp`` (tp = 1: batch and
-ZeRO-3 over both axes, heads/ff/vocab/experts whole), for the
-transformer family (dense, MoE, vlm); ``train_mesh`` gives the step's
-``tp``, policy (its ``params`` the placements) and MoE hook
-(``optim/adamw.py::opt_specs`` places the moments).  The other
-families' sharded training raises ``NotImplementedError`` (ROADMAP queue
-1, item 16b), as do the decode ``2d`` scheme and a decode batch that
-does not divide over data > 1 (item 17).  Donation has no counterpart
-(pools are written in place).  The two schemes that change the work
+ZeRO-3 over both axes, heads/ff/vocab/experts whole), for every family;
+``train_mesh`` gives the step's ``tp``, policy (its ``params`` the
+placements) and MoE hook (``optim/adamw.py::opt_specs`` places the
+moments), and ``make_args`` the rank's rows (``trainer.take_rows``:
+with microbatches, its rows of each).  ``build_decode`` takes the
+reference's decode ``2d`` scheme (the batch replicated over data, the
+pages data-sharded, the MoE's expert d_ff over both axes) and a batch
+that does not divide over data > 1 (replicated over data with its
+caches).  Donation has no counterpart (pools are written in place).  The two schemes that change the work
 stay: the vocab-tiled loss of the train step (``loss_impl="vtiled"``,
 the reference's ``+vtiled``) and int8 KV pages in the mixed step
 (``scheme="kv8"``).
@@ -53,12 +54,12 @@ import torch
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.launch import spmd
 from repro_torch.launch.costs import fake_mode
-from repro_torch.launch.shardings import local_shape, param_pspecs, shard_params
+from repro_torch.launch.shardings import flat_f_pspecs, local_shape, param_pspecs, shard_params
 from repro_torch.models import encdec, hybrid, rwkv, ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_model
 from repro_torch.models.sharding import Policy, make_rules
-from repro_torch.train.trainer import init_state, make_train_step
+from repro_torch.train.trainer import init_state, make_train_step, take_rows
 
 PAGE = 64
 
@@ -112,52 +113,87 @@ def _cell(fn, make_args, note):
 
 class _Shard:
     """The mesh of a sharded cell as the cell functions use it (one card: all
-    trivial)."""
+    trivial).  A decode cell passes its ``batch`` and ``scheme``: a batch
+    that does not divide over the data shards is replicated over data with
+    its caches (the reference's ``shard_batch=False``), and the ``2d``
+    scheme replicates the batch while the pages stay data-sharded, with
+    every MoE expert's d_ff over both axes (``flat_f``)."""
 
-    def __init__(self, model, mesh):
+    def __init__(self, model, mesh, batch=None, scheme="baseline"):
         self.mesh, self.model = mesh, model
-        self.policy = None
+        self.policy, self.specs = None, None
+        self.batch_sharded = self.caches_sharded = True
         if mesh is not None:
             self.policy = Policy(make_rules(("data",), "model"), mesh)
             n_data = self.policy.size("data")
-            if model.name in SERVE_FSDP and n_data > 1:       # weights FSDP'd over data
+            if batch is not None and (scheme == "2d" or batch % n_data):
+                self.batch_sharded = False
+                # the 2d scheme keeps the transformer family's pages data-sharded
+                self.caches_sharded = (scheme == "2d"
+                                       and model.cfg.family in ("dense", "moe", "vlm"))
+            if model.name in SERVE_FSDP and n_data > 1 and scheme != "2d":
                 self.policy = Policy(self.policy.rules, mesh, params=_placements(
-                    model, self.policy.tp, n_data, "data"))
+                    model, self.policy.tp, n_data, "data"))      # weights FSDP'd over data
+            if scheme == "2d":
+                self.specs = flat_f_pspecs(_placements(model, self.policy.tp),
+                                           tuple(mesh.mesh_dim_names))
         self.tp = 1 if mesh is None else self.policy.tp
         self.n_data = 1 if mesh is None else self.policy.size("data")
         self.kw = {} if mesh is None else dict(tp=self.tp, policy=self.policy)
         if mesh is not None and model.cfg.is_moe:
-            self.kw["moe_fn"] = spmd.make_sharded_moe_fn(mesh, model.cfg, tp=self.tp)
+            self.kw["moe_fn"] = spmd.make_sharded_moe_fn(mesh, model.cfg, tp=self.tp,
+                                                         flat_f=scheme == "2d")
 
     def params(self, g, device):
         """The full ``tp``-padded draw, then this rank's slices of it."""
         if self.mesh is None:
             return self.model.init(g, BF16, device)
-        full = self.model.init(g, BF16, device, tp=self.tp)
-        specs = self.policy.params or param_pspecs(full, self.model.cfg, tp=self.tp)
+        return self.slice(self.model.init(g, BF16, device, tp=self.tp))
+
+    def slice(self, full):
+        """This rank's slices of the full ``tp``-padded tree ``full``."""
+        specs = (self.specs or self.policy.params
+                 or param_pspecs(full, self.model.cfg, tp=self.tp))
         return shard_params(full, specs, self.policy)
 
     def rows(self, t, n=None):
-        """This rank's data shard of ``t``'s rows."""
+        """This rank's data shard of ``t``'s rows (all of them where the
+        batch is replicated over data)."""
         n = t.shape[0] if n is None else n
+        if not self.batch_sharded:
+            return t
         if n % self.n_data:
             raise ValueError(f"{n} rows do not divide over {self.n_data} data shards")
         k = n // self.n_data
         return t[self.policy.index("data") * k:][:k] if self.n_data > 1 else t
 
+    def n_rows(self, n):
+        """The rows of a batch of ``n`` this rank holds."""
+        return n if not self.batch_sharded else n // self.n_data
+
+    @property
+    def cache_data(self):
+        """Data shards the caches split over (1: replicated over data)."""
+        return self.n_data if self.caches_sharded else 1
+
     def local(self, shape, spec=CACHE_SPECS["pages"]):
         """This rank's shape of a global cache ``shape`` placed by ``spec``
-        (a pool's: [L, N/n_data, ps, KV_p/tp, hd])."""
-        return shape if self.mesh is None else local_shape(shape, spec, self.policy)
+        (a pool's: [L, N/n_data, ps, KV_p/tp, hd]); a cache replicated
+        over data keeps that dim whole."""
+        if self.mesh is None:
+            return shape
+        if not self.caches_sharded:
+            spec = tuple(None if ax == "data" else ax for ax in spec)
+        return local_shape(shape, spec, self.policy)
 
-    def decode_attn(self, batch, kv_int8=False):
-        """The decode ``attn_fn`` (None on one card); a batch that does not
-        divide over the data shards is the reference's replicated batch,
-        not ported (``launch/spmd.py``)."""
+    def decode_attn(self, kv_int8=False):
+        """The decode ``attn_fn`` (None on one card): the rank's rows on its
+        pool; the 2d scheme's data shard of a replicated batch, gathered;
+        or the replicated batch on its replicated pool."""
         if self.mesh is None:
             return None
-        return spmd.make_sharded_decode_attn(self.mesh, shard_batch=batch % self.n_data == 0,
-                                             kv_int8=kv_int8)
+        rows_over = "data" if self.caches_sharded and not self.batch_sharded else None
+        return spmd.make_sharded_decode_attn(self.mesh, rows_over=rows_over, kv_int8=kv_int8)
 
 
 def _tokens(g, cfg, shape, device):
@@ -195,10 +231,6 @@ def train_mesh(model, mesh, scheme="tp"):
     ``spmd.make_gathered_moe_fn``).  The policy's ``params`` are the
     placements."""
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"sharded training of {model.name} ({cfg.family} family) is not ported: "
-            "ROADMAP queue 1, item 16b")
     if scheme not in ("tp", "fsdp"):
         raise ValueError(f"scheme {scheme!r}: tp or fsdp")
     names = mesh.mesh_dim_names
@@ -236,14 +268,6 @@ def build_train(arch, mesh=None, scheme="tp", loss_impl="chunked"):
     tp, policy, moe_fn = (1, None, None) if mesh is None else train_mesh(model, mesh, scheme)
     step = make_train_step(model, tcfg, tp=tp, policy=policy, moe_fn=moe_fn)
 
-    def rows(t):
-        if policy is None:
-            return t
-        n, i = policy.size(policy.batch_axis), policy.index(policy.batch_axis)
-        if t.shape[0] % n:
-            raise ValueError(f"{t.shape[0]} rows do not divide over {n} batch shards")
-        return t[i * (t.shape[0] // n):][:t.shape[0] // n]
-
     def make_args(g, device):
         state = init_state(model, g, tcfg, BF16, device, tp=tp, policy=policy)
         n = _text_len(cfg, S)
@@ -255,7 +279,7 @@ def build_train(arch, mesh=None, scheme="tp", loss_impl="chunked"):
         if cfg.family == "vlm":
             batch["patches"] = _normal(g, (B, cfg.n_vision_patches, cfg.d_vision),
                                        BF16, device)
-        return state, {k: rows(v) for k, v in batch.items()}
+        return state, take_rows(batch, policy, tcfg.microbatch)
 
     return _cell(step, make_args,
                  f"train_step B={B} S={S} remat loss={loss_impl} "
@@ -354,23 +378,50 @@ def _pages(g, shape, kv8, device):
 def build_decode(arch, shape_name="decode_32k", mesh=None, cfg=None, scheme="baseline"):
     """One decode step of B sequences, each ``seq`` tokens deep (its
     next token at position seq - 1).  scheme "kv8": the transformer
-    family over int8 KV pages; the reference's "2d" (activations
-    replicated over data) is not ported."""
-    if scheme == "2d":
-        raise NotImplementedError("the decode 2d scheme is not ported: ROADMAP "
-                                  "queue 1, item 17")
+    family over int8 KV pages; "2d" (on a mesh): the reference's
+    large-model decode, GEMM activations replicated over data, the
+    transformer family's pages data-sharded (each rank writes and attends
+    its data shard's rows, then gathers them) and the MoE's expert d_ff
+    over both axes (``flat_f``); the hybrid and rwkv6 take it as the
+    replicated batch, as the reference's step does.  A batch that does
+    not divide over the data shards is replicated over data with its
+    caches, but for seamless-m4t (the reference's encoder-decoder step
+    shards its batch over data) and an MoE outside ``2d`` (its MoE
+    island shards the tokens over data), which raise ``ValueError``.
+    The note records the reference's cost-model factors of a replicated
+    batch (``outer_mult``, ``flop_divisor``), which the one-card cost
+    model does not price."""
+    if scheme not in ("baseline", "kv8", "2d"):
+        raise ValueError(f"scheme {scheme!r}: baseline, kv8 or 2d")
     kv8 = scheme == "kv8"
     model = get_model(arch, cfg)
     cfg = model.cfg
     sh = SHAPES[shape_name]
     B, S = sh["batch"], sh["seq"]
-    shard = _Shard(model, mesh)
-    attn = shard.decode_attn(B, kv8)
+    shard = _Shard(model, mesh, batch=B, scheme=scheme)
+    mesh_note = ""
+    if mesh is not None:
+        replicated = not shard.batch_sharded and shard.n_data > 1
+        if replicated and cfg.family == "encdec":
+            raise ValueError(
+                f"{arch}: a decode batch of {B} rows replicated over {shard.n_data} data "
+                "shards: the reference's encoder-decoder step shards its batch (and "
+                "scheme 2d's) over data")
+        if replicated and cfg.is_moe and scheme != "2d":
+            raise ValueError(
+                f"{arch}: a decode batch of {B} rows over {shard.n_data} data shards: "
+                "the reference's MoE island shards the tokens over data (scheme 2d "
+                "replicates them)")
+        flat_f = scheme == "2d" and cfg.family in ("dense", "moe", "vlm")
+        divisor = None if shard.batch_sharded or flat_f else shard.tp
+        mesh_note = (f" mesh {tuple(mesh.shape)}"
+                     + (f" replicated over data (outer_mult={shard.n_data if flat_f else 1}"
+                        f" flop_divisor={divisor})" if replicated else ""))
+    attn = shard.decode_attn(kv8)
     kw = shard.kw
-    mesh_note = f" mesh {tuple(mesh.shape)}" if mesh is not None else ""
 
     def tables_lens(g, device, pg_shape, Pmax):
-        return (shard.rows(_tables(g, B, Pmax, pg_shape[1], device, shard.n_data)),
+        return (shard.rows(_tables(g, B, Pmax, pg_shape[1], device, shard.cache_data)),
                 shard.rows(_full(B, S - 1, device)))
 
     if cfg.family == "ssm":                   # rwkv: state cache only
@@ -379,13 +430,13 @@ def build_decode(arch, shape_name="decode_32k", mesh=None, cfg=None, scheme="bas
 
         def make_args(g, device):
             return (shard.params(g, device), shard.rows(_tokens(g, cfg, (B,), device)),
-                    rwkv.init_state(cfg, B // shard.n_data, BF16, device, shard.tp))
+                    rwkv.init_state(cfg, shard.n_rows(B), BF16, device, shard.tp))
         return _cell(fn, make_args, f"decode(state) B={B} ctx={S}{mesh_note}")
 
     if cfg.family == "hybrid":
         n_attn, n_mamba, _, _, _ = hybrid.group_structure(cfg)
         pg_shape, Pmax = _page_pool_shapes(cfg, B, S, n_layers=n_attn, tp=shard.tp,
-                                           n_data=shard.n_data)
+                                           n_data=shard.cache_data)
 
         def fn(params, tokens, conv, ssm_st, kpg, vpg, bt, lens):
             return hybrid.decode(params, cfg, tokens, conv, ssm_st, kpg, vpg, bt, lens,
@@ -403,7 +454,7 @@ def build_decode(arch, shape_name="decode_32k", mesh=None, cfg=None, scheme="bas
                      + mesh_note)
 
     if cfg.family == "encdec":
-        pg_shape, Pmax = _page_pool_shapes(cfg, B, S, tp=shard.tp, n_data=shard.n_data)
+        pg_shape, Pmax = _page_pool_shapes(cfg, B, S, tp=shard.tp, n_data=shard.cache_data)
         cross_shape = (cfg.n_layers, B, cfg.encoder_seq) + pg_shape[3:]
 
         def fn(params, tokens, kpg, vpg, xk, xv, bt, lens):
@@ -418,7 +469,7 @@ def build_decode(arch, shape_name="decode_32k", mesh=None, cfg=None, scheme="bas
         return _cell(fn, make_args, f"decode(encdec) B={B} ctx={S}{mesh_note}")
 
     # transformer family
-    pg_shape, Pmax = _page_pool_shapes(cfg, B, S, tp=shard.tp, n_data=shard.n_data)
+    pg_shape, Pmax = _page_pool_shapes(cfg, B, S, tp=shard.tp, n_data=shard.cache_data)
 
     def fn(params, tokens, kpg, vpg, bt, lens):
         return T.decode(params, cfg, tokens, kpg, vpg, bt, lens, attn_fn=attn, **kw)

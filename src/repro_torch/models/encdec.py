@@ -31,7 +31,10 @@ into its padded slots), ``wo`` and the MLPs row-parallel with one
 ``all_reduce`` each, the embedding a vocab-parallel lookup (no scale, as
 the reference's) and the logits gathered over ``model``.  Self-K/V, the
 pools and the cross K/V ``[Ld, B, S_enc, KV_p / tp, hd]`` hold the rank's
-rows and KV heads.  With ``policy=None`` nothing of this runs.
+rows and KV heads.  ``train_logits`` on a mesh gathers each layer's
+FSDP'd weights as it runs (each decoder layer's cross K/V from its own),
+under Megatron's ``copy_to``/``reduce_from``.  With ``policy=None``
+nothing of this runs.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
                                        rms_norm, rope)
-from repro_torch.models.sharding import all_reduce
+from repro_torch.models.sharding import copy_to, gather_weights, layer_specs, reduce_from
 
 
 def _attn_init(generator, cfg, L, dtype, device, out_scale, tp):
@@ -111,8 +114,15 @@ def _heads(cfg, x, tp, policy):
 
 
 def _mlp(lp, x, cfg, policy):
-    return all_reduce(mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                                cfg.mlp_act), policy)
+    h = copy_to(rms_norm(x, lp["ln2"], cfg.norm_eps), policy)
+    return reduce_from(mlp_apply(lp["mlp"], h, cfg.mlp_act), policy)
+
+
+def _norm_qkv(cfg, ap, x, w, policy):
+    """q/k/v of ``ap`` from x normed by ``w`` (under grad through
+    ``copy_to``, and ``wk``/``wv`` of fewer KV heads than tp too)."""
+    return T._qkv(cfg, T._tp_weights(cfg, ap, policy),
+                  copy_to(rms_norm(x, w, cfg.norm_eps), policy))
 
 
 def encode(params, cfg, frames, *, enc_valid_len=None, attend=None, tp=1,
@@ -126,10 +136,11 @@ def encode(params, cfg, frames, *, enc_valid_len=None, attend=None, tp=1,
     pos = torch.arange(S, device=frames.device)[None].expand(B, S)
     kv_lens = _full_lens(frames, S) if enc_valid_len is None else enc_valid_len
     head_mask, kv_index = _heads(cfg, frames, tp, policy)
+    specs = layer_specs(policy, "enc_blocks")
     x = frames
     for l in range(cfg.n_encoder_layers):
-        lp = T.layer_params(params["enc_blocks"], l)
-        q, k, v = T._qkv(cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps))
+        lp = gather_weights(T.layer_params(params["enc_blocks"], l), specs, policy)
+        q, k, v = _norm_qkv(cfg, lp["attn"], x, lp["ln1"], policy)
         q = rope(q, pos, cfg.rope_theta)
         k = T._expand_kv(rope(k, pos, cfg.rope_theta), kv_index)
         # non-causal, no window: K2's index positions mask only by kv_lens
@@ -153,34 +164,49 @@ def build_cross_kv(params, cfg, enc_out, tp=1, policy=None):
                               kv_index).contiguous() for w in ("wk", "wv"))
 
 
+def _cross_kv_layer(cfg, ap, enc_out, kv_index, policy):
+    """One decoder layer's cross K/V [B, S_enc, KV_p(/tp), hd] from the
+    encoder output (``build_cross_kv``'s, a layer at a time: training
+    gathers each layer's weights as it runs)."""
+    ap = T._tp_weights(cfg, ap, policy)
+    enc_out = copy_to(enc_out, policy)
+    return tuple(T._expand_kv(torch.einsum("bsd,dhk->bshk", enc_out, ap[w]), kv_index)
+                 for w in ("wk", "wv"))
+
+
 def _cross_attention(cfg, ap, hx, xk, xv, kv_lens, attend=None, head_mask=None,
                      policy=None):
     """hx [B, T, D] against one layer's cross K/V [B, S_enc, KV, hd];
     non-causal, no window: K2's index positions mask only by kv_lens."""
     attend = attend or ops.flash_attention
+    hx = copy_to(hx, policy)
     D = hx.shape[-1]
     qx = (hx @ ap["wq"].reshape(D, -1)).reshape(*hx.shape[:-1], -1, cfg.head_dim)
     o = attend(qx, xk, xv, kv_lens, scale=_scale(cfg), causal=False)
     return T._o_proj(cfg, ap, o, head_mask, policy)
 
 
-def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False,
+def _decoder_seq(params, cfg, tokens, cross_kv=None, *, enc_out=None, collect_kv=False,
                  attend=None, tp=1, policy=None):
     """The decoder over whole prompts from position 0. tokens [B, T];
-    cross_kv from ``build_cross_kv``; ``attend`` as in :func:`encode`.
+    cross_kv from ``build_cross_kv``, or None and each layer's from
+    ``enc_out`` (training); ``attend`` as in :func:`encode`.
     Returns (hidden [B, T, D], (k, v) self-KV each [Ld, B, T, KV_p, hd] or
     None)."""
     attend = attend or ops.flash_attention
-    xk, xv = cross_kv
-    x = T.embed_rows(params["embed"], tokens, policy)
+    x = T.embed_rows(T.table_of(params, policy, "embed"), tokens, policy)
     B, Tn, _ = x.shape
     pos = torch.arange(Tn, device=x.device)[None].expand(B, Tn)
-    self_lens, cross_lens = _full_lens(x, Tn), _full_lens(x, xk.shape[2])
+    n_enc = enc_out.shape[1] if cross_kv is None else cross_kv[0].shape[2]
+    self_lens, cross_lens = _full_lens(x, Tn), _full_lens(x, n_enc)
     head_mask, kv_index = _heads(cfg, x, tp, policy)
+    specs = layer_specs(policy, "dec_blocks")
     ks, vs = [], []
     for l in range(cfg.n_layers):
-        lp = T.layer_params(params["dec_blocks"], l)
-        q, k, v = T._qkv(cfg, lp["self"], rms_norm(x, lp["ln1"], cfg.norm_eps))
+        lp = gather_weights(T.layer_params(params["dec_blocks"], l), specs, policy)
+        xkv = (_cross_kv_layer(cfg, lp["cross"], enc_out, kv_index, policy)
+               if cross_kv is None else (cross_kv[0][l], cross_kv[1][l]))
+        q, k, v = _norm_qkv(cfg, lp["self"], x, lp["ln1"], policy)
         q = rope(q, pos, cfg.rope_theta)
         k = T._expand_kv(rope(k, pos, cfg.rope_theta), kv_index)
         v = T._expand_kv(v, kv_index)
@@ -189,7 +215,7 @@ def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False,
         o = attend(q, k, v, self_lens, scale=_scale(cfg), causal=True)
         x = x + T._o_proj(cfg, lp["self"], o, head_mask, policy)
         x = x + _cross_attention(cfg, lp["cross"], rms_norm(x, lp["lnx"], cfg.norm_eps),
-                                 xk[l], xv[l], cross_lens, attend, head_mask, policy)
+                                 *xkv, cross_lens, attend, head_mask, policy)
         x = x + _mlp(lp, x, cfg, policy)
         if collect_kv:
             ks.append(k)
@@ -198,20 +224,24 @@ def _decoder_seq(params, cfg, tokens, cross_kv, *, collect_kv=False,
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kv
 
 
-def train_logits(params, cfg, batch, *, remat=False):
+def train_logits(params, cfg, batch, *, tp=1, policy=None, remat=False):
     """batch: frames [B, S_enc, D], tokens [B, T_dec].  Full-sequence
     logits [B, T_dec, Vp] (also the full-sequence oracle of the serving
     steps); the reference's (logits, aux loss) pair with aux 0.
     Differentiable in ``params``: every attention (the encoder's, the
     decoder's causal self-attention, the cross-attention) goes through
     ``ops.flash_attention_ckpt``.  ``remat`` is accepted and ignored, as
-    in the reference."""
+    in the reference.  On a mesh the rank's rows and heads, each layer's
+    FSDP'd weights gathered as it runs (a decoder layer's cross K/V from
+    its own gathered weights) and the rank's vocab columns [B, T_dec,
+    Vp / tp] (the vocab-parallel loss's input)."""
     del remat
     ckpt = ops.flash_attention_ckpt
-    enc_out = encode(params, cfg, batch["frames"], attend=ckpt)
-    hidden, _ = _decoder_seq(params, cfg, batch["tokens"],
-                             build_cross_kv(params, cfg, enc_out), attend=ckpt)
-    return T.unembed(params, cfg, hidden), torch.zeros((), device=hidden.device)
+    enc_out = encode(params, cfg, batch["frames"], attend=ckpt, tp=tp, policy=policy)
+    hidden, _ = _decoder_seq(params, cfg, batch["tokens"], enc_out=enc_out, attend=ckpt,
+                             tp=tp, policy=policy)
+    return (T.unembed(params, cfg, hidden, policy, gather=False),
+            torch.zeros((), device=hidden.device))
 
 
 def prefill(params, cfg, frames, tokens, *, tp=1, policy=None):
@@ -245,7 +275,7 @@ def decode(params, cfg, tokens, k_pages, v_pages, cross_k, cross_v,
     x = T.embed_rows(params["embed"], tokens, policy)        # [B, D]
     head_mask, kv_index = _heads(cfg, x, tp, policy)
     # per-step index work, shared by every layer
-    bt = T._pool_local(attn_fn, block_table.to(torch.int32), k_pages)
+    bt, _ = T._pool_local(attn_fn, block_table.to(torch.int32), k_pages)
     pos = seq_lens.to(torch.int32)                           # next position
     kv_lens = pos + 1
     dest = T.token_dest(bt, pos, None, *T._pool_geometry(k_pages))

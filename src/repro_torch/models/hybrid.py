@@ -34,11 +34,17 @@ slots, ``kb``/``vb`` then gathered over ``model``), while ``ln1`` over
 row-parallel (one ``all_reduce`` each, ``transformer.py``'s), embed and
 unembed vocab-parallel.  ``decode`` attends through ``attn_fn`` (on a mesh
 ``launch/spmd.py::make_sharded_decode_attn``, K1 over the rank's pool
-with pool-local tables).  With ``policy=None`` nothing of this runs.
+with pool-local tables).  ``train_logits`` on a mesh runs K4's autograd
+forward and backward on the rank's whole heads (no collective inside the
+scan) and the shared block's K2 training forward on its heads, each
+block's FSDP'd weights gathered in its remat region, under Megatron's
+``copy_to``/``reduce_from`` (``models/sharding.py``).  With
+``policy=None`` nothing of this runs.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 
@@ -47,7 +53,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import dense_init, mlp_init, rms_norm, rope
-from repro_torch.models.sharding import all_gather
+from repro_torch.models.sharding import (copy_to, copy_weights, fsdp_gather, gather_weights,
+                                         layer_specs)
 
 
 def group_structure(cfg):
@@ -117,14 +124,20 @@ def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
 def _shared_qkv(cfg, shared, lora_i, h2, policy=None):
     """h2 [..., 2D] -> q [..., H_p, hd], k/v [..., KV, hd] with LoRA deltas
     (on a mesh the rank's q heads and ``wk``/``wv``'s heads; a LoRA
-    ``kb``/``vb`` sharded finer than those, KV < tp, is gathered)."""
+    ``kb``/``vb`` sharded finer than those, KV < tp, is gathered, and under
+    grad its gradient reduce-scattered: each rank reads its own KV slots
+    of the gathered delta).  Under grad the weights every rank holds
+    whole (the LoRA ``qa``/``ka``/``va``, ``wk``/``wv`` of fewer KV heads
+    than tp) pass ``copy_to``."""
     hd, D2 = cfg.head_dim, h2.shape[-1]
     lead = h2.shape[:-1]
+    shared = T._tp_weights(cfg, shared, policy)
+    lora_i = copy_weights(lora_i, ("qa", "ka", "va"), policy)
 
     def proj(w, a, b):
         base, delta = h2 @ w.reshape(D2, -1), (h2 @ a) @ b
         if delta.shape[-1] != base.shape[-1]:
-            delta = all_gather(delta, policy, dim=-1)
+            delta = fsdp_gather(delta, policy, policy.tp_axis, -1)
         return (base + delta).reshape(*lead, -1, hd)
 
     return (proj(shared["wq"], lora_i["qa"], lora_i["qb"]),
@@ -145,7 +158,7 @@ def _shared_block_seq(cfg, shared, lora_i, x, x0, positions, *,
     ``attend``: ``ops.flash_attention`` (None) or, training,
     ``ops.flash_attention_ckpt``.  The k/v it attends to and collects
     are in the padded KV heads (``kv_index``, as ``transformer.py``)."""
-    h2 = rms_norm(torch.cat([x, x0], dim=-1), shared["ln1"], cfg.norm_eps)
+    h2 = copy_to(rms_norm(torch.cat([x, x0], dim=-1), shared["ln1"], cfg.norm_eps), policy)
     q, k, v = _shared_qkv(cfg, shared, lora_i, h2, policy)
     q = rope(q, positions, cfg.rope_theta)
     k = T._expand_kv(rope(k, positions, cfg.rope_theta), kv_index)
@@ -168,7 +181,9 @@ def forward_seq(params, cfg, tokens, *, collect_kv=False, chunk=64,
     on a mesh the rank's heads and channels.
     With ``train`` only the hidden is returned (no KV, states None),
     attention goes through ``ops.flash_attention_ckpt``, and ``remat``
-    recomputes each Mamba2 block and shared block in the backward.
+    recomputes each Mamba2 block and shared block in the backward; on a
+    mesh each block gathers its FSDP'd weights (``policy.params``) inside
+    its remat region, the shared block's at each of its uses.
     """
     n_attn, n_mamba, n_grouped, _, n_per_group = group_structure(cfg)
     x = T.embed(params, cfg, tokens, policy)
@@ -177,7 +192,7 @@ def forward_seq(params, cfg, tokens, *, collect_kv=False, chunk=64,
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     head_mask = T._head_mask(cfg, x.device, x.dtype, tp, policy)
     kv_index = T._kv_index(cfg, x.device, tp, policy)
-    cs_shape, ss_shape = ssm.mamba2_state_shapes(cfg, B, tp)
+    cs_shape, ss_shape = ssm.mamba2_state_shapes(cfg, B, 1 if policy is None else policy.tp)
     dt = params["embed"].dtype
     conv0 = {k: torch.zeros(v, dtype=dt, device=x.device) for k, v in cs_shape.items()}
     conv_out = {k: torch.empty((n_mamba,) + v, dtype=dt, device=x.device)
@@ -187,15 +202,25 @@ def forward_seq(params, cfg, tokens, *, collect_kv=False, chunk=64,
     if train:
         mambas = T.layer_list(params["mamba"], n_mamba)
         loras = T.layer_list(params["lora"], n_attn)
+        specs = {k: layer_specs(policy, k, stacked=k != "shared")
+                 for k in ("mamba", "shared", "lora")}
+
+        def mamba_train(i, x):
+            lp = gather_weights(mambas[i], specs["mamba"], policy)
+            return ssm.mamba2_block(lp, cfg, x, conv0, None, chunk=chunk, policy=policy)[0]
+
+        def shared_train(g, x):
+            return _shared_block_seq(
+                cfg, gather_weights(params["shared"], specs["shared"], policy),
+                gather_weights(loras[g], specs["lora"], policy), x, x0, positions,
+                attend=ops.flash_attention_ckpt, head_mask=head_mask, kv_index=kv_index,
+                policy=policy)[0]
 
         def mamba(i, x):
-            return T.maybe_remat(lambda x: ssm.mamba2_block(
-                mambas[i], cfg, x, conv0, None, chunk=chunk)[0], x, remat)
+            return T.maybe_remat(partial(mamba_train, i), x, remat)
 
         def shared(g, x):
-            return T.maybe_remat(lambda x: _shared_block_seq(
-                cfg, params["shared"], loras[g], x, x0, positions,
-                attend=ops.flash_attention_ckpt, head_mask=head_mask)[0], x, remat)
+            return T.maybe_remat(partial(shared_train, g), x, remat)
     else:
         def mamba(i, x):
             lp = T.layer_params(params["mamba"], i)
@@ -230,12 +255,16 @@ def forward_seq(params, cfg, tokens, *, collect_kv=False, chunk=64,
     return x, kv, (conv_out, ssm_out)
 
 
-def train_logits(params, cfg, batch, *, remat=False):
+def train_logits(params, cfg, batch, *, tp=1, policy=None, remat=False):
     """Full-sequence logits [B, T, Vp] (also the full-sequence oracle of
     the serving steps); the reference's (logits, aux loss) pair with aux
-    0.  Differentiable in ``params`` (see the module docstring)."""
-    hidden, _, _ = forward_seq(params, cfg, batch["tokens"], train=True, remat=remat)
-    return T.unembed(params, cfg, hidden), torch.zeros((), device=hidden.device)
+    0.  Differentiable in ``params`` (see the module docstring).  On a
+    mesh the rank's rows and its vocab columns [B, T, Vp / tp] (the
+    vocab-parallel loss's input)."""
+    hidden, _, _ = forward_seq(params, cfg, batch["tokens"], train=True, remat=remat,
+                               tp=tp, policy=policy)
+    return (T.unembed(params, cfg, hidden, policy, gather=False),
+            torch.zeros((), device=hidden.device))
 
 
 def prefill(params, cfg, tokens, *, tp=1, policy=None):
@@ -266,7 +295,7 @@ def decode(params, cfg, tokens, conv_states, ssm_states, k_pages, v_pages,
     head_mask = T._head_mask(cfg, x.device, x.dtype, tp, policy)
     kv_index = T._kv_index(cfg, x.device, tp, policy)
     # per-step index work, shared by every attention invocation
-    bt = T._pool_local(attn_fn, block_table.to(torch.int32), k_pages)
+    bt, _ = T._pool_local(attn_fn, block_table.to(torch.int32), k_pages)
     pos = seq_lens.to(torch.int32)                           # next position
     kv_lens = pos + 1
     dest = T.token_dest(bt, pos, active, *T._pool_geometry(k_pages))

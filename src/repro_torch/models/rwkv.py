@@ -25,7 +25,9 @@ On a mesh (``forward``/``prefill``/``decode``/``mixed`` with a
 no heads to pad) each rank runs its shards (``models/ssm.py``), its data
 shard's rows and a state of its heads (``init_state(..., tp=)``);
 ``embed`` is a vocab-parallel lookup and ``head`` gives vocab-parallel
-logits gathered over ``model`` (``transformer.py``).
+logits gathered over ``model`` (``transformer.py``; ``train_logits``
+keeps the rank's columns for the vocab-parallel loss, and gathers each
+layer's FSDP'd weights in its remat region).
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.sharding import gather_weights, layer_specs
 from repro_torch.models.transformer import (embed_rows, layer_list, maybe_remat,
-                                            pad_vocab, unembed)
+                                            pad_vocab, table_of, unembed)
 
 
 def init_params(cfg, generator: torch.Generator, dtype=torch.float32,
@@ -68,35 +71,47 @@ def init_state(cfg, batch, dtype=torch.float32, device=None, tp=1):
             for k, v in shapes.items()}
 
 
-def forward(params, cfg, tokens, state, *, chunk=32, policy=None,
-            return_all=False, remat=False):
-    """tokens [B, T]; state stacked [L, ...]. Returns (logits, new_state):
-    f32 logits [B, Vp] at the last token ([B, T, Vp] with
-    ``return_all``).  ``remat``: each layer is a checkpoint region
-    (training)."""
-    x = rms_norm(embed_rows(params["embed"], tokens, policy), params["ln0"], cfg.norm_eps)
+def _hidden(params, cfg, tokens, state, *, chunk, policy, remat):
+    """tokens [B, T]; state stacked [L, ...].  Returns (the final-normed
+    hidden states [B, T, D], new_state).  ``remat``: each layer is a
+    checkpoint region (training), which gathers the layer's FSDP'd
+    weights (``policy.params``)."""
+    x = rms_norm(embed_rows(table_of(params, policy, "embed"), tokens, policy),
+                 params["ln0"], cfg.norm_eps)
     new = {k: [] for k in state}
     lps = layer_list(params["blocks"], cfg.n_layers)
+    specs = layer_specs(policy)
     for l in range(cfg.n_layers):
         x, s2 = maybe_remat(lambda x, l=l: ssm.rwkv6_layer(      # l bound now: the
-            lps[l], cfg, x, {k: t[l] for k, t in state.items()},  # backward reruns it
-            chunk=chunk, policy=policy), x, remat)
+            gather_weights(lps[l], specs, policy), cfg, x,        # backward reruns it
+            {k: t[l] for k, t in state.items()}, chunk=chunk, policy=policy), x, remat)
         for k, t in s2.items():
             new[k].append(t)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    if not return_all:
-        x = x[:, -1]
-    return unembed(params, cfg, x, policy), {k: torch.stack(t) for k, t in new.items()}
+    return (rms_norm(x, params["ln_f"], cfg.norm_eps),
+            {k: torch.stack(t) for k, t in new.items()})
 
 
-def train_logits(params, cfg, batch, *, remat=False):
+def forward(params, cfg, tokens, state, *, chunk=32, policy=None):
+    """tokens [B, T]; state stacked [L, ...]. Returns (logits, new_state):
+    f32 logits [B, Vp] at the last token."""
+    x, new = _hidden(params, cfg, tokens, state, chunk=chunk, policy=policy, remat=False)
+    return unembed(params, cfg, x[:, -1], policy), new
+
+
+def train_logits(params, cfg, batch, *, tp=1, policy=None, remat=False):
     """Full-sequence logits [B, T, Vp] from zero states (also the
     full-sequence oracle of the serving steps); the reference's (logits,
-    aux loss) pair with aux 0."""
+    aux loss) pair with aux 0.  On a mesh the rank's rows from a state of
+    its heads (``init_state`` at the policy's tp; ``tp`` is unused, as in
+    the reference) and its vocab columns [B, T, Vp / tp] (the
+    vocab-parallel loss's input)."""
+    del tp
     tokens = batch["tokens"]
-    state = init_state(cfg, tokens.shape[0], params["embed"].dtype, tokens.device)
-    logits, _ = forward(params, cfg, tokens, state, return_all=True, remat=remat)
-    return logits, torch.zeros((), device=logits.device)
+    state = init_state(cfg, tokens.shape[0], params["embed"].dtype, tokens.device,
+                       1 if policy is None else policy.tp)
+    x, _ = _hidden(params, cfg, tokens, state, chunk=32, policy=policy, remat=remat)
+    return (unembed(params, cfg, x, policy, gather=False),
+            torch.zeros((), device=x.device))
 
 
 def prefill(params, cfg, tokens, *, tp=1, policy=None, chunk=32, state=None):

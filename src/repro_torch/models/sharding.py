@@ -194,11 +194,14 @@ def rms_norm(x, w, eps, policy: Optional[Policy]):
     """``layers.rms_norm`` over a last dim sharded over `model` (each rank
     holds its ``x`` and ``w`` columns): the mean of squares adds the
     ranks' partial sums, one ``all_reduce`` of a ``[..., 1]`` tensor.
+    Under grad that sum is differentiable: every rank's columns read the
+    total, so its gradient is the sum of the ranks' gradients too
+    (``reduce_from`` then ``copy_to``: an ``all_reduce`` each way).
     Without a policy it is ``layers.rms_norm`` itself."""
     if policy is None:
         return layers.rms_norm(x, w, eps)
     xf = x.float()
-    ss = all_reduce(xf.square().sum(-1, keepdim=True), policy)
+    ss = copy_to(reduce_from(xf.square().sum(-1, keepdim=True), policy), policy)
     y = xf * torch.rsqrt(ss / (x.shape[-1] * policy.tp) + eps)
     return (y * (1.0 + w.float())).to(x.dtype)
 
@@ -339,6 +342,16 @@ def grad_mean(x, policy: Optional[Policy], axis: Axis):
     return _GradMean.apply(x, policy.size(axis))
 
 
+def copy_weights(lp: dict, names, policy: Optional[Policy]):
+    """``lp`` with each weight of ``names`` through ``copy_to``: weights
+    replicated over the tensor-parallel axis that a rank uses on its own
+    heads or columns alone, so that their gradients sum over it.  ``lp``
+    as it is without grad or a tensor-parallel axis."""
+    if _tp(policy, None) is None or not torch.is_grad_enabled():
+        return lp
+    return {k: copy_to(v, policy) if k in names else v for k, v in lp.items()}
+
+
 # ------------------------------------------------------ FSDP'd weights ---
 def _fsdp_dims(spec, policy):
     """[(dim, axis)] of a placement's entries off the tensor-parallel axis."""
@@ -355,16 +368,21 @@ def gather_weight(w, spec, policy: Optional[Policy]):
     return w
 
 
-def layer_specs(policy: Optional[Policy]):
-    """The placements of one layer's weights (the stacked blocks' with the
-    layer dim dropped), or None where no weight of a layer is FSDP'd."""
-    if policy is None or policy.params is None or "blocks" not in policy.params:
+def layer_specs(policy: Optional[Policy], key: str = "blocks", stacked: bool = True):
+    """The placements of one layer's weights: those of the stacked tree
+    ``key`` of the parameters (``blocks``; the hybrid's ``mamba`` and
+    ``lora``, the encoder-decoder's ``enc_blocks`` and ``dec_blocks``)
+    with the layer dim dropped, or of the unstacked ``key`` as they are
+    (``stacked=False``: the hybrid's ``shared`` block); None where no
+    weight of a layer is FSDP'd."""
+    if policy is None or policy.params is None or key not in policy.params:
         return None
 
     def drop(tree):
-        return {k: drop(v) if isinstance(v, dict) else tuple(v[1:]) for k, v in tree.items()}
+        return {k: drop(v) if isinstance(v, dict) else tuple(v[1:] if stacked else v)
+                for k, v in tree.items()}
 
-    specs = drop(policy.params["blocks"])
+    specs = drop(policy.params[key])
 
     def any_fsdp(tree):
         return any(any_fsdp(v) if isinstance(v, dict) else _fsdp_dims(v, policy)

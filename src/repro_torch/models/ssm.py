@@ -25,8 +25,12 @@ rank's ``D / tp`` channels of ``wr``/``wk``/``wv``/``wg`` are its heads
 (``u``, ``w0``, ``w_b``, ``ln_x`` are its slices), the token-shift mixes
 and ``w_a`` stay whole, and ``wo`` and the channel mix's ``wv`` are
 row-parallel with one ``all_reduce`` each.  States hold the rank's heads
-(``*_state_shapes(..., tp=)``).  With ``policy=None`` nothing of this
-runs.
+(``*_state_shapes(..., tp=)``).  Under grad (training on a mesh) the
+block inputs of the column-parallel products pass ``copy_to``, the
+row-parallel sums ``reduce_from``, and the weights a rank holds whole
+but uses on its heads alone (``MAMBA_WHOLE``, RWKV-6's ``w_a``)
+``copy_to``, so every gradient sums over `model`.  With ``policy=None``
+nothing of this runs.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.costs import kernel_region
 from repro_torch.models import sharding
 from repro_torch.models.layers import dense_init, head_rms_norm, rms_norm
-from repro_torch.models.sharding import all_reduce
+from repro_torch.models.sharding import copy_to, copy_weights, reduce_from
 
 
 # Projections are stored separately (z/x/B/C/dt), as in the reference.
@@ -120,16 +124,26 @@ def mamba2_heads(cfg, tp=1, rank=0):
     return rank * (H // tp), H // tp
 
 
+# Mamba2 weights every model rank holds whole but uses on its own heads
+# alone: under grad they enter through ``copy_to``, so their gradients sum
+# over the tensor-parallel axis
+MAMBA_WHOLE = ("wB", "wC", "wdt", "conv_B", "conv_C", "conv_b_B", "conv_b_C",
+               "A_log", "D_skip", "dt_bias")
+
+
 def _head_params(lp, cfg, policy):
     """``lp`` with ``wdt``, ``A_log``, ``D_skip`` and ``dt_bias`` cut to
     this rank's heads (``lp`` as it is without a policy), and that head
-    count."""
+    count; under grad the weights of ``MAMBA_WHOLE`` pass ``copy_to``
+    first."""
     if policy is None:
         return lp, cfg.ssm_heads
-    h0, n = mamba2_heads(cfg, policy.tp, policy.index("model"))
+    # (the fsdp training scheme has no tensor-parallel axis: every head)
+    h0, n = mamba2_heads(cfg, policy.tp, policy.index("model") if policy.tp > 1 else 0)
     if lp["wx"].shape[-1] * policy.tp != cfg.ssm_expand * cfg.d_model:
         raise ValueError(f"wx {tuple(lp['wx'].shape)} is not a 1/{policy.tp} "
                          "shard of d_in over model")
+    lp = copy_weights(lp, MAMBA_WHOLE, policy)
     cut = {"wdt": lp["wdt"][..., h0:h0 + n]}
     cut.update({k: lp[k][h0:h0 + n] for k in ("A_log", "D_skip", "dt_bias")})
     return dict(lp, **cut), n
@@ -151,7 +165,7 @@ def mamba2_block(lp, cfg, x, conv_state, ssm_state, chunk=64, policy=None):
     the rank's.  Returns (y [B,T,D], new_conv_state, new_ssm_state).
     """
     lp, H = _head_params(lp, cfg, policy)
-    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    h = copy_to(rms_norm(x, lp["ln"], cfg.norm_eps), policy)
     z, (xc, Bc, Cc), dt = _mamba_proj(lp, h, cfg)
     xc, sx = _causal_conv(xc, conv_state["x"], lp["conv_x"], lp["conv_b_x"])
     Bc, sB = _causal_conv(Bc, conv_state["B"], lp["conv_B"], lp["conv_b_B"])
@@ -164,7 +178,7 @@ def mamba2_block(lp, cfg, x, conv_state, ssm_state, chunk=64, policy=None):
     y = y + xh * lp["D_skip"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(*x.shape[:-1], -1)                           # [B,T,d_in]
     y = sharding.rms_norm(y * F.silu(z), lp["norm"], cfg.norm_eps, policy)
-    return (x + all_reduce(y @ lp["out_proj"], policy), {"x": sx, "B": sB, "C": sC},
+    return (x + reduce_from(y @ lp["out_proj"], policy), {"x": sx, "B": sB, "C": sC},
             ssm_state)
 
 
@@ -195,7 +209,7 @@ def mamba2_decode(lp, cfg, x, conv_state, ssm_state, policy=None):
     y = y + xh.float() * lp["D_skip"].float()[None, :, None]
     y = y.reshape(x.shape[0], -1).to(x.dtype)
     y = sharding.rms_norm(y * F.silu(z), lp["norm"], cfg.norm_eps, policy)
-    return (x + all_reduce(y @ lp["out_proj"], policy), {"x": sx, "B": sB, "C": sC},
+    return (x + reduce_from(y @ lp["out_proj"], policy), {"x": sx, "B": sB, "C": sC},
             h_new.to(ssm_state.dtype))
 
 
@@ -318,8 +332,10 @@ def rwkv6_tmix(lp, cfg, x, x_last, S0, chunk=32, policy=None):
     hd = cfg.rwkv_head_dim
     H = _rwkv_heads(lp, cfg, policy)
     xp = _shifted(x, x_last)
-    rx, kx, vx, gx, wx = (_lerp(x, xp, lp[m])
+    # each mix feeds a product on the rank's heads: its gradient sums over them
+    rx, kx, vx, gx, wx = (copy_to(_lerp(x, xp, lp[m]), policy)
                           for m in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"))
+    lp = copy_weights(lp, ("w_a",), policy)
     shp = (*x.shape[:-1], H, hd)
     r = (rx @ lp["wr"]).reshape(shp)
     k = (kx @ lp["wk"]).reshape(shp)
@@ -332,16 +348,16 @@ def rwkv6_tmix(lp, cfg, x, x_last, S0, chunk=32, policy=None):
     # per-head RMS norm (RWKV's GroupNorm over heads)
     o = head_rms_norm(o.to(x.dtype), lp["ln_x"].reshape(H, hd), cfg.norm_eps)
     o = o.reshape(*x.shape[:-1], H * hd) * g.to(x.dtype)
-    return all_reduce(o @ lp["wo"], policy), x[:, -1], S_out
+    return reduce_from(o @ lp["wo"], policy), x[:, -1], S_out
 
 
 def rwkv6_cmix(lp, cfg, x, x_last, policy=None):
     """Channel-mix. Returns (out [B,T,D], new_x_last)."""
     xp = _shifted(x, x_last)
     rx, kx = _lerp(x, xp, lp["mu_r"]), _lerp(x, xp, lp["mu_k"])
-    r = torch.sigmoid(rx @ lp["wr"])
-    kk = torch.square(F.relu(kx @ lp["wk"]))
-    return r * all_reduce(kk @ lp["wv"], policy), x[:, -1]
+    r = torch.sigmoid(rx @ lp["wr"])          # wr whole: the same on every rank
+    kk = torch.square(F.relu(copy_to(kx, policy) @ lp["wk"]))
+    return r * reduce_from(kk @ lp["wv"], policy), x[:, -1]
 
 
 def rwkv6_layer(lp, cfg, x, state, chunk=32, policy=None):

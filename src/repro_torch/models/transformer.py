@@ -79,7 +79,7 @@ from repro_torch.models.layers import (NEG_INF, NO_WINDOW, act_fn,
                                        dense_init, head_rms_norm, mlp_apply,
                                        mlp_init, rms_norm, rope, softcap)
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.sharding import (copy_to, gather_from, gather_weight,
+from repro_torch.models.sharding import (copy_to, copy_weights, gather_from, gather_weight,
                                          gather_weights, layer_specs, reduce_from)
 
 VOCAB_PAD = 256
@@ -254,20 +254,22 @@ def vision_prefix(params, cfg, patches):
     return h @ p["w2"]
 
 
-def unembed(params, cfg, x, policy=None):
+def unembed(params, cfg, x, policy=None, gather=True):
     """x [..., D] -> f32 logits [..., Vp]: the final softcap, if any, then
     the padded vocab columns set to NEG_INF.  On a mesh each rank computes
-    its vocab columns, gathered over ``model`` in rank order.
+    its vocab columns, gathered over ``model`` in rank order (with
+    ``gather=False`` its own columns [..., Vp / tp], for a vocab-parallel
+    loss).
 
     The reference asks XLA for f32 output from the product
-    (``preferred_element_type``).  Here f32 weights multiply in f32; on
-    the card bf16 weights go through ``torch.mm(..., out_dtype=float32)``
-    (bf16 inputs, f32 accumulation and output); on the CPU they are
-    upcast first."""
+    (``preferred_element_type``).  Here f32 (and f64) weights multiply in
+    their own dtype; on the card bf16 weights go through ``torch.mm(...,
+    out_dtype=float32)`` (bf16 inputs, f32 accumulation and output); on
+    the CPU they are upcast first."""
     table = table_of(params, policy)
     x2 = copy_to(x.reshape(-1, x.shape[-1]), policy)
-    if table.dtype == torch.float32:
-        logits = x2.float() @ table.t()
+    if table.dtype in (torch.float32, torch.float64):
+        logits = x2.to(table.dtype) @ table.t()
     elif x2.device.type == "cuda":
         logits = torch.mm(x2, table.t(), out_dtype=torch.float32)
     else:
@@ -277,7 +279,8 @@ def unembed(params, cfg, x, policy=None):
     pad = cfg.vocab_size - _vocab_start(table, policy)   # first padded local column
     if pad < table.shape[0]:
         logits[:, max(pad, 0):] = NEG_INF
-    logits = gather_from(logits, policy, dim=-1)
+    if gather:
+        logits = gather_from(logits, policy, dim=-1)
     return logits.reshape(*x.shape[:-1], logits.shape[-1])
 
 
@@ -313,10 +316,10 @@ def _tp_weights(cfg, lp, policy):
     the rank's heads, through ``copy_to`` so their gradients sum over it:
     the qk-norm scales, and ``wk``/``wv`` where the KV heads do not shard
     (fewer than ``tp``: each rank expands its own padded slots)."""
-    if policy is None or policy.tp_axis is None or not torch.is_grad_enabled():
+    if policy is None or policy.tp_axis is None:
         return lp
     names = ("q_norm", "k_norm") + (("wk", "wv") if cfg.n_kv_heads % policy.tp else ())
-    return {k: copy_to(v, policy) if k in names else v for k, v in lp.items()}
+    return copy_weights(lp, names, policy)
 
 
 def _head_mask(cfg, device, dtype, tp=1, policy=None):
@@ -577,11 +580,15 @@ def _paged_attention_for(pages):
 
 
 def _pool_local(attn_fn, block_table, pages):
-    """The block table as ``attn_fn`` reads it: a mesh hook
-    (``launch/spmd.py``) makes global page ids pool-local; others read
-    it as it is.  Page writes use the same table."""
-    local = getattr(attn_fn, "local_table", None)
-    return block_table if local is None else local(block_table, pages)
+    """(The block table as ``attn_fn`` reads it, the batch rows it writes
+    and attends): a mesh hook (``launch/spmd.py``) makes global page ids
+    pool-local and keeps its rows (a data shard's in the decode ``2d``
+    scheme); others read the table as it is, every row.  Page writes use
+    the same table."""
+    if not hasattr(attn_fn, "local_table"):
+        return block_table, slice(None)
+    return (attn_fn.local_table(block_table, pages),
+            attn_fn.row_slice(block_table.shape[0]))
 
 
 def write_kv_token(kpg, vpg, k, v, block_table, seq_lens, active=None):
@@ -625,11 +632,15 @@ def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
     x = embed(params, cfg, tokens, policy)           # [B, D]
     head_mask = _head_mask(cfg, x.device, x.dtype, tp, policy)
     kv_index = _kv_index(cfg, x.device, tp, policy)
-    # per-step index work, shared by every layer
-    bt = _pool_local(attn_fn, block_table.to(torch.int32), k_pages)
+    # per-step index work, shared by every layer; ``rows``: those the hook
+    # writes and attends (the decode 2d scheme's data shard of a batch
+    # replicated over data; else all)
+    bt, rows = _pool_local(attn_fn, block_table.to(torch.int32), k_pages)
     pos = seq_lens.to(torch.int32)                   # next position == current len
-    kv_lens = pos + 1
-    dest = token_dest(bt, pos, active, *_pool_geometry(k_pages))
+    pos_r = pos[rows]
+    kv_lens = pos_r + 1
+    dest = token_dest(bt, pos_r, None if active is None else active[rows],
+                      *_pool_geometry(k_pages))
     wspecs = layer_specs(policy)
     for l in range(cfg.n_layers):
         lp = gather_weights(layer_params(params["blocks"], l), wspecs, policy)
@@ -637,8 +648,8 @@ def decode(params, cfg, tokens, k_pages, v_pages, block_table, seq_lens, *,
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln1"], cfg.norm_eps))
         q = rope(q[:, None], pos[:, None], cfg.rope_theta)       # [B,1,H_p,hd]
         k = rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        _write(kpg, vpg, _expand_kv(k, kv_index), _expand_kv(v, kv_index), dest)
-        o = attn_fn(q, kpg, vpg, bt, kv_lens, pos,
+        _write(kpg, vpg, _expand_kv(k, kv_index)[rows], _expand_kv(v, kv_index)[rows], dest)
+        o = attn_fn(q[rows], kpg, vpg, bt, kv_lens, pos_r,
                     scale=_attn_scale(cfg), window=int(windows[l]),
                     softcap=cfg.attn_logit_softcap)
         x = _residuals(cfg, lp, x, _o_proj(cfg, lp, o[:, 0], head_mask, policy),
@@ -689,8 +700,8 @@ def mixed(params, cfg, mb, k_pages, v_pages, *, attn_fn=None, tp=1,
     kv_index = _kv_index(cfg, x.device, tp, policy)
     # per-step index work, shared by every layer
     i32 = torch.int32
-    p_table = _pool_local(chunk_attn, mb["p_table"].to(i32), k_pages)
-    d_table = _pool_local(decode_attn, mb["d_table"].to(i32), k_pages)
+    p_table, _ = _pool_local(chunk_attn, mb["p_table"].to(i32), k_pages)
+    d_table, _ = _pool_local(decode_attn, mb["d_table"].to(i32), k_pages)
     p_start, p_lens = mb["p_start"].to(i32), mb["p_lens"].to(i32)
     d_lens = mb["d_lens"].to(i32)
     p_pos = p_start[:, None] + torch.arange(C, device=x.device, dtype=i32)[None]

@@ -47,23 +47,30 @@ def _vocab_parallel(policy):
     return policy if policy is not None and policy.tp_axis is not None else None
 
 
+def _ce(logits, labels, v_real, policy=None):
+    """Per-token (logsumexp - label logit) of f32 ``logits`` [..., Vl]
+    against ``labels`` [...]; with a vocab-parallel ``policy`` the logits
+    are this rank's columns from vocab id ``tp_index * Vl`` on."""
+    Vl = logits.shape[-1]
+    v0 = 0 if policy is None else policy.tp_index * Vl
+    iota = torch.arange(Vl, device=logits.device) + v0
+    if v0 + Vl > v_real:
+        logits = torch.where(iota < v_real, logits, NEG_INF)
+    lab = torch.where(labels[..., None] == iota, logits, 0.0).sum(-1)
+    if policy is None:
+        return torch.logsumexp(logits, dim=-1) - lab
+    m = all_reduce(logits.detach().amax(-1), policy, op="max")
+    s = reduce_from(torch.exp(logits - m[..., None]).sum(-1), policy)
+    return m + torch.log(s) - reduce_from(lab, policy)
+
+
 def _chunk_ce(hidden_c, labels_c, table, softcap, v_real, policy=None):
     """hidden_c [B, c, D]; labels_c [B, c] -> per-token loss [B, c]; on a
     mesh ``table`` is the rank's vocab rows."""
     logits = _logits(hidden_c, table)
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    Vl = table.shape[0]
-    v0 = 0 if policy is None else policy.tp_index * Vl
-    iota = torch.arange(Vl, device=logits.device) + v0
-    if v0 + Vl > v_real:
-        logits = torch.where(iota < v_real, logits, NEG_INF)
-    lab = torch.where(labels_c[..., None] == iota, logits, 0.0).sum(-1)
-    if policy is None:
-        return torch.logsumexp(logits, dim=-1) - lab
-    m = all_reduce(logits.detach().amax(-1), policy, op="max")
-    s = reduce_from(torch.exp(logits - m[..., None]).sum(-1), policy)
-    return m + torch.log(s) - reduce_from(lab, policy)
+    return _ce(logits, labels_c, v_real, policy)
 
 
 def _global_mean(tot, cnt, policy):
@@ -211,12 +218,22 @@ def lm_loss_from_hidden_vtiled(hidden, labels, table, *, softcap=None,
     return _global_mean(torch.sum(ce * mask), torch.sum(mask).float(), policy)
 
 
-def lm_loss(logits, labels, *, v_real=None):
-    """Full-logit CE (small models / non-transformer families)."""
-    v_real = v_real or logits.shape[-1]
+def lm_loss(logits, labels, *, v_real=None, policy=None):
+    """Full-logit CE (small models / non-transformer families).  On a mesh
+    (``policy``) ``logits`` are the rank's rows and, where the policy has a
+    tensor-parallel axis, its vocab columns [B, T, Vp / tp] (the logits
+    are never gathered: seamless-m4t's 256,206-token vocab makes them
+    ~1 GB of f32 a rank at B = 4, T = 256); the loss is then
+    ``_chunk_ce``'s vocab-parallel cross-entropy, and the global mean
+    over the batch axes."""
     mask = labels != IGNORE
     lab = torch.where(mask, labels, 0)
     logits = logits.float()
+    if policy is not None:
+        vp = _vocab_parallel(policy)
+        ce = _ce(logits, lab, v_real or logits.shape[-1] * (1 if vp is None else vp.tp), vp)
+        return _global_mean(torch.sum(ce * mask), torch.sum(mask).float(), policy)
+    v_real = v_real or logits.shape[-1]
     Vp = logits.shape[-1]
     if Vp != v_real:
         logits = torch.where(torch.arange(Vp, device=logits.device) < v_real,

@@ -18,12 +18,15 @@ run is bitwise identical to an uninterrupted one as long as every op of
 the step is deterministic (on the card: ``torch.use_deterministic_algorithms``).
 
 **On a mesh** (``tp``, ``policy`` and ``moe_fn`` as the reference's, from
-``launch/steps.py::train_mesh``) the step is the rank's: its shards of
-the state (``policy.params`` places them), its rows of the batch, its
-heads and vocab rows, the FSDP'd weights gathered a layer at a time
-(``models/transformer.py``), the loss the global mean, the gradients
-summed over the batch axes (``sharding.sync_grads``), the clip's norm
-and the int8 moments' scales global (``optim/adamw.py``).  Every rank
+``launch/steps.py::train_mesh``; every family) the step is the rank's:
+its shards of the state (``policy.params`` places them), its rows of
+the batch (``take_rows``; with ``microbatch``, its rows of each
+microbatch, as the reference's sharded step holds them), its heads and
+vocab rows, the FSDP'd weights gathered a layer at a time (the models'
+``sharding.gather_weights``), the loss the global mean (the other
+families' full-logit loss vocab-parallel, ``losses.lm_loss``), the
+gradients summed over the batch axes (``sharding.sync_grads``), the
+clip's norm and the int8 moments' scales global (``optim/adamw.py``).  Every rank
 reports the loss of its own data shard's MoE aux loss, as the
 reference's devices hold it (its metric is data shard 0's), while the
 gradient is that of the mean over the data shards (ROADMAP queue 3,
@@ -58,10 +61,6 @@ def make_loss_fn(model, tcfg: TrainConfig, *, tp=1, policy=None, moe_fn=None):
     loss (the global mean, plus its data shard's MoE aux term), whose
     gradient is the rank's share of the global one."""
     cfg = model.cfg
-    if policy is not None and cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"sharded training of the {cfg.family} family is not ported: ROADMAP "
-            "queue 1, item 16b")
 
     def loss_fn(params, batch):
         if cfg.family in ("dense", "moe", "vlm"):
@@ -77,8 +76,9 @@ def make_loss_fn(model, tcfg: TrainConfig, *, tp=1, policy=None, moe_fn=None):
             loss, n = impl(hidden, labels, table, softcap=cfg.final_logit_softcap,
                            v_real=cfg.vocab_size, policy=policy)
         else:
-            logits, aux = model.module.train_logits(params, cfg, batch, remat=tcfg.remat)
-            loss, n = lm_loss(logits, batch["labels"], v_real=cfg.vocab_size)
+            logits, aux = model.module.train_logits(params, cfg, batch, tp=tp, policy=policy,
+                                                    remat=tcfg.remat)
+            loss, n = lm_loss(logits, batch["labels"], v_real=cfg.vocab_size, policy=policy)
         if cfg.is_moe:
             aux = grad_mean(aux, policy, None if policy is None else policy.batch_axis)
             loss = loss + cfg.router_aux_coef * aux / cfg.n_layers
@@ -99,16 +99,48 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
+def rank_rows(policy, n_rows: int, microbatch: int = 0):
+    """The global row indices of a batch of ``n_rows`` that this rank holds
+    (all of them without a policy).  The reference's gradient accumulation
+    reshapes the global batch into microbatches of ``microbatch`` rows, and
+    its sharded step gives batch shard d of n (n the size of the batch
+    axes) the contiguous rows ``d·m/n`` to ``(d+1)·m/n - 1`` of each
+    microbatch; without microbatches (or one of the whole batch) that is
+    shard d's block of ``n_rows / n`` rows.  Raises ``ValueError`` where
+    the microbatch does not divide the batch or the shards."""
+    if policy is None:
+        return list(range(n_rows))
+    axis = policy.batch_axis
+    n, d = policy.size(axis), policy.index(axis)
+    m = microbatch if microbatch and microbatch < n_rows else n_rows
+    if n_rows % m or m % n:
+        raise ValueError(f"a batch of {n_rows} rows in microbatches of {m} does not "
+                         f"divide over {n} batch shards")
+    k = m // n
+    return [i * m + d * k + j for i in range(n_rows // m) for j in range(k)]
+
+
+def take_rows(batch, policy, microbatch: int = 0):
+    """This rank's rows (``rank_rows``) of every tensor of a global batch;
+    the batch as it is without a policy."""
+    if policy is None:
+        return batch
+    idx = torch.as_tensor(rank_rows(policy, next(iter(batch.values())).shape[0], microbatch))
+    return {k: v[idx.to(v.device)] for k, v in batch.items()}
+
+
 def make_grad_fn(model, tcfg: TrainConfig, *, tp=1, policy=None, moe_fn=None):
     """grad_fn(params, batch) -> (loss, grads): the train step's gradients
     (microbatches accumulated in f32); on a mesh the rank's gradient
-    shards, summed over the batch axes."""
-    if policy is not None and tcfg.microbatch:
-        # the reference's microbatches are rows of the global batch, which
-        # cut across the ranks' rows (and set the MoE's capacity)
-        raise NotImplementedError(
-            "gradient accumulation (microbatch) on a mesh is not ported: "
-            "ROADMAP queue 1, item 16b")
+    shards, summed over the batch axes.  With ``tcfg.microbatch`` on a
+    mesh ``batch`` is this rank's rows as ``rank_rows`` orders them: each
+    microbatch's ``microbatch / n`` of them in turn, whose loss is the
+    global mean over the batch axes (``ValueError`` where they do not
+    divide over the n batch shards)."""
+    n_shards = 1 if policy is None else policy.size(policy.batch_axis)
+    if tcfg.microbatch and tcfg.microbatch % n_shards:
+        raise ValueError(f"microbatch={tcfg.microbatch} does not divide over "
+                         f"{n_shards} batch shards")
     loss_fn = make_loss_fn(model, tcfg, tp=tp, policy=policy, moe_fn=moe_fn)
 
     def grads_of(params, batch):
@@ -116,9 +148,9 @@ def make_grad_fn(model, tcfg: TrainConfig, *, tp=1, policy=None, moe_fn=None):
         return loss, sync_grads(grads, policy)
 
     def compute_grads(params, batch):
-        B = batch["tokens"].shape[0]
-        if tcfg.microbatch and tcfg.microbatch < B:
-            m = tcfg.microbatch
+        B = batch["tokens"].shape[0]                  # this rank's rows
+        if tcfg.microbatch and tcfg.microbatch < B * n_shards:
+            m = tcfg.microbatch // n_shards
             n_micro = B // m
             acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                  device=p.device), params)
@@ -232,12 +264,9 @@ class Trainer:
         return None if int(t) < 0 else int(t)
 
     def _rows(self, batch):
-        """This rank's rows of a global batch (all of it on one card)."""
-        if self.policy is None:
-            return batch
-        axis = self.policy.batch_axis
-        n, i = self.policy.size(axis), self.policy.index(axis)
-        return {k: v[i * (v.shape[0] // n):][:v.shape[0] // n] for k, v in batch.items()}
+        """This rank's rows of a global batch (all of it on one card), in
+        ``rank_rows``'s order for the microbatches."""
+        return take_rows(batch, self.policy, self.tcfg.microbatch)
 
     def run(self, n_steps: Optional[int] = None, crash_at: Optional[int] = None):
         """Run to tcfg.total_steps (or n_steps more). crash_at simulates a

@@ -174,10 +174,10 @@ def rank_main(case_path, out_dir, fam, shapes):
         out = {}
         if nd > 1:              # long_500k's one sequence cannot split over data
             try:
-                steps.build_decode(arch, "long_500k", mesh=mesh, cfg=cfg)
-                out["replicated_batch_raises"] = torch.tensor(False)
-            except NotImplementedError as e:
-                out["replicated_batch_raises"] = torch.tensor("item 17" in str(e))
+                note = steps.build_decode(arch, "long_500k", mesh=mesh, cfg=cfg)["note"]
+                out["replicated_batch"] = np.array(note)
+            except ValueError as e:
+                out["replicated_batch"] = np.array(f"ValueError: {e}")
         with torch.inference_mode():
             # prefill
             tok_rows = mine(prompts, rows)
@@ -257,7 +257,8 @@ def rank_main(case_path, out_dir, fam, shapes):
                 out.update({f"mixed_d_state_{n}": s_ for n, s_ in d_state.items()})
         np.savez(os.path.join(out_dir, f"{fam}-{nd}x{tp}-rank{dist.get_rank()}.npz"),
                  data=coords["data"], model=coords["model"],
-                 **{k_: v_.numpy() for k_, v_ in out.items()})
+                 **{k_: v_ if isinstance(v_, np.ndarray) else v_.numpy()
+                    for k_, v_ in out.items()})
 
 
 def unit_main(case_path, out_dir):

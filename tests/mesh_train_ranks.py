@@ -43,10 +43,12 @@ CASES = {
                              loss="chunked", int8=False),
 }
 GROK, GROK_OVER = "grok-1-314b", dict(vocab_size=200)
+FAMILY_TRAIN_ARCHS = ("zamba2-7b", "rwkv6-7b", "seamless-m4t-medium")
 
 
 def batches(cfg):
-    """The cases' two seeded batches (labels = tokens; patches for vlm)."""
+    """The cases' two seeded batches (labels = tokens; patches for vlm,
+    frames for encdec)."""
     rs = np.random.RandomState(1)
     out = []
     for _ in range(2):
@@ -55,6 +57,9 @@ def batches(cfg):
         if cfg.family == "vlm":
             b["patches"] = (rs.standard_normal((B, cfg.n_vision_patches, cfg.d_vision))
                             * 0.3).astype(np.float32)
+        if cfg.family == "encdec":
+            b["frames"] = (rs.standard_normal((B, cfg.encoder_seq, cfg.d_model))
+                           * 0.3).astype(np.float32)
         out.append(b)
     return out
 
@@ -74,11 +79,13 @@ def _leaves(tree, prefix=""):
 
 
 # ------------------------------------------------------------- the port ---
-def train_main(case_path, out_dir, names):
-    """One rank: each case of ``names`` on its mesh (every name's mesh the
-    world's size): the gradients of the first batch, two train steps from
-    the reference's initial params, and the placements, to
-    ``out_dir/<name>-rank<r>.npz``."""
+def train_main(case_path, out_dir, names, cases=None):
+    """One rank: each case of ``names`` (in ``cases``, default ``CASES``) on
+    its mesh (every name's mesh the world's size): the gradients of the
+    first batch, two train steps from the reference's initial params, and
+    the placements, to ``out_dir/<name>-rank<r>.npz``.  A case's
+    ``micro`` (default 0) is its ``TrainConfig.microbatch``: the rank
+    then takes its rows of each microbatch (``trainer.take_rows``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import steps
@@ -88,29 +95,26 @@ def train_main(case_path, out_dir, names):
     from repro_torch.models.convert import params_from_jax
     from repro_torch.models.registry import get_model
     from repro_torch.optim import Q8, adamw, adamw_init
-    from repro_torch.train.trainer import make_grad_fn, make_train_step
+    from repro_torch.train.trainer import make_grad_fn, make_train_step, take_rows
 
     ref = np.load(case_path)
     meshes = {}
     for name in names:
-        case = CASES[name]
+        case = (cases or CASES)[name]
         cfg = _cfg(case["arch"], case["over"])
         model = get_model(case["arch"], cfg)
         shape = case["shape"]
         mesh = meshes.setdefault(shape, make_mesh(shape, device_type="cpu"))
         tp, policy, moe_fn = steps.train_mesh(model, mesh, case["scheme"])
         tcfg = TrainConfig(**TCFG, loss_impl=case["loss"], int8_moments=case["int8"],
-                           ckpt_dir=out_dir)
+                           microbatch=case.get("micro", 0), ckpt_dir=out_dir)
         params = shard_params(params_from_jax(M.unflat(ref, f"{name}/params0/"), device="cpu"),
                               policy.params, policy)
         state = {"params": params,
                  "opt": adamw_init(params, case["int8"], policy.params, policy)}
-        axis = policy.batch_axis
-        n, i = policy.size(axis), policy.index(axis)
-
         def rows(b):
-            return {k: torch.from_numpy(np.ascontiguousarray(v[i * (B // n):(i + 1) * (B // n)]))
-                    for k, v in b.items()}
+            return {k: v.clone() for k, v in take_rows(
+                {k: torch.from_numpy(v) for k, v in b.items()}, policy, tcfg.microbatch).items()}
 
         bs = [rows(M.unflat(ref, f"{name}/batch{j}/")) for j in range(2)]
         kw = dict(tp=tp, policy=policy, moe_fn=moe_fn)
@@ -219,7 +223,7 @@ def grok_main(case_path, out_dir):
         logits, (k, v) = T.prefill(params, cfg, rows(prompts), **kw)
         out.update(prefill_logits=logits, prefill_k=k, prefill_v=v)
         kp, vp = local(ref[f"{key}/prefill_kpool"]), local(ref[f"{key}/prefill_vpool"])
-        attn = shard.decode_attn(M.B)
+        attn = shard.decode_attn()
         tok, lens = logits[:, :cfg.vocab_size].argmax(-1), rows(np.full(M.B, M.S, np.int32))
         bt = rows(M.seq_table())
         dec, toks = [], []
@@ -241,8 +245,8 @@ def cells_main(out_dir):
     """One rank of the 2 x 2 mesh: ``launch/steps.py``'s sharded prefill,
     decode and mixed cells of grok-1-314b under fake tensors (this rank's
     weight shapes), and ``build_cell(arch, "train_4k", mesh)`` for the
-    transformer family's archs (its param and batch shapes) and the
-    families of item 16b (the error)."""
+    transformer family's archs (its param and batch shapes) and the other
+    families' (their param, first-moment and batch shapes)."""
     import torch.distributed as dist
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh
@@ -259,13 +263,14 @@ def cells_main(out_dir):
         out.update({f"train/{arch}/{k}": np.array(v.shape)
                     for k, v in _leaves(state["params"])})
         out[f"train/{arch}/tokens"] = np.array(batch["tokens"].shape)
-    errors = {}
-    for arch in ("zamba2-7b", "rwkv6-7b", "seamless-m4t-medium"):
-        try:
-            steps.build_cell(arch, "train_4k", mesh)
-        except NotImplementedError as e:
-            errors[arch] = str(e)
-    out["errors"] = np.array(json.dumps(errors))
+    for arch in FAMILY_TRAIN_ARCHS:
+        cell, why = steps.build_cell(arch, "train_4k", mesh)
+        state, batch = cell["args"]
+        out.update({f"train/{arch}/{k}": np.array(v.shape)
+                    for k, v in _leaves(state["params"])})
+        out.update({f"train/{arch}/mu/{k}": np.array(v.shape)
+                    for k, v in _leaves(state["opt"]["mu"])})
+        out.update({f"train/{arch}/batch/{k}": np.array(v.shape) for k, v in batch.items()})
     np.savez(os.path.join(out_dir, f"cells-rank{dist.get_rank()}.npz"), **out)
 
 
@@ -331,7 +336,7 @@ def local_block(a, spec, coords, sizes):
     return a
 
 
-def compare(out_dir, ref, name):
+def compare(out_dir, ref, name, cases=None):
     """Each rank's outputs of case ``name`` against the reference's: per
     metric the largest relative gap, per gradient leaf its gap over the
     leaf's max |g|, the params' largest gap after each step and the
@@ -344,7 +349,7 @@ def compare(out_dir, ref, name):
     reference's own move at step 2 (``zero_nu_rel``): where ``nu`` decodes
     to 0, step 2 divides ``mu`` by about |g|, which magnifies g's
     rounding."""
-    case = CASES[name]
+    case = (cases or CASES)[name]
     world = case["shape"][0] * case["shape"][1]
     res = dict(ranks=0, loss=0.0, grad_loss=0.0, gnorm=0.0, lr=0.0, grad=0.0,
                grad_leaf="", params1=0.0, params2=0.0, over_1e4=0, n_params=0,

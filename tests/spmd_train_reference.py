@@ -99,14 +99,19 @@ def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def run_case(name, out):
-    case = R.CASES[name]
+def run_case(name, out, cases=None, prepare=None):
+    """Case ``name`` of ``cases`` (default ``mesh_train_ranks.CASES``);
+    ``prepare`` maps the initial params before anything runs."""
+    case = (cases or R.CASES)[name]
     cfg = dataclasses.replace(get_config(case["arch"]).reduced(), **case["over"])
     model = Model(case["arch"], cfg, FAMILY_MODULE[cfg.family], CACHE_KIND[cfg.family])
     mesh = mesh_of(case["shape"])
-    tcfg = TrainConfig(**R.TCFG, loss_impl=case["loss"], int8_moments=case["int8"])
+    tcfg = TrainConfig(**R.TCFG, loss_impl=case["loss"], int8_moments=case["int8"],
+                       microbatch=case.get("micro", 0))
     step, loss_fn, p_specs, o_specs, bspec, tp = train_setup(model, mesh, case["scheme"], tcfg)
     state = init_state(model, jax.random.PRNGKey(0), tcfg, tp=tp)
+    if prepare is not None:
+        state = dict(state, params=prepare(state["params"]))
     out.update(M.flat(np_tree(state["params"]), f"{name}/params0/"))
     batches = R.batches(cfg)
     for i, b in enumerate(batches):
@@ -122,9 +127,23 @@ def run_case(name, out):
         return {k: jax.device_put(jnp.asarray(v), NamedSharding(
             mesh, P(*bspec, *([None] * (v.ndim - 2))))) for k, v in b.items()}
 
+    def grads_of(params, b):
+        """The step's gradients: with microbatches the reference's own
+        accumulation (``make_train_step``'s ``compute_grads``)."""
+        m = tcfg.microbatch
+        if not m or m >= R.B:
+            return jax.grad(lambda p: loss_fn(p, b)[0])(params)
+        mb = jax.tree.map(lambda x: x.reshape((R.B // m, m) + x.shape[1:]), b)
+
+        def body(acc, micro):
+            g = jax.grad(lambda p: loss_fn(p, micro)[0])(params)
+            return jax.tree.map(jnp.add, acc, g), None
+        zero = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params)
+        g, _ = jax.lax.scan(body, zero, mb)
+        return jax.tree.map(lambda x: x / (R.B // m), g)
+
     # one program a case: the step, and the gradients of its batch
-    jstep = jax.jit(lambda s, b: step(s, b) + (jax.grad(lambda p: loss_fn(p, b)[0])(
-        s["params"]),))
+    jstep = jax.jit(lambda s, b: step(s, b) + (grads_of(s["params"], b),))
     for i, b in enumerate(batches):
         state, m, grads = jstep(state, batch_on_mesh(b))
         if i == 0:

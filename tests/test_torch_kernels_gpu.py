@@ -718,6 +718,73 @@ def test_ssd_scan_fn_on_card_matches_cpu(cuda, case):
         assert _err(a, b) <= 1e-4 * b.abs().max().item()
 
 
+@pytest.mark.parametrize("case,heads", [(SSD_CASES[0], (0, 2)), (SSD_CASES[0], (1, 1)),
+                                        (SSD_CASES[6], (56, 56)), (SSD_CASES[6], (3, 28))],
+                         ids=["H3-h0+2", "H3-h1+1", "H112-h56+56", "H112-h3+28"])
+def test_ssd_scan_fn_on_a_rank_head_slice(cuda, case, heads):
+    """K4 under grad on a mesh rank's heads, as ``models/ssm.py::mamba2_block``
+    runs it: a head range of the full x, dt and A (non-contiguous views,
+    made contiguous by ``ops.ssd_chunk_scan``), x scaled by dt and la =
+    -dt A on the slice, h0 the slice's.  The gradients of the full x, dt,
+    A, Bc, Cc and h0 on the card (K4's forward and backward kernels)
+    against the CPU's autograd of the plain scan, f32, within 1e-4 of each
+    max |g|; the slice's y and h_final within 1e-4 of the full-head call's
+    slice on the card."""
+    h0, n = heads
+    x, la, Bc, Cc, h = ssd_inputs(case, "random")
+    rng = np.random.RandomState(3)
+    dt = torch.from_numpy(np.abs(rng.standard_normal(la.shape)).astype(np.float32) * 0.1)
+    A = torch.from_numpy(rng.uniform(0.5, 2.0, x.shape[2]).astype(np.float32))
+    dy = _rand(rng, *x[:, :, h0:h0 + n].shape)
+    dh = _rand(rng, *h[:, h0:h0 + n].shape)
+    grads, outs = {}, {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (x, dt, A, Bc, Cc, h)]
+        xf, dtf, Af, bc, cc, hf = leaves
+        xs, dts = xf[:, :, h0:h0 + n], dtf[:, :, h0:h0 + n]
+        assert not xs.is_contiguous()
+        nl = (K4.launches, K4.launches_bwd)
+        y, hout = ops.ssd_chunk_scan(xs * dts[..., None], -dts * Af[h0:h0 + n], bc, cc,
+                                     hf[:, h0:h0 + n], chunk=case[5])
+        torch.autograd.backward((y, hout), (dy.to(dev), dh.to(dev)))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (K4.launches, K4.launches_bwd) == (nl[0] + 1, nl[1] + 1)
+            with torch.no_grad():
+                yw, hw = ops.ssd_chunk_scan(xf * dtf[..., None], -dtf * Af, bc, cc, hf,
+                                            chunk=case[5])
+            assert _err(y, yw[:, :, h0:h0 + n]) <= TOL["float32"]
+            assert _err(hout, hw[:, h0:h0 + n]) <= TOL["float32"]
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _err(a, b) <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("kv", [(0, 1), (1, 1)], ids=lambda k: f"kv{k[0]}+{k[1]}")
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (0, 3, 7)])
+def test_flash_lse_on_a_rank_head_subset(cuda, case, kv):
+    """K2's training forward on a mesh rank's heads: the query heads of a
+    range of KV heads (k/v's those KV heads), as contiguous copies of
+    slices of the full tensors, o within 1e-4 and lse within 1e-4 relative
+    of the full-head call's slice and of the plain version on the slice,
+    f32; one launch each."""
+    q, k, v, lens = (t.to("cuda") for t in flash_inputs(case))
+    KV, G = k.shape[2], q.shape[2] // k.shape[2]
+    k0, n = kv
+    qs, ks, vs = (t.contiguous() for t in (q[:, :, k0 * G:(k0 + n) * G],
+                                           k[:, :, k0:k0 + n], v[:, :, k0:k0 + n]))
+    for kw in (dict(), dict(window=8, softcap=25.0), dict(causal=False)):
+        n0 = K2.launches_lse
+        o, lse = K2.flash_attention_lse(qs, ks, vs, lens, scale=0.2, **kw)
+        of, lsef = K2.flash_attention_lse(q, k, v, lens, scale=0.2, **kw)
+        torch.cuda.synchronize()
+        assert K2.launches_lse == n0 + 2
+        assert _err(o, of[:, :, k0 * G:(k0 + n) * G]) <= TOL["float32"], kw
+        assert _lse_rel(lse, lsef[:, k0:k0 + n]) <= 1e-4, kw
+        want_o, want_lse = K2.flash_attention_lse_plain(qs, ks, vs, lens, scale=0.2, **kw)
+        assert _err(o, want_o) <= TOL["float32"] and _lse_rel(lse, want_lse) <= 1e-4, kw
+
+
 def test_hybrid_train_grad_on_card_matches_cpu(cuda):
     """One training gradient of the reduced zamba2 hybrid at T = 80 (two
     scan chunks, the last ragged) on the card (K4's forward and backward

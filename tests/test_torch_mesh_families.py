@@ -18,8 +18,9 @@ sharded steps, on the CPU.
   function: the sharded gated norm (``models/sharding.py::rms_norm``), one
   Mamba2 block and a recurrent step from its states, and the vocab-parallel
   embedding of encdec's and rwkv6's tables; a Mamba2 shard that would
-  split a head raises ``ValueError``, and a decode batch that does not
-  divide over data > 1 ``NotImplementedError`` (ROADMAP item 17).
+  split a head raises ``ValueError``; a decode batch that does not divide
+  over data > 1 builds replicated over data (seamless-m4t's raises
+  ``ValueError``, as the reference's step does).
 """
 import dataclasses
 import os
@@ -77,11 +78,19 @@ def test_family_sharded_steps_match_reference(runs, shape, fam, kind):
 @pytest.mark.parametrize("fam", list(F.ARCHS))
 def test_replicated_decode_batch_raises_over_data(runs, fam):
     """A decode batch that does not divide over 2 data shards (long_500k's
-    one sequence) is the reference's replicated batch: not ported, ROADMAP
-    item 17."""
+    one sequence) is the reference's replicated batch: its cell builds,
+    replicated over data with its caches (parity with the reference's
+    steps: ``test_torch_mesh_train_families.py``), but for seamless-m4t,
+    whose reference step shards its batch over data and so raises, as the
+    port does (``ValueError``, naming no ROADMAP item)."""
     out_dir, _ = runs
     for r in range(4):
-        assert bool(np.load(out_dir / f"{fam}-2x2-rank{r}.npz")["replicated_batch_raises"])
+        got = str(np.load(out_dir / f"{fam}-2x2-rank{r}.npz")["replicated_batch"])
+        if fam == "encdec":
+            assert got.startswith("ValueError") and "shards its batch" in got, got
+            assert "item" not in got, got
+        else:
+            assert "replicated over data" in got and "B=1" in got, got
 
 
 def _unit(out_dir, name):

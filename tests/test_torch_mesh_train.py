@@ -37,9 +37,12 @@ against the reference, on the CPU.
   sharded steps at ``test_torch_mesh.py``'s bounds.
 - ``train_logits`` on the 2 x 2 mesh (its logits gathered with a
   gradient) against the one-card port's, values and gradients.
-- ``build_cell(arch, "train_4k", mesh)`` for the transformer family, the
-  NotImplementedError of item 16b's families, and ``adamw.opt_specs`` at
-  the production profile against the reference's ``_opt_specs``.
+- ``build_cell(arch, "train_4k", mesh)`` for the transformer family, and
+  for the zamba2 hybrid, rwkv6 and seamless-m4t each rank's param and
+  moment shapes against the reference's ``build_train`` placements (their
+  sharded steps' parity: ``test_torch_mesh_train_families.py``);
+  ``adamw.opt_specs`` at the production profile against the reference's
+  ``_opt_specs``; the rows a rank takes of microbatches on a mesh.
 - ``relayout_attention_params`` leaf for leaf against the reference's,
   and the tp = 1 function of ``train_logits`` at tp = 8 after it
   (the reference's ``tests/test_train.py::test_elastic_relayout_preserves_function``).
@@ -150,14 +153,29 @@ def test_int8_moments_scales_span_shard_boundaries(runs):
 
 
 def test_microbatch_on_a_mesh_raises():
-    """Gradient accumulation on a mesh is refused (item 16b): the
-    reference's microbatches are rows of the global batch."""
+    """Gradient accumulation on a mesh takes the reference's rows: batch
+    shard d of n holds rows d·m/n to (d+1)·m/n - 1 of each microbatch of
+    m (its parity with the reference's step:
+    ``test_torch_mesh_train_families.py``); a microbatch that does not
+    divide over the batch shards raises ``ValueError``."""
     from repro_torch.configs import TrainConfig
-    from repro_torch.models.sharding import make_rules
-    from repro_torch.train.trainer import make_grad_fn
-    policy = Policy(make_rules(("data",), "model", fsdp=True))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        make_grad_fn(get_model("qwen3-0.6b"), TrainConfig(microbatch=2), policy=policy)
+    from repro_torch.train.trainer import make_grad_fn, rank_rows
+
+    class Rank:                 # data shard 1 of 2 (tp scheme), no process group
+        rules = {"batch": "data", "heads": "model"}
+        coords, sizes = {"data": 1, "model": 0}, {"data": 2, "model": 2}
+        size, index = Policy.size, Policy.index
+        batch_axis = property(lambda self: "data")
+        tp_axis = property(lambda self: "model")
+
+    assert rank_rows(Rank(), 8, 4) == [2, 3, 6, 7]
+    assert rank_rows(Rank(), 8) == [4, 5, 6, 7]
+    assert rank_rows(None, 3, 2) == [0, 1, 2]
+    make_grad_fn(get_model("qwen3-0.6b"), TrainConfig(microbatch=2), policy=Rank())
+    with pytest.raises(ValueError, match="does not divide"):
+        make_grad_fn(get_model("qwen3-0.6b"), TrainConfig(microbatch=3), policy=Rank())
+    with pytest.raises(ValueError, match="does not divide"):
+        rank_rows(Rank(), 8, 3)
 
 
 def test_mesh_trainer_crash_resume_bitwise(runs):
@@ -244,10 +262,36 @@ def test_grok_cells_place_weights_as_reference(runs):
         assert want["blocks/moe/w_gate"][2] == 6144 // 2 and want["embed"][1] == 6144 // 2
 
 
+def _ref_train_shapes(arch, rank):
+    """({path: this rank's param shape}, {path: its first moment's shape})
+    under the reference's ``build_train`` placements of ``arch`` at 2 x 2
+    (scheme ``tp``: ``param_pspecs(fsdp_size=2, fsdp="data")``, the
+    moments by its ``_opt_specs``)."""
+    from repro.configs import TrainConfig as JTrainConfig
+    from repro.train.trainer import init_state as jax_init_state
+    model = jax_get_model(arch)
+    st = jax.eval_shape(lambda: jax_init_state(model, jax.random.PRNGKey(0), JTrainConfig(),
+                                               jnp.bfloat16, tp=2))
+    p_specs = jax_param_pspecs(st["params"], model.cfg, tp=2, fsdp_size=2, fsdp="data")
+    o_specs = jax_opt_specs(st["opt"], p_specs, ("data",), 2)
+    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)      # noqa: E731
+
+    def local(shapes, specs):
+        flat_s = dict(M.flat(jax.tree.map(lambda s: np.array(s.shape), shapes), ""))
+        flat_p = dict(M.flat(jax.tree.map(lambda s: np.array(tuple(s), dtype=object),
+                                          specs, is_leaf=is_spec), ""))
+        return {k: local_shape(tuple(v), tuple(flat_p[k]) + (None,) * (len(v) - len(flat_p[k])),
+                               rank) for k, v in flat_s.items()}
+    return local(st["params"], p_specs), local(st["opt"]["mu"], o_specs["mu"])
+
+
 def test_build_cell_train_on_a_mesh(runs):
     """``build_cell(arch, "train_4k", mesh)`` gives the transformer family's
     rank its shards (tp scheme at 2 x 2: heads over model, D over data)
-    and its data shard's rows, and names item 16b for the others."""
+    and its data shard's rows; for zamba2-7b, rwkv6-7b and
+    seamless-m4t-medium (full size, fake tensors) each rank's param and
+    first-moment shapes are ``local_shape`` of the reference's
+    ``build_train`` placements, and its rows half the batch."""
     out_dir, _ = runs
     o = np.load(out_dir / "cells-rank0.npz")
     assert tuple(o["train/qwen3-0.6b/blocks/wq"]) == (28, 1024 // 2, 16 // 2, 128)
@@ -255,9 +299,20 @@ def test_build_cell_train_on_a_mesh(runs):
     assert tuple(o["train/qwen3-0.6b/tokens"]) == (128, 4096)
     assert tuple(o["train/olmoe-1b-7b/blocks/moe/w_gate"]) == (16, 64 // 2, 2048 // 2, 1024)
     assert tuple(o["train/internvl2-2b/tokens"]) == (128, 4096 - 256)
-    errors = json.loads(str(o["errors"]))
-    assert sorted(errors) == ["rwkv6-7b", "seamless-m4t-medium", "zamba2-7b"]
-    assert all("item 16b" in e for e in errors.values()), errors
+    for r in (0, 3):
+        o = np.load(out_dir / f"cells-rank{r}.npz")
+        for arch in R.FAMILY_TRAIN_ARCHS:
+            want_p, want_mu = _ref_train_shapes(arch, _Rank(r // 2, r % 2))
+            pre = f"train/{arch}/"
+            got_p = {k[len(pre):]: tuple(o[k]) for k in o.files
+                     if k.startswith(pre) and not k.startswith((pre + "mu/", pre + "batch/"))}
+            got_mu = {k[len(pre) + 3:]: tuple(o[k]) for k in o.files if k.startswith(pre + "mu/")}
+            assert got_p == want_p, arch
+            assert got_mu == want_mu, arch
+            assert tuple(o[pre + "batch/tokens"]) == (128, 4096), arch
+    o = np.load(out_dir / "cells-rank0.npz")
+    assert tuple(o["train/seamless-m4t-medium/batch/frames"]) == (128, 1024, 1024)
+    assert tuple(o["train/zamba2-7b/mamba/wx"]) == (68, 3584 // 2, 7168 // 2)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "grok-1-314b"])

@@ -18,8 +18,9 @@ model on a mesh against the reference, on the CPU.
   groups the concatenated [prefill; decode] tokens in contiguous blocks
   across shards; ``spmd.py`` says why the port does not).  Logits within
   1e-4, greedy tokens and so the drops equal, pages within 1e-5 a shard.
-- The schemes not ported raise ``NotImplementedError`` naming their
-  ROADMAP item; the other four families' sharded cells build.
+- Every scheme builds on a 1 x 1 mesh (every family's sharded training,
+  the decode ``2d`` scheme, whose ``flat_f`` MoE equals ``moe_apply``
+  there); the other four families' sharded serving cells build.
 """
 import dataclasses
 import os
@@ -206,17 +207,29 @@ def test_moe_apply_expert_offset_matches_reference(offset):
 
 
 def test_schemes_not_ported_raise(meshes):
+    """Every scheme of the reference's cells builds on the 1 x 1 mesh (the
+    sharded training of every family, ROADMAP items 16 and 16b; the decode
+    ``2d`` scheme and its ``flat_f`` MoE, item 17, whose parity with the
+    reference's steps is ``test_torch_mesh_train_families.py``'s); an
+    unknown decode scheme raises ``ValueError``, and so do the hooks'
+    misuses below."""
     _, mesh = meshes
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        spmd.make_sharded_moe_fn(mesh, cfg, tp=1, flat_f=True)
-    # the transformer family's sharded train step is ported (item 16); the
-    # other families' sharded training is item 16b
-    assert steps.build_cell("qwen3-0.6b", "train_4k", mesh)[0]["note"].endswith("mesh (1, 1)")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        steps.build_cell("zamba2-7b", "train_4k", mesh)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        steps.build_decode("qwen3-0.6b", scheme="2d", mesh=mesh)
+    flat = spmd.make_sharded_moe_fn(mesh, cfg, tp=1, flat_f=True)
+    lp = PM.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    x = torch.randn(5, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    y, aux = flat(lp, x)
+    want = PM.moe_apply(lp, x, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                        act=act_fn("silu" if cfg.mlp_act == "silu" else "gelu"),
+                        capacity_factor=cfg.moe_capacity_factor)
+    assert torch.equal(y, want[0]) and torch.equal(aux, want[1])
+    for arch in ("qwen3-0.6b", "zamba2-7b", "rwkv6-7b", "seamless-m4t-medium"):
+        for scheme in ("tp", "fsdp"):
+            cell = steps.build_train(arch, mesh, scheme)
+            assert cell["note"].endswith(f"scheme={scheme} mesh (1, 1)"), cell["note"]
+    assert "scheme=2d" in steps.build_decode("olmoe-1b-7b", scheme="2d", mesh=mesh)["note"]
+    with pytest.raises(ValueError, match="scheme"):
+        steps.build_decode("qwen3-0.6b", scheme="3d", mesh=mesh)
     # the other four families' cells build on the 1 x 1 mesh (ROADMAP item 15)
     for arch in ("zamba2-7b", "rwkv6-7b", "seamless-m4t-medium", "internvl2-2b"):
         cells = [steps.build_prefill(arch, mesh=mesh), steps.build_decode(arch, mesh=mesh)]
